@@ -7,20 +7,36 @@ Phases (each raises, and the script exits non-zero, on failure):
 
 1. Device: the card's name and power limit, torch and CUDA versions; TF32
    matmuls off.  No CUDA device -> exit 1 with no result.
-2. Build: nvcc compiles the main path's kernel from the checkout's source
-   (pyneuralempc_tpu_torch/csrc/riccati_sweep.cu).
-3. Kernel vs plain: the kernel against its plain PyTorch version at the
-   main path's shapes (B=4096, H=20, nx=2, nu=1) on four seeded cases, with
-   its median device time (the kernel's own events in a torch.profiler
-   trace), its time per wrapper call (CUDA events, host work included), the
-   plain version's time and the least time the card could take (bound).
-4. Main path: trains the 2x32 tanh MLP surrogate of the Lotka-Volterra
+2. Build: nvcc compiles every kernel of the port from the checkout's
+   sources (pyneuralempc_tpu_torch/csrc/*.cu), one nvcc for each source,
+   all started together; ptxas registers and spills are logged.
+3. Fused kernel vs plain: the fused sweep (csrc/riccati_sweep.cu) against
+   its plain PyTorch version at the LV path's shapes (B=4096, H=20, nx=2,
+   nu=1) on four seeded cases, with its median device time (the kernel's
+   own events in a torch.profiler trace), its time per wrapper call (CUDA
+   events, host work included), the plain version's time and the least
+   time the card could take (bound).
+3b. Streamed pair vs plain: the backward and forward kernels
+   (csrc/riccati_streamed.cu) at the quadrotor path's shapes (B=4096, H=50,
+   nx=12, nu=4) on the same four cases: the backward kernel's gains and ok
+   flags against riccati_backward_plain, the forward kernel against
+   riccati_forward_plain fed the same gains, the pair against the plain
+   sweep; then the pair against the fused kernel at (2, 1).  Times as in 3.
+4. LV path: trains the 2x32 tanh MLP surrogate of the Lotka-Volterra
    system on the card, builds NMPC as bench.py does, solves B=4096 cold and
    then warm re-plans, the plant advanced by the true ODE through the port's
    RK4.  Launch counters are zeroed just before and read just after: the
-   kernel must have launched and the plain sweep must not have run.
-5. Card vs CPU: 16 of those problems solved on the card and on the CPU.
-6. Numbers: warm re-plan p50 latency, solves/s and the time split.
+   fused kernel must have launched, the streamed pair and the plain sweep
+   must not have.
+4b. Quadrotor path: NMPC of the quadrotor (true ODE, H=50, RK4, StageCost
+   with a terminal term, box bounds) on B=4096 starts, bench.py's protocol:
+   one cold solve, one untimed warm re-plan, then timed warm re-plans, each
+   from the plan's first state.  Counters as in 4: the streamed pair must
+   have launched, the fused kernel and the plain sweep must not have.
+5. Card vs CPU: 16 LV problems and 16 quadrotor problems solved on the card
+   and on the CPU.
+6. Numbers: warm re-plan p50 latency, solves/s, the time split and the
+   device busy share, for each path.
 
 The last two lines of stdout are the kernels' JSON line and
 ``{"ok": true, "device": {...}}``.
@@ -42,11 +58,19 @@ MIN_WARM_CONVERGED = 4092
 # every output within SWEEP_TOL·max(1, max|plain|) absolute (dLam reaches
 # ~80 on the delta=10 problems, where one f32 ulp is already ~8e-6)
 SWEEP_TOL = 2e-5
+# the streamed pair at quadrotor widths: every element within
+# STREAMED_TOL·max(1, |plain|) (tests/test_pallas_kernel.py holds the
+# reference's kernel to 2e-4 at these dims)
+STREAMED_TOL = 2e-4
 CARD_VS_CPU_DU = 1e-4
 N_CARD_VS_CPU = 16
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores
-TPU_SITE = "pyneuralempc_tpu/ops/pallas/riccati_kernel.py:445"
+PALLAS = "pyneuralempc_tpu/ops/pallas/riccati_kernel.py"
+CSRC = "pyneuralempc_tpu_torch/csrc/"
+# the quadrotor path (bench.py's BASELINE config 4)
+QH, QNX, QNU = 50, 12, 4
+Q_WARM_STEPS = 4
 
 
 def log(*a):
@@ -69,10 +93,24 @@ def f_true(x, u):
     return torch.cat([d1, d2], dim=1) / 30.0
 
 
-# ---- phase 3: kernel vs plain ----
+def reset_counters(rk):
+    rk.LAUNCHES = rk.BACKWARD_LAUNCHES = rk.FORWARD_LAUNCHES = 0
+    rk.PLAIN_CALLS = 0
+
+
+def counters(rk):
+    return {"fused": rk.LAUNCHES, "backward": rk.BACKWARD_LAUNCHES,
+            "forward": rk.FORWARD_LAUNCHES, "plain": rk.PLAIN_CALLS}
+
+
+# ---- phases 3, 3b: kernels vs plain ----
+
+CASES = {"delta0": 0, "delta_per_problem": 1, "negative_curvature": 2,
+         "local_bump": 3}
+
 
 def sweep_case(kind, seed, dev, Bn=B, Hn=H, nx=2, nu=1):
-    """Seeded sweep inputs with exactly symmetric G and M (the kernel reads
+    """Seeded sweep inputs with exactly symmetric G and M (the kernels read
     upper triangles, the plain version full matrices)."""
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
@@ -97,19 +135,49 @@ def sweep_case(kind, seed, dev, Bn=B, Hn=H, nx=2, nu=1):
     elif kind == "negative_curvature":
         M[1::2, :, nx, nx] = -50.0          # every odd problem indefinite
     elif kind == "local_bump":
-        # Quu = Muu + Guu exactly at stage 1 (B = 0 there), set just below
-        # zero: rescued at the 1e-6 bump (odd problems) or only at the
-        # 1e-4 bump (problems 2 mod 4), with Qux and qu decoupled so the
-        # rescued gains stay bounded
+        # Quu's first pivot at stage 1 is Muu + Guu exactly (B = 0 there),
+        # set just below zero: rescued at the 1e-6 bump (odd problems) or
+        # only at the 1e-4 bump (problems 2 mod 4), with the first control
+        # decoupled from the states and the other controls (Qux, qu and
+        # Quu's off-diagonal zero) so the rescued gains stay bounded
         for sel, gap in ((slice(1, None, 2), 2e-7), (slice(2, None, 4), 2e-5)):
             Bm[sel, 1] = 0.0
+            for X in (G, M):
+                diag = X[sel, 1, nx, nx].clone()
+                X[sel, 1, nx, :] = 0.0
+                X[sel, 1, :, nx] = 0.0
+                X[sel, 1, nx, nx] = diag
             M[sel, 1, nx, nx] = -G[sel, 1, nx, nx] - gap
-            M[sel, 1, :nx, nx] = 0.0
-            M[sel, 1, nx, :nx] = 0.0
-            G[sel, 1, :nx, nx] = 0.0
-            G[sel, 1, nx, :nx] = 0.0
             mu[sel, 1] = 0.0
     return [t.contiguous() for t in (A, Bm, G, M, mx, mu, c, delta)]
+
+
+def expected_ok(kind, Bn):
+    if kind == "negative_curvature":
+        return torch.arange(Bn, device="cuda") % 2 == 0
+    return torch.ones(Bn, dtype=torch.bool, device="cuda")
+
+
+def check_ok(kind, got, ref):
+    if not torch.equal(got, ref):
+        raise RuntimeError(f"{kind}: ok flags differ on "
+                           f"{int((got != ref).sum())} problems")
+    want = expected_ok(kind, ref.numel())
+    if not torch.equal(ref, want):
+        raise RuntimeError(f"{kind}: ok flags {int(ref.sum())}/"
+                           f"{ref.numel()}, expected {int(want.sum())}")
+
+
+def errors(outs, refs, ok):
+    """(max |diff|, max |diff|/max(1, |plain|), [max(1, max|plain|) per
+    output]) over the ok problems."""
+    abs_err, scaled, mags = 0.0, 0.0, []
+    for o, r in zip(outs, refs):
+        d = (o - r).abs()[ok]
+        abs_err = max(abs_err, float(d.max()))
+        scaled = max(scaled, float((d / r.abs()[ok].clamp(min=1.0)).max()))
+        mags.append(max(1.0, float(r[ok].abs().max())))
+    return abs_err, scaled, mags
 
 
 def cuda_median_ms(fn, runs=25, warmup=3):
@@ -157,39 +225,46 @@ def kernel_device_ms(fn, kernel_name, runs=25):
             f"events over {runs} back-to-back calls")
 
 
+def kernel_entry(name, source, site, call, kernel_name, plain, nbytes,
+                 flops, shape, plain_runs=20):
+    """Time one kernel (device time, wrapper call, plain version) and give
+    its entry of the kernels line, launches still 0."""
+    ms, how = kernel_device_ms(call, kernel_name)
+    call_ms = cuda_median_ms(call)
+    plain_ms = cuda_median_ms(plain, runs=plain_runs, warmup=1)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    log(f"{name} kernel {shape}: device time median {ms * 1e3:.2f} us "
+        f"({how}); {call_ms * 1e3:.1f} us per wrapper call (host work "
+        f"included); plain PyTorch {plain_ms:.3f} ms; bound "
+        f"{bound_ms * 1e3:.2f} us "
+        f"({nbytes / 1e6:.2f} MB at 3.35 TB/s vs {flops / 1e6:.1f} Mflop "
+        f"at 67 TFLOP/s) -> roofline share {bound_ms / ms:.2%}")
+    return {"name": name, "route": "cuda", "source": CSRC + source,
+            "replaces": site, "launches": 0, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
 def phase_kernels(rk):
-    cases = {"delta0": 0, "delta_per_problem": 1, "negative_curvature": 2,
-             "local_bump": 3}
     worst_abs, worst_scaled = 0.0, 0.0
-    for kind, seed in cases.items():
+    for kind, seed in CASES.items():
         args = sweep_case(kind, seed, "cuda")
         out = rk.riccati_sweep_cuda(*args)
         torch.cuda.synchronize()
         ref = rk.riccati_sweep_plain(*args)
         torch.cuda.synchronize()
-        if not torch.equal(out[3], ref[3]):
-            raise RuntimeError(f"{kind}: ok flags differ on "
-                               f"{int((out[3] != ref[3]).sum())} problems")
+        check_ok(kind, out[3], ref[3])
         ok = ref[3]
-        if kind == "negative_curvature":
-            want = torch.arange(B, device="cuda") % 2 == 0
-        else:
-            want = torch.ones(B, dtype=torch.bool, device="cuda")
-        if not torch.equal(ok, want):
-            raise RuntimeError(f"{kind}: ok flags {int(ok.sum())}/{B}, "
-                               f"expected {int(want.sum())}")
-        abs_err, scaled = 0.0, 0.0
-        for label, o, r in zip(("dX", "dU", "dLam"), out[:3], ref[:3]):
-            d = (o - r).abs()[ok]
-            mag = max(1.0, float(r[ok].abs().max()))
-            err = float(d.max())
+        abs_err, scaled, mags = errors(out[:3], ref[:3], ok)
+        for label, o, r, mag in zip(("dX", "dU", "dLam"), out, ref, mags):
+            err = float((o - r).abs()[ok].max())
             if not err <= SWEEP_TOL * mag:
                 raise RuntimeError(f"{kind}: kernel {label} differs from the "
                                    f"plain sweep by {err:.3e} > "
                                    f"{SWEEP_TOL} * {mag:.3g}")
-            abs_err = max(abs_err, err)
-            scaled = max(scaled, float((d / r.abs()[ok].clamp(min=1.0))
-                                       .max()))
         log(f"kernel vs plain [{kind}]: ok {int(ok.sum())}/{B} (equal), "
             f"max |diff| {abs_err:.3e} (each output within {SWEEP_TOL} x "
             f"max(1, max|plain|)), max |diff|/max(1,|plain|) {scaled:.3e}")
@@ -200,31 +275,95 @@ def phase_kernels(rk):
         worst_scaled = max(worst_scaled, scaled)
 
     args = sweep_case("delta0", 0, "cuda")
-    ms, how = kernel_device_ms(lambda: rk.riccati_sweep_cuda(*args),
-                               "riccati_sweep_kernel")
-    call_ms = cuda_median_ms(lambda: rk.riccati_sweep_cuda(*args))
-    plain_ms = cuda_median_ms(lambda: rk.riccati_sweep_plain(*args), runs=20)
-    nbytes = rk.sweep_bytes(B, H, 2, 1)
-    flops = rk.sweep_flops(B, H, 2, 1)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    log(f"riccati_sweep kernel: device time median {ms * 1e3:.2f} us "
-        f"({how}); {call_ms * 1e3:.1f} us per wrapper call (host work "
-        f"included); plain PyTorch {plain_ms:.3f} ms; bound "
-        f"{bound_ms * 1e3:.2f} us "
-        f"({nbytes / 1e6:.2f} MB at 3.35 TB/s vs {flops / 1e6:.1f} Mflop "
-        f"at 67 TFLOP/s) -> roofline share {bound_ms / ms:.2%}")
-    return {"name": "riccati_sweep", "route": "cuda",
-            "source": "pyneuralempc_tpu_torch/csrc/riccati_sweep.cu",
-            "replaces": TPU_SITE, "launches": 0,
-            "max_abs_err": worst_abs, "max_scaled_err": worst_scaled,
-            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+    entry = kernel_entry(
+        "riccati_sweep", "riccati_sweep.cu", f"{PALLAS}:445",
+        lambda: rk.riccati_sweep_cuda(*args), "riccati_sweep_kernel",
+        lambda: rk.riccati_sweep_plain(*args), rk.sweep_bytes(B, H, 2, 1),
+        rk.sweep_flops(B, H, 2, 1), f"B={B}, H={H}, nx=2, nu=1")
+    entry.update(max_abs_err=worst_abs, max_scaled_err=worst_scaled)
+    return entry
 
 
-# ---- phase 4: main path ----
+def phase_streamed(rk):
+    """The streamed pair against its plain halves at the quadrotor path's
+    shapes, on the four cases; then against the fused kernel at (2, 1)."""
+    shape = dict(Bn=B, Hn=QH, nx=QNX, nu=QNU)
+    worst = {"backward": [0.0, 0.0], "forward": [0.0, 0.0]}
+
+    def gate(kind, what, abs_err, scaled):
+        log(f"streamed {what} vs plain [{kind}]: max |diff| {abs_err:.3e}, "
+            f"max |diff|/max(1,|plain|) {scaled:.3e} (limit {STREAMED_TOL})")
+        if not scaled <= STREAMED_TOL:
+            raise RuntimeError(f"{kind}: streamed {what} differs from plain "
+                               f"by {scaled:.3e} > {STREAMED_TOL}")
+
+    for kind, seed in CASES.items():
+        args = sweep_case(kind, seed, "cuda", **shape)
+        A, Bm, c = args[0], args[1], args[6]
+        gains, ok = rk.riccati_backward_cuda(*args)
+        torch.cuda.synchronize()
+        g_ref, ok_ref = rk.riccati_backward_plain(*args)
+        check_ok(kind, ok, ok_ref)
+        e = errors([gains], [g_ref], ok_ref)
+        gate(kind, "backward (gains)", *e[:2])
+        worst["backward"] = [max(a, b) for a, b in zip(worst["backward"],
+                                                       e[:2])]
+        out = rk.riccati_forward_cuda(A, Bm, c, gains)
+        torch.cuda.synchronize()
+        same = rk.riccati_forward_plain(A, Bm, c, gains)
+        e = errors(out, same, ok_ref)
+        gate(kind, "forward (dX, dU, dLam; same gains)", *e[:2])
+        worst["forward"] = [max(a, b) for a, b in zip(worst["forward"],
+                                                      e[:2])]
+        pair = rk.riccati_sweep_streamed_cuda(*args)
+        torch.cuda.synchronize()
+        ref = rk.riccati_sweep_plain(*args)
+        check_ok(kind, pair[3], ref[3])
+        gate(kind, "pair end to end (dX, dU, dLam)",
+             *errors(pair[:3], ref[:3], ok_ref)[:2])
+        log(f"  [{kind}] ok {int(ok.sum())}/{B} (equal to plain, as "
+            "expected)")
+        del args, gains, g_ref, out, same, pair, ref
+
+    # two CUDA designs on one function: the pair against the fused kernel
+    args = sweep_case("delta0", 0, "cuda")
+    fused = rk.riccati_sweep_cuda(*args)
+    pair = rk.riccati_sweep_streamed_cuda(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(fused[3], pair[3]):
+        raise RuntimeError("pair and fused kernel ok flags differ")
+    abs_err, scaled, _ = errors(pair[:3], fused[:3], fused[3])
+    log(f"streamed pair vs fused kernel (B={B}, H={H}, nx=2, nu=1, delta0): "
+        f"max |diff| {abs_err:.3e}, scaled {scaled:.3e} (limit {SWEEP_TOL})")
+    if not scaled <= SWEEP_TOL:
+        raise RuntimeError(f"pair and fused kernel differ by {scaled:.3e}")
+
+    args = sweep_case("delta0", 0, "cuda", **shape)
+    A, Bm, c = args[0], args[1], args[6]
+    gains, _ = rk.riccati_backward_cuda(*args)
+    dims = (B, QH, QNX, QNU)
+    label = f"B={B}, H={QH}, nx={QNX}, nu={QNU}"
+    bwd = kernel_entry(
+        "riccati_backward", "riccati_streamed.cu", f"{PALLAS}:468",
+        lambda: rk.riccati_backward_cuda(*args), "riccati_backward_kernel",
+        lambda: rk.riccati_backward_plain(*args), rk.backward_bytes(*dims),
+        rk.backward_flops(*dims), label, plain_runs=5)
+    fwd = kernel_entry(
+        "riccati_forward", "riccati_streamed.cu", f"{PALLAS}:488",
+        lambda: rk.riccati_forward_cuda(A, Bm, c, gains),
+        "riccati_forward_kernel",
+        lambda: rk.riccati_forward_plain(A, Bm, c, gains),
+        rk.forward_bytes(*dims), rk.forward_flops(*dims), label,
+        plain_runs=5)
+    for entry, key in ((bwd, "backward"), (fwd, "forward")):
+        entry.update(max_abs_err=worst[key][0], max_scaled_err=worst[key][1])
+    pair_ms = cuda_median_ms(lambda: rk.riccati_sweep_streamed_cuda(*args))
+    log(f"streamed sweep (backward + forward, one wrapper call): "
+        f"{pair_ms * 1e3:.1f} us")
+    return bwd, fwd, pair_ms
+
+
+# ---- phases 4, 4b: main paths ----
 
 def make_controller(nempc, device):
     surrogate = nempc.MLPDynamics.make(x_dim=2, u_dim=1, hidden=[32, 32])
@@ -245,6 +384,58 @@ def telemetry(tag, res):
             f"{res.converged.numel()}  iterations mean {float(it.mean()):.2f}"
             f" max {int(it.max())}  restorations "
             f"{int(res.restorations.sum())}")
+
+
+def check_plan(res, Hn, nx, nu):
+    for t in (res.u, res.x, res.objective):
+        if not bool(torch.isfinite(t).all()):
+            raise RuntimeError("non-finite plan")
+    if (tuple(res.u.shape) != (B, Hn, nu)
+            or tuple(res.x.shape) != (B, Hn, nx)):
+        raise RuntimeError(f"unexpected plan shapes {tuple(res.x.shape)}, "
+                           f"{tuple(res.u.shape)}")
+
+
+def report_split(nempc, mpc, carry, xs, res, times, sweeps, sweep_ms, card,
+                 params=None):
+    """Time split of the last warm step (stage blocks and sweeps timed
+    alone at the same shapes, times their call counts; one block
+    preparation per solver iteration of the lockstep batch), and the device
+    busy share of one more warm re-plan (same carry, result dropped) from
+    torch.profiler's kernel and copy events."""
+    solver_rt = nempc.runtime(xs, params=params)
+    solver_rt["_s_obj"] = torch.ones(B, device="cuda")
+    direction = nempc.solve.riccati.make_riccati_direction(mpc.nlp,
+                                                           mpc.config)
+    prep_ms = cuda_median_ms(
+        lambda: direction.prepare(carry.w, carry.lam, solver_rt), runs=5)
+    n_prep = int(res.iterations.max())
+    step_ms = statistics.median(times) * 1e3
+    blocks_ms = prep_ms * n_prep
+    sweeps_ms = sweep_ms * sweeps
+    log(f"[{card}] warm re-plan split (last step, estimated): stage blocks "
+        f"{blocks_ms:.1f} ms ({n_prep} x {prep_ms:.2f} ms), sweeps "
+        f"{sweeps_ms:.2f} ms ({sweeps} x {sweep_ms:.4f} ms a wrapper "
+        "call, host work included), rest "
+        f"{step_ms - blocks_ms - sweeps_ms:.1f} ms of p50 {step_ms:.1f} ms")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        mpc.next_batch(xs, params=params, carry=carry)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if dev:
+        dev_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+        log(f"[{card}] one warm re-plan: {len(dev)} device events "
+            f"(kernels and copies), {dev_ms:.1f} ms of device time -> device "
+            f"busy {dev_ms / step_ms:.1%} of the p50 re-plan")
+    else:
+        log("device busy share: not measured (the trace holds no device "
+            "events)")
+    p50 = statistics.median(times)
+    log(f"[{card}] warm re-plan B={B}: p50 {p50 * 1e3:.1f} ms, min "
+        f"{min(times) * 1e3:.1f} ms -> {B / p50:,.0f} solves/s")
 
 
 def phase_main_path(nempc, rk, card):
@@ -271,8 +462,7 @@ def phase_main_path(nempc, rk, card):
                    axis=1).astype(np.float32)
     plant = step_fn(nempc.torch_dynamics(f_true, 2, 1), "rk4", DT)
 
-    rk.LAUNCHES = 0
-    rk.PLAIN_CALLS = 0
+    reset_counters(rk)
     t0 = time.perf_counter()
     xs = torch.as_tensor(x0s, device="cuda")
     carry, res = mpc.next_batch(xs, params=params)
@@ -292,82 +482,119 @@ def phase_main_path(nempc, rk, card):
         launches.append(rk.LAUNCHES - n0)
         log(f"warm {step}: {times[-1] * 1e3:.1f} ms  sweeps "
             f"{launches[-1]}  " + telemetry("warm", res))
-    main_launches, plain_calls = rk.LAUNCHES, rk.PLAIN_CALLS
-    log(f"main path: riccati_sweep kernel launches {main_launches}, plain "
-        f"sweep calls {plain_calls}")
-    if main_launches <= 0 or plain_calls != 0:
-        raise RuntimeError("the main path did not go through the kernel")
+    n = counters(rk)
+    log(f"LV path: fused kernel launches {n['fused']}, streamed backward "
+        f"{n['backward']} / forward {n['forward']}, plain sweep calls "
+        f"{n['plain']}")
+    if (n["fused"] <= 0 or n["plain"] != 0 or n["backward"] != 0
+            or n["forward"] != 0):
+        raise RuntimeError("the LV path did not go through the fused "
+                           "kernel alone")
     if min(conv) < MIN_WARM_CONVERGED:
         raise RuntimeError(f"warm convergence {conv} below "
                            f"{MIN_WARM_CONVERGED}/{B}")
-    for t in (res.u, res.x, res.objective):
-        if not bool(torch.isfinite(t).all()):
-            raise RuntimeError("non-finite plan in the last warm step")
-    if tuple(res.u.shape) != (B, H, 1) or tuple(res.x.shape) != (B, H, 2):
-        raise RuntimeError(f"unexpected plan shapes {tuple(res.x.shape)}, "
-                           f"{tuple(res.u.shape)}")
+    check_plan(res, H, 2, 1)
+    log(f"converged per warm step {conv}")
 
-    # time split: stage blocks and sweeps timed alone at the same shapes,
-    # times their call counts in the last warm step (one block
-    # preparation per solver iteration of the lockstep batch)
-    solver_rt = nempc.runtime(xs, params=params)
-    solver_rt["_s_obj"] = torch.ones(B, device="cuda")
-    direction = nempc.solve.riccati.make_riccati_direction(mpc.nlp,
-                                                           mpc.config)
-    prep_ms = cuda_median_ms(
-        lambda: direction.prepare(carry.w, carry.lam, solver_rt), runs=5)
     args = sweep_case("delta0", 0, "cuda")
     sweep_ms = cuda_median_ms(lambda: rk.riccati_sweep_cuda(*args))
-    n_prep = int(res.iterations.max())
-    step_ms = statistics.median(times) * 1e3
-    blocks_ms = prep_ms * n_prep
-    sweeps_ms = sweep_ms * launches[-1]
-    log(f"[{card}] warm re-plan split (last step, estimated): stage blocks "
-        f"{blocks_ms:.1f} ms ({n_prep} x {prep_ms:.2f} ms), sweeps "
-        f"{sweeps_ms:.2f} ms ({launches[-1]} x {sweep_ms:.4f} ms a wrapper "
-        "call, host work included), rest "
-        f"{step_ms - blocks_ms - sweeps_ms:.1f} ms of p50 {step_ms:.1f} ms")
-    # device time of one more warm re-plan (same carry, result dropped),
-    # from torch.profiler's kernel and copy events, over the unprofiled p50
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        mpc.next_batch(xs, params=params, carry=carry)
+    report_split(nempc, mpc, carry, xs, res, times, launches[-1], sweep_ms,
+                 card, params=params)
+    return params, x0s, n["fused"]
+
+
+def phase_quadrotor(nempc, rk, card, pair_ms):
+    from pyneuralempc_tpu_torch.examples.quadrotor import (make_quadrotor_mpc,
+                                                           quad_x0s)
+
+    mpc = make_quadrotor_mpc("cuda", H=QH)
+    log(f"quadrotor: kkt backend {mpc.kkt_backend}; sweep plan: "
+        f"{rk.kernel_plan(QH, QNX, QNU, 'cuda')}")
+    x0s = quad_x0s(np.random.default_rng(0), B)
+    xs = torch.as_tensor(x0s, device="cuda")
+
+    reset_counters(rk)
+    t0 = time.perf_counter()
+    carry, res = mpc.next_batch(xs)
+    torch.cuda.synchronize()
+    log(f"quadrotor cold B={B}, H={QH}: {time.perf_counter() - t0:.2f} s  "
+        + telemetry("cold", res))
+    conv = [int(res.converged.sum())]
+    check_plan(res, QH, QNX, QNU)
+    p_start = float(torch.linalg.norm(xs[:, :3], dim=1).mean())
+    p_end = float(torch.linalg.norm(res.x[:, -1, :3], dim=1).mean())
+    log(f"mean |position|: start {p_start:.3f} -> end of the cold plan "
+        f"{p_end:.3f} (limit 0.7 x start)")
+    if not p_end < 0.7 * p_start:
+        raise RuntimeError("quadrotor plans do not approach hover")
+
+    t0 = time.perf_counter()
+    xs = res.x[:, 0].contiguous()
+    carry, res = mpc.next_batch(xs, carry=carry)
+    torch.cuda.synchronize()
+    conv.append(int(res.converged.sum()))
+    log(f"warm (untimed): {(time.perf_counter() - t0) * 1e3:.1f} ms  "
+        + telemetry("warm", res))
+    times, launches = [], []
+    for step in range(Q_WARM_STEPS):
+        xs = res.x[:, 0].contiguous()
+        n0 = rk.BACKWARD_LAUNCHES
+        t0 = time.perf_counter()
+        carry, res = mpc.next_batch(xs, carry=carry)
         torch.cuda.synchronize()
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    if dev:
-        dev_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
-        log(f"[{card}] one warm re-plan: {len(dev)} device events "
-            f"(kernels and copies), {dev_ms:.1f} ms of device time -> device "
-            f"busy {dev_ms / step_ms:.1%} of the p50 re-plan")
-    else:
-        log("device busy share: not measured (the trace holds no device "
-            "events)")
-    p50 = statistics.median(times)
-    log(f"[{card}] warm re-plan B={B}: p50 {p50 * 1e3:.1f} ms, min "
-        f"{min(times) * 1e3:.1f} ms -> {B / p50:,.0f} solves/s; converged "
-        f"per step {conv}")
-    return params, x0s, main_launches
+        times.append(time.perf_counter() - t0)
+        conv.append(int(res.converged.sum()))
+        launches.append(rk.BACKWARD_LAUNCHES - n0)
+        log(f"warm {step}: {times[-1] * 1e3:.1f} ms  sweeps "
+            f"{launches[-1]}  " + telemetry("warm", res))
+    n = counters(rk)
+    log(f"quadrotor path: streamed backward launches {n['backward']}, "
+        f"forward {n['forward']}, fused kernel {n['fused']}, plain sweep "
+        f"calls {n['plain']}")
+    if (n["backward"] <= 0 or n["forward"] != n["backward"]
+            or n["fused"] != 0 or n["plain"] != 0):
+        raise RuntimeError("the quadrotor path did not go through the "
+                           "streamed pair alone")
+    if min(conv) < MIN_WARM_CONVERGED:
+        raise RuntimeError(f"quadrotor convergence {conv} (cold, warm...) "
+                           f"below {MIN_WARM_CONVERGED}/{B}")
+    check_plan(res, QH, QNX, QNU)
+    log(f"converged: cold, then every warm step {conv}")
+    report_split(nempc, mpc, carry, xs, res, times, launches[-1], pair_ms,
+                 card)
+    return x0s, n["backward"], n["forward"]
 
 
-def phase_card_vs_cpu(nempc, params, x0s):
-    x0s = x0s[:N_CARD_VS_CPU]
-    out = {}
-    for dev in ("cuda", "cpu"):
-        mpc = make_controller(nempc, dev)
-        p_dev = [{k: v.to(dev) for k, v in layer.items()} for layer in params]
-        _, res = mpc.next_batch(torch.as_tensor(x0s, device=dev),
-                                params=p_dev)
-        out[dev] = res
+# ---- phase 5: card vs CPU ----
+
+def card_vs_cpu(tag, solve):
+    out = {dev: solve(dev) for dev in ("cuda", "cpu")}
     du = float((out["cuda"].u.cpu() - out["cpu"].u).abs().max())
     same = bool(torch.equal(out["cuda"].converged.cpu(),
                             out["cpu"].converged))
-    log(f"card vs CPU ({N_CARD_VS_CPU} cold solves): max |du| {du:.3e}, "
-        f"converged masks equal: {same}")
+    log(f"card vs CPU ({tag}, {N_CARD_VS_CPU} cold solves): max |du| "
+        f"{du:.3e}, converged masks equal: {same}")
     if not (du <= CARD_VS_CPU_DU and same):
-        raise RuntimeError(f"card and CPU solves differ: |du| {du:.3e}, "
-                           f"masks equal {same}")
+        raise RuntimeError(f"{tag}: card and CPU solves differ: |du| "
+                           f"{du:.3e}, masks equal {same}")
+
+
+def phase_card_vs_cpu(nempc, params, x0s, q_x0s):
+    from pyneuralempc_tpu_torch.examples.quadrotor import make_quadrotor_mpc
+
+    def lv(dev):
+        mpc = make_controller(nempc, dev)
+        p_dev = [{k: v.to(dev) for k, v in layer.items()} for layer in params]
+        return mpc.next_batch(torch.as_tensor(x0s[:N_CARD_VS_CPU],
+                                              device=dev), params=p_dev)[1]
+
+    def quad(dev):
+        mpc = make_quadrotor_mpc(dev, H=QH)
+        return mpc.next_batch(torch.as_tensor(q_x0s[:N_CARD_VS_CPU],
+                                              device=dev))[1]
+
+    card_vs_cpu("LV", lv)
+    card_vs_cpu(f"quadrotor, H={QH}", quad)
 
 
 def main():
@@ -388,26 +615,30 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     log("TF32 off for matmuls and cuDNN (full f32)")
 
-    # phase 2: build
+    # phase 2: build, one nvcc for each source, all at once
     t0 = time.perf_counter()
-    r = build.build(build.CSRC_DIR / rk.SOURCE)
-    log(f"built {rk.SOURCE} -> {r.path.name} in {r.seconds:.1f} s")
-    for line in r.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    sources = (rk.SOURCE, rk.STREAMED_SOURCE)
+    for src, r in zip(sources,
+                      build.build_all([build.CSRC_DIR / s for s in sources])):
+        log(f"built {src} -> {r.path.name} in {r.seconds:.1f} s")
+        for line in r.log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"  ptxas: {line.strip()}")
     log(f"build phase {time.perf_counter() - t0:.1f} s")
 
-    # phase 3: kernel vs plain
-    kernel = phase_kernels(rk)
+    # phases 3, 3b: kernels vs plain
+    fused = phase_kernels(rk)
+    bwd, fwd, pair_ms = phase_streamed(rk)
 
-    # phases 4, 6: main path and its numbers
-    params, x0s, launches = phase_main_path(nempc, rk, card)
-    kernel["launches"] = launches
+    # phases 4, 4b, 6: main paths and their numbers
+    params, x0s, fused["launches"] = phase_main_path(nempc, rk, card)
+    q_x0s, bwd["launches"], fwd["launches"] = phase_quadrotor(nempc, rk, card,
+                                                              pair_ms)
 
     # phase 5: card vs CPU
-    phase_card_vs_cpu(nempc, params, x0s)
+    phase_card_vs_cpu(nempc, params, x0s, q_x0s)
 
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [fused, bwd, fwd]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -6,7 +6,9 @@ in as the system dynamics; the package transcribes the nonlinear program
 (multiple-shooting defects, economic objective, exact derivatives by
 ``torch.func``) and solves a whole batch of MPC problems with a batched
 primal-dual interior-point method.  Its KKT systems go through a
-block-tridiagonal Riccati sweep, a hand-written CUDA kernel on the card.
+block-tridiagonal Riccati sweep, hand-written CUDA kernels on the card.
+:mod:`.examples.quadrotor` is the quadrotor fleet (12 states, 4 thrusts,
+H=50).
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``.

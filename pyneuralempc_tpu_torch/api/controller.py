@@ -7,7 +7,7 @@ convenience state (``next``) and an explicit functional carry
 as one batch-first solve.
 
 The controller runs on ``device`` ("cuda" unless the caller asks for
-"cpu").  On the card the KKT sweep is the hand-written CUDA kernel; on the
+"cpu").  On the card the KKT sweep runs as hand-written CUDA kernels; on the
 CPU it is its plain PyTorch version.
 """
 

@@ -4,7 +4,8 @@ Each source under ``pyneuralempc_tpu_torch/csrc/`` is compiled by ``nvcc``
 for Hopper (``sm_90a``) into a shared library with a plain C interface, in
 ``pyneuralempc_tpu_torch/_build/``.  The library's file name carries a hash
 of the source and the flags, so an edited source builds anew and an
-unchanged one loads from the build directory.  Nothing here runs at import
+unchanged one loads from the build directory.  :func:`build_all` starts one
+``nvcc`` for each source at once.  Nothing here runs at import
 time: the CPU tests import this module on machines without ``nvcc``.
 """
 
@@ -63,24 +64,46 @@ def nvcc_command(nvcc: str, source: Path, out: Path,
     return [nvcc, *flags, "-o", str(out), str(source)]
 
 
+def build_all(sources: Sequence[Path]) -> List[BuildResult]:
+    """Build every source that is not built already, one ``nvcc`` for each,
+    all started together.  Raises with nvcc's output if a build fails
+    (after every build has ended)."""
+    results: List[BuildResult] = [None] * len(sources)
+    running = []
+    for n, source in enumerate(sources):
+        out = library_path(source)
+        if out.exists():
+            results[n] = BuildResult(out, 0.0, "")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        proc = subprocess.Popen(nvcc_command(find_nvcc(), source, tmp),
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running.append((n, source, out, tmp, proc, time.perf_counter()))
+    failed = []
+    try:
+        for n, source, out, tmp, proc, t0 in running:
+            log, _ = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {source.name} "
+                              f"(exit {proc.returncode}):\n{log}")
+                continue
+            os.replace(tmp, out)   # atomic: a loader never sees half a library
+            results[n] = BuildResult(out, time.perf_counter() - t0, log)
+    finally:
+        for *_, proc, _t0 in running:   # none outlives a failed build
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return results
+
+
 def build(source: Path) -> BuildResult:
-    """Build ``source`` unless it is built already.  Raises with nvcc's
-    output if the build fails."""
-    out = library_path(source)
-    if out.exists():
-        return BuildResult(out, 0.0, "")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    t0 = time.perf_counter()
-    proc = subprocess.run(nvcc_command(find_nvcc(), source, tmp),
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True, timeout=900)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source.name} "
-                           f"(exit {proc.returncode}):\n{proc.stdout}")
-    seconds = time.perf_counter() - t0
-    os.replace(tmp, out)      # atomic: a loader never sees half a library
-    return BuildResult(out, seconds, proc.stdout)
+    """Build ``source`` unless it is built already (see :func:`build_all`)."""
+    return build_all([source])[0]
 
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

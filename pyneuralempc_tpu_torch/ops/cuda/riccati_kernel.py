@@ -1,29 +1,41 @@
-"""The fused plain Riccati sweep: CUDA kernel, plain PyTorch version,
-dispatch.
+"""The plain Riccati sweep: CUDA kernels, plain PyTorch versions, dispatch.
 
-Replaces ``pyneuralempc_tpu/ops/pallas/riccati_kernel.py``
-``_riccati_pallas_call``'s fused branch (:419-465), the one TPU kernel on the
-LV fleet's main path.  The kernel is ``csrc/riccati_sweep.cu`` (one thread
-per problem, backward then forward in one launch; see the note at the top
-of that file for what bounds it).
+Replaces the plain sweep of ``pyneuralempc_tpu/ops/pallas/riccati_kernel.py``
+``_riccati_pallas_call``: its fused branch (:419-465) and its streamed pair,
+the backward kernel (:468) and the forward kernel (:488).
 
-* :func:`riccati_sweep_plain` — the plain PyTorch version, batch-first,
-  a port of ``solve/riccati.py`` ``riccati_sweep_ref`` with the per-stage
-  ``_LOCAL_DELTAS`` retry.  CPU tensors take it; ``chip_smoke.py`` holds
-  the kernel against it on the card.
-* :func:`riccati_sweep_cuda` — checks its inputs, allocates outputs and
-  scratch, launches the kernel on PyTorch's current stream.
-* :func:`riccati_sweep` — the dispatch the solver calls: CPU tensors go to
-  the plain version, CUDA tensors to the kernel when :func:`kernel_plan`
-  has an instantiation for their shape, and anything else raises.  It
-  never drops a CUDA tensor to the plain version.
+* ``csrc/riccati_sweep.cu`` — the fused sweep, one thread per problem,
+  backward then forward in one launch, instantiated for (nx, nu) in
+  ``_INSTANCES`` (the LV fleet's (2, 1)).
+* ``csrc/riccati_streamed.cu`` — the streamed pair, one warp per problem,
+  any nx <= 32 and nu <= 16 at run time: the backward kernel writes each
+  stage's gains to device memory, the forward kernel reads them back.
 
-``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` calls of the plain
-version, so a run can show which path it took.
+Beside them:
+
+* :func:`riccati_backward_plain`, :func:`riccati_forward_plain` — the plain
+  PyTorch versions of the two halves (a port of ``solve/riccati.py``
+  ``riccati_sweep_ref`` with the per-stage ``_LOCAL_DELTAS`` retry);
+  :func:`riccati_sweep_plain` is their composition.  CPU tensors take them;
+  ``chip_smoke.py`` holds the kernels against them on the card.
+* :func:`riccati_sweep_cuda`, :func:`riccati_backward_cuda`,
+  :func:`riccati_forward_cuda`, :func:`riccati_sweep_streamed_cuda` — check
+  their inputs, allocate outputs and scratch, launch on PyTorch's current
+  stream.
+* :func:`riccati_sweep` — the dispatch the solver calls, on
+  :func:`kernel_plan`.  It never drops a CUDA tensor to a plain version.
+
+``LAUNCHES`` counts fused launches, ``BACKWARD_LAUNCHES`` and
+``FORWARD_LAUNCHES`` the streamed pair's, and ``PLAIN_CALLS`` calls of a
+plain version (a whole plain sweep counts once), so a run can show which
+path it took.
 
 All functions take batch-first tensors: A (B,H,nx,nx), B (B,H,nx,nu),
 G and M (B,H,ns,ns) symmetric, mx (B,H,nx), mu (B,H,nu), c (B,H,nx),
-delta (B,); they return dX (B,H,nx), dU (B,H,nu), dLam (B,H,nx), ok (B,).
+delta (B,); a sweep returns dX (B,H,nx), dU (B,H,nu), dLam (B,H,nx), ok (B,).
+The gains between the two halves are (B,H,gain_width(nx, nu)), each stage
+laid out ``[K | k | Pbar | pbar | Mxu]`` (K (nu,nx) and Mxu (nx,nu)
+row-major).
 """
 
 from __future__ import annotations
@@ -39,69 +51,158 @@ _LOCAL_DELTAS = (0.0, 1e-6, 1e-4)
 
 # (nx, nu) pairs that csrc/riccati_sweep.cu instantiates.
 _INSTANCES = frozenset({(2, 1)})
+# Stage widths csrc/riccati_streamed.cu takes: one lane per state row in
+# the forward kernel; nu <= 16 is the reference kernel's own cap.
+STREAMED_MAX_NX = 32
+STREAMED_MAX_NU = 16
 
-LAUNCHES = 0      # kernel launches by riccati_sweep_cuda
-PLAIN_CALLS = 0   # calls of riccati_sweep_plain
+LAUNCHES = 0            # fused kernel launches by riccati_sweep_cuda
+BACKWARD_LAUNCHES = 0   # streamed backward launches by riccati_backward_cuda
+FORWARD_LAUNCHES = 0    # streamed forward launches by riccati_forward_cuda
+PLAIN_CALLS = 0         # calls of a plain version
 
 SOURCE = "riccati_sweep.cu"
+STREAMED_SOURCE = "riccati_streamed.cu"
 
 
-def gain_width(nx: int, nu: int) -> int:
-    """Floats of per-stage scratch: K, k, Pbar, pbar, Mxu."""
-    return nu * nx + nu + nx * nx + nx + nx * nu
+def gain_width(nx: int, nu: int, R: int = 1, r: int = 0) -> int:
+    """Floats of per-stage gains: K, k, Pbar, pbar, Mxu (and, for the
+    general sweep's R right-hand sides and r stage-equality rows, Knu and
+    knu)."""
+    return (nu * nx + R * nu + nx * nx + R * nx + nx * nu
+            + r * nx + R * r)
+
+
+def _streamed_fits(nx: int, nu: int) -> bool:
+    return 1 <= nx <= STREAMED_MAX_NX and 1 <= nu <= STREAMED_MAX_NU
 
 
 def kernel_plan(H: int, nx: int, nu: int, device) -> dict:
     """Which sweep a problem of these dims takes on ``device``, and why.
 
     A pure function of (H, nx, nu, device type): ``{"path": "plain" |
-    "cuda" | "unsupported", "reason": str}``.
+    "cuda_fused" | "cuda_streamed" | "unsupported", "reason": str}``.
     """
     kind = torch.device(device).type
     if kind == "cpu":
         return {"path": "plain",
                 "reason": "CPU tensors take the plain PyTorch sweep"}
-    if kind == "cuda" and H >= 1 and (nx, nu) in _INSTANCES:
-        return {"path": "cuda",
-                "reason": f"csrc/{SOURCE} instantiates <{nx}, {nu}>"}
+    if kind == "cuda" and H >= 1:
+        if (nx, nu) in _INSTANCES:
+            return {"path": "cuda_fused",
+                    "reason": f"csrc/{SOURCE} instantiates <{nx}, {nu}>"}
+        if _streamed_fits(nx, nu):
+            return {"path": "cuda_streamed",
+                    "reason": f"csrc/{STREAMED_SOURCE} takes nx={nx}, "
+                              f"nu={nu} at run time"}
     return {"path": "unsupported",
             "reason": (f"no CUDA sweep for H={H}, nx={nx}, nu={nu} on "
                        f"{kind}: csrc/{SOURCE} instantiates "
-                       f"{sorted(_INSTANCES)} only (ROADMAP Queue 2 #2-#3 "
-                       "port the streamed sweeps for larger stages)")}
+                       f"{sorted(_INSTANCES)} and csrc/{STREAMED_SOURCE} "
+                       f"takes nx <= {STREAMED_MAX_NX}, nu <= "
+                       f"{STREAMED_MAX_NU} (the reference kernel's own nu "
+                       "cap)")}
 
 
-def sweep_bytes(Bn: int, H: int, nx: int, nu: int) -> int:
-    """Least bytes the sweep must move: every input read once (G and M as
-    given, full ns×ns), every output written once."""
+# ---- bytes and operations (the least the card must do) ----
+#
+# R (right-hand sides) and r (stage-equality rows) give the same counts for
+# the general sweep (ROADMAP Queue 2 #4-#6, not ported yet); the plain
+# sweep is R=1, r=0.
+
+def _bwd_stage_flops(nx: int, nu: int, R: int = 1, r: int = 0) -> int:
+    """Operations of one backward stage, counted from its formulae with one
+    Cholesky factorisation of Quu (and of the Schur complement S when
+    r > 0) at the δ=0 level."""
+    n = (2 * nx * nx                          # Pbar
+         + R * nx                             # pbar
+         + 2 * nx * nx * nx                   # PA
+         + 2 * nx * nx * nu                   # PB
+         + 2 * nx * nx * nx + nx * nx         # Qxx
+         + 2 * nu * nu * nx                   # BtMxu
+         + nu * nu * (2 * nx + 5)             # Quu
+         + nu * nx * (4 * nx + 2)             # Qux
+         + R * nx * (2 * nx + 1)              # Pc_p
+         + R * 2 * nx * nx                    # qx
+         + R * nu * (4 * nx + 2)              # qu
+         + nu * nu * nu // 3 + 2 * nu         # Cholesky
+         + (nx + R + r) * 2 * nu * nu         # substitutions
+         + nx * nx * (2 * nu + 2 * r + 2)     # P update + symmetrise
+         + R * nx * (2 * nu + 2 * r))         # p update
+    if r:
+        n += (r * r * (2 * nu + 1)            # S = E Y + δ_c I
+              + (nx + R) * r * (2 * nu + 1)   # Schur right-hand sides
+              + r * r * r // 3 + 2 * r        # Cholesky of S
+              + (nx + R) * 2 * r * r          # its substitutions
+              + nu * nx * 2 * r + R * nu * 2 * r)   # K, k corrections
+    return n
+
+
+def _fwd_stage_flops(nx: int, nu: int, R: int = 1, r: int = 0) -> int:
     ns = nx + nu
-    ins = H * (nx * nx + nx * nu + 2 * ns * ns + 2 * nx + nu) + 1
-    outs = H * (2 * nx + nu)
-    return 4 * Bn * (ins + outs) + Bn          # + one ok byte a problem
+    return R * (2 * nu * nx + nu               # du
+                + r * (2 * nx + 1)             # dnu
+                + nx * (2 * ns + 1)            # dx'
+                + nx * (2 * ns + 1 + 2 * r))   # dlam
 
 
-def sweep_flops(Bn: int, H: int, nx: int, nu: int) -> int:
-    """Floating-point operations of one sweep, counted from its formulae
-    with one Cholesky factorisation a stage (the δ=0 level)."""
+def _input_floats(H: int, nx: int, nu: int, R: int = 1, r: int = 0) -> int:
+    """A, B, G, M (full ns×ns, as given), mx, mu, c (and h, E, F) of one
+    problem, with its δ (and δ_c)."""
     ns = nx + nu
-    bwd = (2 * nx * nx                        # Pbar
-           + nx                               # pbar
-           + 2 * nx * nx * nx                 # PA
-           + 2 * nx * nx * nu                 # PB
-           + 2 * nx * nx * nx + nx * nx       # Qxx
-           + 2 * nu * nu * nx                 # BtMxu
-           + nu * nu * (2 * nx + 5)           # Quu
-           + nu * nx * (4 * nx + 2)           # Qux
-           + nx * (2 * nx + 1)                # Pc_p
-           + 2 * nx * nx                      # qx
-           + nu * (4 * nx + 2)                # qu
-           + nu * nu * nu // 3 + 2 * nu       # Cholesky
-           + (nx + 1) * 2 * nu * nu           # substitutions
-           + nx * nx * (2 * nu + 2)           # P update + symmetrise
-           + nx * (2 * nu))                   # p update
-    fwd = 2 * nu * nx + nu + nx * (2 * ns + 1) + nx * (2 * ns + 1)
-    return Bn * H * (bwd + fwd)
+    per_stage = (nx * nx + nx * nu + 2 * ns * ns + R * (2 * nx + nu)
+                 + r * (R + nu + nx))
+    return H * per_stage + 1 + (1 if r else 0)
 
+
+def _output_floats(H: int, nx: int, nu: int, R: int = 1, r: int = 0) -> int:
+    """dX, dU, dLam (and dNu) of one problem."""
+    return H * R * (2 * nx + nu + r)
+
+
+def sweep_bytes(Bn: int, H: int, nx: int, nu: int, R: int = 1,
+                r: int = 0) -> int:
+    """Least bytes a fused sweep must move: every input read once (Jx too
+    when r > 0), every output written once, one ok byte a problem."""
+    ins = _input_floats(H, nx, nu, R, r) + H * r * nx
+    return 4 * Bn * (ins + _output_floats(H, nx, nu, R, r)) + Bn
+
+
+def sweep_flops(Bn: int, H: int, nx: int, nu: int, R: int = 1,
+                r: int = 0) -> int:
+    """Operations of one sweep (backward and forward)."""
+    return Bn * H * (_bwd_stage_flops(nx, nu, R, r)
+                     + _fwd_stage_flops(nx, nu, R, r))
+
+
+def backward_bytes(Bn: int, H: int, nx: int, nu: int, R: int = 1,
+                   r: int = 0) -> int:
+    """Least bytes a streamed backward kernel must move: the sweep's inputs
+    read once, the gains written once, one ok byte a problem."""
+    outs = H * gain_width(nx, nu, R, r)
+    return 4 * Bn * (_input_floats(H, nx, nu, R, r) + outs) + Bn
+
+
+def backward_flops(Bn: int, H: int, nx: int, nu: int, R: int = 1,
+                   r: int = 0) -> int:
+    return Bn * H * _bwd_stage_flops(nx, nu, R, r)
+
+
+def forward_bytes(Bn: int, H: int, nx: int, nu: int, R: int = 1,
+                  r: int = 0) -> int:
+    """Least bytes a streamed forward kernel must move: A, B, c (and Jx)
+    and the gains read once, dX, dU, dLam (and dNu) written once."""
+    ins = H * (nx * nx + nx * nu + R * nx + r * nx
+               + gain_width(nx, nu, R, r))
+    return 4 * Bn * (ins + _output_floats(H, nx, nu, R, r))
+
+
+def forward_flops(Bn: int, H: int, nx: int, nu: int, R: int = 1,
+                  r: int = 0) -> int:
+    return Bn * H * _fwd_stage_flops(nx, nu, R, r)
+
+
+# ---- plain PyTorch versions ----
 
 def _chol_local_retry(Q, eye):
     """Batched Cholesky with the ``_LOCAL_DELTAS`` escalation (first
@@ -129,11 +230,7 @@ def _mv(Mat, v):
     return (Mat @ v.unsqueeze(-1)).squeeze(-1)
 
 
-def riccati_sweep_plain(A, B, G, M, mx, mu, c, delta):
-    """Plain PyTorch sweep: a Python loop backward over the horizon, then
-    forward, each stage a batched small-matrix step."""
-    global PLAIN_CALLS
-    PLAIN_CALLS += 1
+def _backward(A, B, G, M, mx, mu, c, delta):
     Bn, H, nx = c.shape
     nu = B.shape[-1]
     ns = nx + nu
@@ -166,56 +263,84 @@ def riccati_sweep_plain(A, B, G, M, mx, mu, c, delta):
         P_new = Qxx + Qux.mT @ K
         P = 0.5 * (P_new + P_new.mT)
         p = qx + _mv(Qux.mT, k)
-        gains[t] = (K, k, Pbar, pbar, Mxu)
+        gains[t] = torch.cat([K.reshape(Bn, nu * nx), k,
+                              Pbar.reshape(Bn, nx * nx), pbar,
+                              Mxu.reshape(Bn, nx * nu)], dim=-1)
+    return torch.stack(gains, 1), okc
 
+
+def _forward(A, B, c, gains):
+    Bn, H, nx = c.shape
+    nu = B.shape[-1]
+    o_k, o_Pb = nu * nx, nu * nx + nu
+    o_pb = o_Pb + nx * nx
+    o_Mxu = o_pb + nx
     dx = torch.zeros((Bn, nx), dtype=A.dtype, device=A.device)
     dXs, dUs, dLams = [], [], []
     for t in range(H):
-        K, k, Pbar, pbar, Mxu = gains[t]
-        du = _mv(K, dx) + k
+        g = gains[:, t]
+        K = g[:, :o_k].reshape(Bn, nu, nx)
+        Pbar = g[:, o_Pb:o_pb].reshape(Bn, nx, nx)
+        Mxu = g[:, o_Mxu:].reshape(Bn, nx, nu)
+        du = _mv(K, dx) + g[:, o_k:o_Pb]
         dx = _mv(A[:, t], dx) + _mv(B[:, t], du) + c[:, t]
         dXs.append(dx)
         dUs.append(du)
-        dLams.append(_mv(Pbar, dx) + _mv(Mxu, du) + pbar)
-    return (torch.stack(dXs, 1), torch.stack(dUs, 1), torch.stack(dLams, 1),
-            okc)
+        dLams.append(_mv(Pbar, dx) + _mv(Mxu, du) + g[:, o_pb:o_Mxu])
+    return torch.stack(dXs, 1), torch.stack(dUs, 1), torch.stack(dLams, 1)
 
 
-_ENTRY = None     # the kernel's C entry point, bound on first launch
+def riccati_backward_plain(A, B, G, M, mx, mu, c, delta):
+    """Plain backward sweep: a Python loop from the last stage to the
+    first, each stage a batched small-matrix step.  Returns ``(gains,
+    ok)``."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
+    return _backward(A, B, G, M, mx, mu, c, delta)
 
 
-def _entry():
-    global _ENTRY
-    if _ENTRY is None:
+def riccati_forward_plain(A, B, c, gains):
+    """Plain forward sweep from the backward sweep's gains: du = K dx + k,
+    dx' = A dx + B du + c, dlam = Pbar dx' + Mxu du + pbar.  Returns
+    ``(dX, dU, dLam)``."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
+    return _forward(A, B, c, gains)
+
+
+def riccati_sweep_plain(A, B, G, M, mx, mu, c, delta):
+    """Plain sweep: :func:`riccati_backward_plain` then
+    :func:`riccati_forward_plain`."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
+    gains, ok = _backward(A, B, G, M, mx, mu, c, delta)
+    return _forward(A, B, c, gains) + (ok,)
+
+
+# ---- CUDA wrappers ----
+
+_ENTRIES = {}     # C entry points, bound on first launch
+
+
+def _entry(source, name, n_ptrs):
+    fn = _ENTRIES.get(name)
+    if fn is None:
         from .build import load
-        fn = load(SOURCE).riccati_sweep_f32
-        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
+        fn = getattr(load(source), name)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _ENTRY = fn
-    return _ENTRY
+        _ENTRIES[name] = fn
+    return fn
 
 
-def riccati_sweep_cuda(A, B, G, M, mx, mu, c, delta):
-    """Launch ``csrc/riccati_sweep.cu`` on CUDA tensors (no fallback).
-
-    Raises on a tensor that is not float32, not contiguous, not on one CUDA
-    device, of the wrong shape, or of an (nx, nu) with no instantiation.
-    """
-    global LAUNCHES
-    if c.dim() != 3:
-        raise ValueError(f"c must be (B, H, nx), got {tuple(c.shape)}")
-    Bn, H, nx = c.shape
-    nu = B.shape[-1]
-    ns = nx + nu
-    want = {"A": (A, (Bn, H, nx, nx)), "B": (B, (Bn, H, nx, nu)),
-            "G": (G, (Bn, H, ns, ns)), "M": (M, (Bn, H, ns, ns)),
-            "mx": (mx, (Bn, H, nx)), "mu": (mu, (Bn, H, nu)),
-            "c": (c, (Bn, H, nx)), "delta": (delta, (Bn,))}
+def _check(dev, want):
+    """Every tensor of ``want`` ({name: (tensor, shape)}) float32,
+    contiguous, of its shape, on the CUDA device ``dev``."""
     for name, (t, shape) in want.items():
-        if t.device.type != "cuda" or t.device != c.device:
-            raise ValueError(f"{name} must lie on {c.device} (a CUDA "
-                             f"device), got {t.device}")
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name} must lie on {dev} (a CUDA device), "
+                             f"got {t.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if tuple(t.shape) != shape:
@@ -223,12 +348,48 @@ def riccati_sweep_cuda(A, B, G, M, mx, mu, c, delta):
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if Bn == 0 or H == 0:
-        raise ValueError("riccati_sweep_cuda needs B >= 1 and H >= 1")
-    if (nx, nu) not in _INSTANCES:
-        raise NotImplementedError(kernel_plan(H, nx, nu, c.device)["reason"])
 
-    fn = _entry()
+
+def _check_sweep_inputs(A, B, G, M, mx, mu, c, delta):
+    if c.dim() != 3:
+        raise ValueError(f"c must be (B, H, nx), got {tuple(c.shape)}")
+    Bn, H, nx = c.shape
+    nu = B.shape[-1]
+    ns = nx + nu
+    _check(c.device, {
+        "A": (A, (Bn, H, nx, nx)), "B": (B, (Bn, H, nx, nu)),
+        "G": (G, (Bn, H, ns, ns)), "M": (M, (Bn, H, ns, ns)),
+        "mx": (mx, (Bn, H, nx)), "mu": (mu, (Bn, H, nu)),
+        "c": (c, (Bn, H, nx)), "delta": (delta, (Bn,))})
+    if Bn == 0 or H == 0:
+        raise ValueError("the CUDA sweeps need B >= 1 and H >= 1")
+    return Bn, H, nx, nu
+
+
+def _raise_on(err, what, Bn, H, nx, nu):
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} "
+                           f"(B={Bn}, H={H}, nx={nx}, nu={nu})")
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def riccati_sweep_cuda(A, B, G, M, mx, mu, c, delta):
+    """Launch the fused ``csrc/riccati_sweep.cu`` on CUDA tensors (no
+    fallback).
+
+    Raises on a tensor that is not float32, not contiguous, not on one CUDA
+    device, of the wrong shape, or of an (nx, nu) with no instantiation.
+    """
+    global LAUNCHES
+    Bn, H, nx, nu = _check_sweep_inputs(A, B, G, M, mx, mu, c, delta)
+    if (nx, nu) not in _INSTANCES:
+        raise NotImplementedError(
+            f"csrc/{SOURCE} instantiates {sorted(_INSTANCES)} only, not "
+            f"nx={nx}, nu={nu}; riccati_sweep_streamed_cuda takes it")
+    fn = _entry(SOURCE, "riccati_sweep_f32", 13)
     dev = c.device
     dX = torch.empty((Bn, H, nx), dtype=torch.float32, device=dev)
     dU = torch.empty((Bn, H, nu), dtype=torch.float32, device=dev)
@@ -236,26 +397,89 @@ def riccati_sweep_cuda(A, B, G, M, mx, mu, c, delta):
     ok = torch.empty((Bn,), dtype=torch.bool, device=dev)
     gains = torch.empty((Bn, H, gain_width(nx, nu)), dtype=torch.float32,
                         device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(A.data_ptr(), B.data_ptr(), G.data_ptr(), M.data_ptr(),
              mx.data_ptr(), mu.data_ptr(), c.data_ptr(), delta.data_ptr(),
              dX.data_ptr(), dU.data_ptr(), dLam.data_ptr(), ok.data_ptr(),
-             gains.data_ptr(), Bn, H, nx, nu, dev.index or 0, stream)
-    if err != 0:
-        raise RuntimeError(f"riccati_sweep kernel launch failed: CUDA error "
-                           f"{err} (B={Bn}, H={H}, nx={nx}, nu={nu})")
+             gains.data_ptr(), Bn, H, nx, nu, dev.index or 0, _stream(dev))
+    _raise_on(err, "riccati_sweep", Bn, H, nx, nu)
     LAUNCHES += 1
     return dX, dU, dLam, ok
 
 
+def _require_streamed(nx, nu):
+    if not _streamed_fits(nx, nu):
+        raise NotImplementedError(
+            f"csrc/{STREAMED_SOURCE} takes nx <= {STREAMED_MAX_NX}, nu <= "
+            f"{STREAMED_MAX_NU}, not nx={nx}, nu={nu}")
+
+
+def riccati_backward_cuda(A, B, G, M, mx, mu, c, delta):
+    """Launch the streamed backward kernel of ``csrc/riccati_streamed.cu``
+    on CUDA tensors (no fallback).  Returns ``(gains, ok)`` as
+    :func:`riccati_backward_plain` does."""
+    global BACKWARD_LAUNCHES
+    Bn, H, nx, nu = _check_sweep_inputs(A, B, G, M, mx, mu, c, delta)
+    _require_streamed(nx, nu)
+    fn = _entry(STREAMED_SOURCE, "riccati_backward_f32", 10)
+    dev = c.device
+    gains = torch.empty((Bn, H, gain_width(nx, nu)), dtype=torch.float32,
+                        device=dev)
+    ok = torch.empty((Bn,), dtype=torch.bool, device=dev)
+    err = fn(A.data_ptr(), B.data_ptr(), G.data_ptr(), M.data_ptr(),
+             mx.data_ptr(), mu.data_ptr(), c.data_ptr(), delta.data_ptr(),
+             gains.data_ptr(), ok.data_ptr(), Bn, H, nx, nu, dev.index or 0,
+             _stream(dev))
+    _raise_on(err, "riccati_backward", Bn, H, nx, nu)
+    BACKWARD_LAUNCHES += 1
+    return gains, ok
+
+
+def riccati_forward_cuda(A, B, c, gains):
+    """Launch the streamed forward kernel of ``csrc/riccati_streamed.cu``
+    on CUDA tensors (no fallback).  Returns ``(dX, dU, dLam)`` as
+    :func:`riccati_forward_plain` does."""
+    global FORWARD_LAUNCHES
+    if c.dim() != 3:
+        raise ValueError(f"c must be (B, H, nx), got {tuple(c.shape)}")
+    Bn, H, nx = c.shape
+    nu = B.shape[-1]
+    _check(c.device, {"A": (A, (Bn, H, nx, nx)), "B": (B, (Bn, H, nx, nu)),
+                      "c": (c, (Bn, H, nx)),
+                      "gains": (gains, (Bn, H, gain_width(nx, nu)))})
+    if Bn == 0 or H == 0:
+        raise ValueError("the CUDA sweeps need B >= 1 and H >= 1")
+    _require_streamed(nx, nu)
+    fn = _entry(STREAMED_SOURCE, "riccati_forward_f32", 7)
+    dev = c.device
+    dX = torch.empty((Bn, H, nx), dtype=torch.float32, device=dev)
+    dU = torch.empty((Bn, H, nu), dtype=torch.float32, device=dev)
+    dLam = torch.empty((Bn, H, nx), dtype=torch.float32, device=dev)
+    err = fn(A.data_ptr(), B.data_ptr(), c.data_ptr(), gains.data_ptr(),
+             dX.data_ptr(), dU.data_ptr(), dLam.data_ptr(), Bn, H, nx, nu,
+             dev.index or 0, _stream(dev))
+    _raise_on(err, "riccati_forward", Bn, H, nx, nu)
+    FORWARD_LAUNCHES += 1
+    return dX, dU, dLam
+
+
+def riccati_sweep_streamed_cuda(A, B, G, M, mx, mu, c, delta):
+    """The streamed sweep on CUDA tensors: the backward kernel writes one
+    gains buffer (allocated once per call), the forward kernel reads it;
+    both launch on PyTorch's current stream."""
+    gains, ok = riccati_backward_cuda(A, B, G, M, mx, mu, c, delta)
+    return riccati_forward_cuda(A, B, c, gains) + (ok,)
+
+
 def riccati_sweep(A, B, G, M, mx, mu, c, delta):
-    """Dispatch on the tensors' device: CPU -> plain version, CUDA -> the
-    kernel where :func:`kernel_plan` has an instantiation, else raise."""
+    """Dispatch on :func:`kernel_plan`: CPU -> plain version, CUDA -> the
+    fused or the streamed kernels, anything else raises."""
     Bn, H, nx = c.shape
     nu = B.shape[-1]
     plan = kernel_plan(H, nx, nu, c.device)
     if plan["path"] == "plain":
         return riccati_sweep_plain(A, B, G, M, mx, mu, c, delta)
-    if plan["path"] == "cuda":
+    if plan["path"] == "cuda_fused":
         return riccati_sweep_cuda(A, B, G, M, mx, mu, c, delta)
+    if plan["path"] == "cuda_streamed":
+        return riccati_sweep_streamed_cuda(A, B, G, M, mx, mu, c, delta)
     raise NotImplementedError(plan["reason"])

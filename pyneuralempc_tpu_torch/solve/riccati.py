@@ -12,8 +12,10 @@ Per stage t (x_{t+1} is the decision state, x_0 the fixed parameter):
   * m_t  = r̃ sliced to (x_{t+1}, u_t);
   * A_t, B_t = ∂Φ_t/∂(x_t, u_t).
 
-The sweep itself (:func:`riccati_sweep`) is the CUDA kernel on the card and
-the plain PyTorch version on the CPU (:mod:`..ops.cuda.riccati_kernel`).
+The sweep itself (:func:`riccati_sweep`) runs as CUDA kernels on the card
+(the fused kernel for the stages it instantiates, the streamed backward and
+forward pair for the others) and as the plain PyTorch version on the CPU
+(:mod:`..ops.cuda.riccati_kernel`).
 
 Everything here is batch-first: the JAX package solves one problem and is
 ``vmap``-ed, the port carries a leading batch axis B through every tensor.
@@ -163,7 +165,7 @@ def make_riccati_direction(nlp: NLP, cfg) -> Callable:
 
     def prepare(w, lam, rt):
         """The expensive part of a KKT solve: per-stage derivative blocks.
-        Returned as contiguous tensors, the layout the kernel takes, so the
+        Returned as contiguous tensors, the layout the kernels take, so the
         solver can carry them through its loop and reuse them for the
         polish phase."""
         A, Bm, G, M0 = stage_blocks(w, lam, rt)

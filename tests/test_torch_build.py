@@ -40,6 +40,9 @@ def test_sources_ship_in_the_package():
     assert (build.CSRC_DIR / "riccati_sweep.cu").is_file()
     text = (build.CSRC_DIR / "riccati_sweep.cu").read_text()
     assert 'extern "C" int riccati_sweep_f32' in text
+    text = (build.CSRC_DIR / "riccati_streamed.cu").read_text()
+    assert 'extern "C" int riccati_backward_f32' in text
+    assert 'extern "C" int riccati_forward_f32' in text
 
 
 def _fake_nvcc(tmp_path, rc=0):
@@ -94,3 +97,34 @@ def test_load_builds_and_opens_a_library_once(tmp_path, monkeypatch):
     assert build.load("k.cu") is lib and build.load("k.cu") is lib
     assert builds == [tmp_path / "k.cu"]
     assert opened == [str(result.path)]
+
+
+def test_build_all_starts_every_nvcc_at_once(tmp_path, monkeypatch):
+    """Each stand-in nvcc waits until both have started: run one after the
+    other, the first would give up (exit 3) and the build would raise."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    marks = tmp_path / "started"
+    marks.mkdir()
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\n"
+                    "out=''\n"
+                    "while [ $# -gt 0 ]; do\n"
+                    "  if [ \"$1\" = -o ]; then out=\"$2\"; fi\n"
+                    "  shift\n"
+                    "done\n"
+                    f"touch {marks}/$$\n"
+                    "n=0\n"
+                    f"while [ $(ls {marks} | wc -l) -lt 2 ]; do\n"
+                    "  n=$((n+1)); [ $n -gt 200 ] && exit 3; sleep 0.05\n"
+                    "done\n"
+                    "echo lib > \"$out\"\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "find_nvcc", lambda: str(fake))
+    srcs = [tmp_path / "a.cu", tmp_path / "b.cu"]
+    for s in srcs:
+        s.write_text(f"// {s.name}\n")
+    results = build.build_all(srcs)
+    assert [r.path for r in results] == [build.library_path(s) for s in srcs]
+    assert all(r.path.is_file() and r.seconds > 0 for r in results)
+    again = build.build_all(srcs)          # built: no nvcc at all
+    assert [r.seconds for r in again] == [0.0, 0.0]

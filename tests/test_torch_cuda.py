@@ -1,7 +1,9 @@
-"""Tests of the port that need an NVIDIA card: the CUDA sweep against its
-plain version, the wrapper's checks, and the main path on the card against
-the CPU.  They skip without a CUDA device.  This file imports no JAX, so on
-the card it runs without the JAX package's test configuration:
+"""Tests of the port that need an NVIDIA card: the CUDA sweeps (the fused
+kernel and the streamed backward/forward pair) against their plain
+versions and each other, the wrappers' checks and dispatch, and the LV and
+quadrotor paths on the card against the CPU.  They skip without a CUDA
+device.  This file imports no JAX, so on the card it runs without the JAX
+package's test configuration:
 
     python -m pytest --noconftest -o addopts="" tests/test_torch_cuda.py -q
 """
@@ -16,6 +18,9 @@ from pyneuralempc_tpu_torch.ops.cuda import riccati_kernel as rk
 pytestmark = pytest.mark.cuda
 
 SCALED_ATOL = 2e-5     # |kernel − plain| / max(1, |plain|), f32
+# the streamed pair at quadrotor widths: tests/test_pallas_kernel.py's own
+# tolerance at those dims
+STREAMED_ATOL = 2e-4
 
 
 def _card():
@@ -55,21 +60,93 @@ def test_kernel_matches_plain_on_card(B, H):
         assert float(err) <= SCALED_ATOL
 
 
+def _scaled_err(o, r, mask=None):
+    if mask is not None:
+        o, r = o[mask], r[mask]
+    return float(((o - r).abs() / r.abs().clamp(min=1.0)).max())
+
+
+@pytest.mark.parametrize("B,H,nx,nu", [(257, 50, 12, 4), (33, 20, 4, 2),
+                                       (4096, 1, 12, 4)])
+def test_streamed_pair_matches_plain_on_card(B, H, nx, nu):
+    """The backward kernel's gains and ok flags against
+    riccati_backward_plain; the forward kernel against
+    riccati_forward_plain fed the same gains; the pair end to end against
+    the plain sweep."""
+    _card()
+    args = _sweep_inputs(B, H, nx, nu, seed=B + H + nx)
+    b0, f0 = rk.BACKWARD_LAUNCHES, rk.FORWARD_LAUNCHES
+    gains, ok = rk.riccati_backward_cuda(*args)
+    out = rk.riccati_forward_cuda(args[0], args[1], args[6], gains)
+    torch.cuda.synchronize()
+    assert (rk.BACKWARD_LAUNCHES, rk.FORWARD_LAUNCHES) == (b0 + 1, f0 + 1)
+    g_ref, ok_ref = rk.riccati_backward_plain(*args)
+    assert torch.equal(ok, ok_ref) and bool(ok_ref.all())
+    assert _scaled_err(gains, g_ref) <= STREAMED_ATOL
+    same = rk.riccati_forward_plain(args[0], args[1], args[6], gains)
+    for o, r in zip(out, same):
+        assert _scaled_err(o, r) <= STREAMED_ATOL
+    pair = rk.riccati_sweep_streamed_cuda(*args)
+    ref = rk.riccati_sweep_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(pair[3], ref[3])
+    for o, r in zip(pair[:3], ref[:3]):
+        assert _scaled_err(o, r) <= STREAMED_ATOL
+
+
+def test_streamed_pair_widest_stage_on_card():
+    """nx=32, nu=16, the widest stage the pair takes: both kernels ask for
+    more than the default 48 KB of shared memory a block."""
+    _card()
+    args = _sweep_inputs(9, 3, 32, 16, seed=5)
+    pair = rk.riccati_sweep_streamed_cuda(*args)
+    ref = rk.riccati_sweep_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(pair[3], ref[3]) and bool(ref[3].any())
+    for o, r in zip(pair[:3], ref[:3]):
+        assert _scaled_err(o, r, ref[3]) <= STREAMED_ATOL
+
+
+def test_streamed_pair_matches_fused_kernel():
+    """Both CUDA designs on one function, at the LV fleet's stage."""
+    _card()
+    args = _sweep_inputs(257, 20, seed=1)
+    fused = rk.riccati_sweep_cuda(*args)
+    pair = rk.riccati_sweep_streamed_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(fused[3], pair[3])
+    for o, r in zip(pair[:3], fused[:3]):
+        assert _scaled_err(o, r) <= SCALED_ATOL
+
+
 def test_dispatch_and_checks_on_card():
     _card()
     args = _sweep_inputs(64, 5)
     launches, plain = rk.LAUNCHES, rk.PLAIN_CALLS
-    rk.riccati_sweep(*args)
+    bwd, fwd = rk.BACKWARD_LAUNCHES, rk.FORWARD_LAUNCHES
+    rk.riccati_sweep(*args)                             # (2, 1): fused
     assert (rk.LAUNCHES, rk.PLAIN_CALLS) == (launches + 1, plain)
+    rk.riccati_sweep(*_sweep_inputs(8, 3, nx=4, nu=2))  # (4, 2): the pair
+    assert (rk.BACKWARD_LAUNCHES, rk.FORWARD_LAUNCHES) == (bwd + 1, fwd + 1)
+    with pytest.raises(NotImplementedError, match="nx=4, nu=17"):
+        rk.riccati_sweep(*_sweep_inputs(8, 3, nx=4, nu=17))
+    with pytest.raises(NotImplementedError, match="nx=4, nu=17"):
+        rk.riccati_backward_cuda(*_sweep_inputs(8, 3, nx=4, nu=17))
     with pytest.raises(NotImplementedError, match="nx=4, nu=2"):
-        rk.riccati_sweep(*_sweep_inputs(8, 3, nx=4, nu=2))
+        rk.riccati_sweep_cuda(*_sweep_inputs(8, 3, nx=4, nu=2))
     with pytest.raises(TypeError, match="float32"):
         rk.riccati_sweep_cuda(*[a.double() for a in args])
+    with pytest.raises(TypeError, match="float32"):
+        rk.riccati_backward_cuda(*[a.double() for a in args])
     bad = list(args)
     bad[0] = args[0].transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous"):
         rk.riccati_sweep_cuda(*bad)
-    assert rk.LAUNCHES == launches + 1
+    with pytest.raises(ValueError, match="gains"):
+        rk.riccati_forward_cuda(args[0], args[1], args[6],
+                                torch.zeros(64, 5, 3, device="cuda"))
+    assert rk.LAUNCHES == launches + 1 and rk.PLAIN_CALLS == plain
+    assert (rk.BACKWARD_LAUNCHES, rk.FORWARD_LAUNCHES) == (bwd + 1, fwd + 1)
 
 
 def _lv(x, u):
@@ -104,4 +181,24 @@ def test_main_path_on_card_matches_cpu():
             assert rk.LAUNCHES > launches and rk.PLAIN_CALLS == plain
         res[dev] = r
     assert torch.equal(res["cuda"].converged.cpu(), res["cpu"].converged)
+    assert float((res["cuda"].u.cpu() - res["cpu"].u).abs().max()) <= 1e-4
+
+
+def test_quadrotor_on_card_matches_cpu():
+    """The quadrotor fleet (H=50) on the card goes through the streamed
+    pair only and agrees with the CPU port to 1e-4 in u."""
+    _card()
+    from pyneuralempc_tpu_torch.examples.quadrotor import (
+        make_quadrotor_mpc, quad_x0s)
+    x0s = quad_x0s(np.random.default_rng(0), 16)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        mpc = make_quadrotor_mpc(dev)
+        counts = (rk.LAUNCHES, rk.BACKWARD_LAUNCHES, rk.PLAIN_CALLS)
+        _, res[dev] = mpc.next_batch(torch.tensor(x0s, device=dev))
+        if dev == "cuda":
+            assert rk.BACKWARD_LAUNCHES > counts[1]
+            assert (rk.LAUNCHES, rk.PLAIN_CALLS) == (counts[0], counts[2])
+    assert torch.equal(res["cuda"].converged.cpu(), res["cpu"].converged)
+    assert bool(res["cpu"].converged.all())
     assert float((res["cuda"].u.cpu() - res["cpu"].u).abs().max()) <= 1e-4

@@ -1,9 +1,12 @@
 """The port's Riccati sweep: its plain PyTorch version against the JAX
 package's scan reference (``jax.vmap(riccati_sweep_ref)``) and against the
 Pallas kernel run as its own tests run it (interpret mode), on the data and
-cases of tests/test_pallas_kernel.py; and the dispatch plan.  The CUDA
-kernel itself is held against the plain version on a card by
-tests/test_torch_cuda.py and chip_smoke.py."""
+cases of tests/test_pallas_kernel.py; its backward and forward halves (the
+plain versions of the streamed pair) against the scan reference at
+quadrotor-like stage widths; the dispatch plan; the byte and operation
+counts behind each kernel's bound.  The CUDA kernels themselves are held
+against the plain versions on a card by tests/test_torch_cuda.py and
+chip_smoke.py."""
 
 import jax
 import jax.numpy as jnp
@@ -15,7 +18,7 @@ from pyneuralempc_tpu.ops.pallas.riccati_kernel import riccati_sweep_pallas
 from pyneuralempc_tpu.solve.riccati import riccati_sweep_ref
 from pyneuralempc_tpu_torch.ops.cuda import riccati_kernel as rk
 
-from _torch_lv import sweep_data
+from _torch_lv import sweep_case, sweep_data
 
 ATOL = 2e-5     # the JAX kernel test's own tolerance (f32)
 # one horizon for every case: interpret mode compiles once per shape
@@ -86,13 +89,19 @@ def test_plain_defers_real_indefiniteness_to_ladder():
 
 
 def test_kernel_plan_is_pinned():
-    assert rk.kernel_plan(20, 2, 1, "cuda")["path"] == "cuda"
-    assert rk.kernel_plan(50, 2, 1, torch.device("cuda:0"))["path"] == "cuda"
-    for shape in ((20, 2, 1), (50, 12, 4), (3, 7, 5)):
+    assert rk.kernel_plan(20, 2, 1, "cuda")["path"] == "cuda_fused"
+    assert (rk.kernel_plan(50, 2, 1, torch.device("cuda:0"))["path"]
+            == "cuda_fused")
+    for shape in ((20, 2, 1), (50, 12, 4), (3, 7, 5), (50, 12, 17)):
         assert rk.kernel_plan(*shape, "cpu")["path"] == "plain"
-    p = rk.kernel_plan(50, 12, 4, "cuda")
-    assert p["path"] == "unsupported"
-    assert "nx=12, nu=4" in p["reason"] and "ROADMAP" in p["reason"]
+    for shape in ((50, 12, 4), (20, 4, 2), (50, 12, 10), (1, 32, 16),
+                  (5, 1, 1)):
+        assert rk.kernel_plan(*shape, "cuda")["path"] == "cuda_streamed"
+    for shape in ((50, 12, 17), (50, 33, 4), (0, 12, 4)):
+        p = rk.kernel_plan(*shape, "cuda")
+        assert p["path"] == "unsupported"
+        assert "nu <= 16" in p["reason"] and "nx <= 32" in p["reason"]
+    assert "nx=12, nu=17" in rk.kernel_plan(50, 12, 17, "cuda")["reason"]
 
 
 def test_dispatch_sends_cpu_tensors_to_plain():
@@ -114,10 +123,113 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 
 def test_bound_counts():
     """Bytes: 29 input and 5 output floats a stage at LV size, plus δ and
-    the ok byte per problem."""
+    the ok byte per problem.  The streamed pair at quadrotor size: the
+    backward kernel reads 732 floats a stage (A 144, B 48, G 256, M 256,
+    mx 12, mu 4, c 12) and writes 256 gain floats; the forward kernel reads
+    A, B, c and the gains (460) and writes dX, dU, dLam (28)."""
     assert rk.sweep_bytes(1, 1, 2, 1) == 4 * (29 + 1 + 5) + 1
     assert rk.sweep_bytes(4096, 20, 2, 1) == 4096 * (4 * (20 * 34 + 1) + 1)
     assert rk.sweep_flops(4096, 20, 2, 1) == 20 * rk.sweep_flops(4096, 1, 2,
                                                                   1)
     assert rk.gain_width(2, 1) == 2 + 1 + 4 + 2 + 2
+    assert rk.gain_width(12, 4) == 256
+    assert rk.backward_bytes(1, 1, 12, 4) == 4 * (732 + 1 + 256) + 1
+    assert rk.forward_bytes(1, 1, 12, 4) == 4 * (460 + 28)
+    assert rk.backward_flops(1, 1, 12, 4) == 14525
+    assert rk.forward_flops(1, 1, 12, 4) == 892
+    assert rk.backward_bytes(4096, 50, 12, 4) == 809_390_080   # ~242 us
+    assert rk.forward_bytes(4096, 50, 12, 4) == 399_769_600    # ~119 us
+    assert rk.backward_flops(4096, 50, 12, 4) == 2_974_720_000
+    assert rk.forward_flops(4096, 50, 12, 4) == 182_681_600
+    for dims in ((2, 1), (12, 4), (4, 2)):
+        assert (rk.backward_flops(7, 3, *dims) + rk.forward_flops(7, 3, *dims)
+                == rk.sweep_flops(7, 3, *dims))
 
+
+def test_general_bound_counts():
+    """The general kernels' bounds (not ported yet) at the EQ/border
+    quadrotor fleet (tools/fleet_eq_tpu.py --border: R=2 right-hand sides,
+    r=1 stage-equality row): the backward kernel reads 778 floats a stage
+    (A 144, B 48, G 256, M 256, mx 24, mu 8, c 24, h 2, E 4, F 12) and
+    writes 286 gain floats; R=1, r=0 is the plain sweep."""
+    assert rk.gain_width(12, 4, R=2, r=1) == 48 + 8 + 144 + 24 + 48 + 12 + 2
+    assert rk.backward_bytes(1, 1, 12, 4, R=2, r=1) == 4 * (778 + 2 + 286) + 1
+    assert rk.forward_bytes(1, 1, 12, 4, R=2, r=1) == 4 * (
+        144 + 48 + 24 + 12 + 286 + 58)
+    assert rk.sweep_bytes(1, 1, 12, 4, R=2, r=1) == 4 * (778 + 2 + 12 + 58) + 1
+    assert rk.backward_bytes(4096, 50, 12, 4, R=2, r=1) == 871_665_664
+    assert rk.forward_bytes(4096, 50, 12, 4, R=2, r=1) == 468_582_400
+    assert rk.sweep_bytes(4096, 50, 12, 4, R=2, r=1) == 694_718_464
+    assert rk.backward_flops(4096, 50, 12, 4, R=2, r=1) == 3_296_870_400
+    assert rk.forward_flops(4096, 50, 12, 4, R=2, r=1) == 385_433_600
+    for f in (rk.sweep_bytes, rk.sweep_flops, rk.backward_bytes,
+              rk.backward_flops, rk.forward_bytes, rk.forward_flops):
+        assert f(5, 7, 12, 4) == f(5, 7, 12, 4, R=1, r=0)
+        assert f(5, 7, 12, 4, R=2, r=1) > f(5, 7, 12, 4)
+
+
+# ---- the streamed pair's plain halves at quadrotor-like stage widths ----
+
+SPLIT_TOL = 2e-4    # tests/test_pallas_kernel.py's quadrotor-dims tolerance
+
+
+@pytest.mark.parametrize("nx,nu", [(12, 4), (4, 2)])
+@pytest.mark.parametrize("kind", ["delta_per_problem", "negative_curvature",
+                                  "local_bump"])
+def test_plain_halves_match_reference(kind, nx, nu):
+    """riccati_backward_plain then riccati_forward_plain against the JAX
+    package's scan reference (vmapped): ok flags equal, outputs of the ok
+    problems within SPLIT_TOL·max(1, |ref|); their composition is
+    riccati_sweep_plain, bit for bit."""
+    args = sweep_case(kind, B=4, H=5, nx=nx, nu=nu, seed=7)
+    t = _torch(args)
+    gains, ok = rk.riccati_backward_plain(*t)
+    assert gains.shape == (4, 5, rk.gain_width(nx, nu))
+    out = rk.riccati_forward_plain(t[0], t[1], t[6], gains) + (ok,)
+    ref = jax.vmap(riccati_sweep_ref)(*_jax(args))
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(ref[3]))
+    want = [True, False, True, False] if kind == "negative_curvature" else [
+        True] * 4
+    assert ok.tolist() == want
+    m = ok.numpy()
+    for o, r in zip(out[:3], ref[:3]):
+        r = np.asarray(r)[m]
+        err = np.abs(o.numpy()[m] - r) / np.maximum(1.0, np.abs(r))
+        assert err.max() <= SPLIT_TOL, err.max()
+    for o, s in zip(out, rk.riccati_sweep_plain(*t)):
+        assert torch.equal(o[m], s[m])
+
+
+def test_plain_gains_layout():
+    """Each stage's gains are [K | k | Pbar | pbar | Mxu]: Mxu is M's
+    state-control block, Pbar = Mxx + δI at the last stage (P = 0 there),
+    and k = -Quu⁻¹ qu there."""
+    nx, nu = 4, 2
+    args = sweep_case("delta_per_problem", B=4, H=3, nx=nx, nu=nu, seed=5)
+    t = _torch(args)
+    gains, _ = rk.riccati_backward_plain(*t)
+    M, delta = t[3], t[7]
+    o = nu * nx + nu
+    Pbar = gains[:, -1, o:o + nx * nx].reshape(4, nx, nx)
+    torch.testing.assert_close(
+        Pbar, M[:, -1, :nx, :nx] + delta[:, None, None] * torch.eye(nx),
+        rtol=0, atol=1e-6)
+    torch.testing.assert_close(
+        gains[:, 0, -nx * nu:].reshape(4, nx, nu), M[:, 0, :nx, nx:],
+        rtol=0, atol=0)
+    pbar = gains[:, -1, o + nx * nx:o + nx * nx + nx]
+    torch.testing.assert_close(pbar, t[4][:, -1], rtol=0, atol=0)
+
+
+def test_plain_counters():
+    t = _torch(sweep_data(B=2, H=2, nx=4, nu=2))
+    n0 = rk.PLAIN_CALLS
+    gains, _ = rk.riccati_backward_plain(*t)
+    rk.riccati_forward_plain(t[0], t[1], t[6], gains)
+    rk.riccati_sweep_plain(*t)
+    assert rk.PLAIN_CALLS == n0 + 3
+    with pytest.raises(ValueError, match="CUDA device"):
+        rk.riccati_sweep_streamed_cuda(*t)
+    with pytest.raises(ValueError, match="CUDA device"):
+        rk.riccati_forward_cuda(t[0], t[1], t[6], gains)
+    assert rk.BACKWARD_LAUNCHES == rk.FORWARD_LAUNCHES == 0
