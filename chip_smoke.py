@@ -109,47 +109,12 @@ CASES = {"delta0": 0, "delta_per_problem": 1, "negative_curvature": 2,
          "local_bump": 3}
 
 
-def sweep_case(kind, seed, dev, Bn=B, Hn=H, nx=2, nu=1):
-    """Seeded sweep inputs with exactly symmetric G and M (the kernels read
-    upper triangles, the plain version full matrices)."""
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
-    ns = nx + nu
-
-    def normal(*shape, std=1.0):
-        return std * torch.randn(shape, generator=g, device=dev)
-
-    A = torch.eye(nx, device=dev) + 0.1 * normal(Bn, Hn, nx, nx, std=0.3)
-    Bm = 0.1 * normal(Bn, Hn, nx, nu)
-    G = normal(Bn, Hn, ns, ns, std=0.05)
-    G = 0.5 * (G + G.mT)
-    M = normal(Bn, Hn, ns, ns, std=0.1)
-    M = 0.5 * (M + M.mT) + torch.eye(ns, device=dev)
-    mx = normal(Bn, Hn, nx)
-    mu = normal(Bn, Hn, nu)
-    c = normal(Bn, Hn, nx, std=0.1)
-    delta = torch.zeros(Bn, device=dev)
-    if kind == "delta_per_problem":
-        delta = torch.tensor([0.0, 0.1, 1.0, 10.0], device=dev).repeat(
-            Bn // 4)
-    elif kind == "negative_curvature":
-        M[1::2, :, nx, nx] = -50.0          # every odd problem indefinite
-    elif kind == "local_bump":
-        # Quu's first pivot at stage 1 is Muu + Guu exactly (B = 0 there),
-        # set just below zero: rescued at the 1e-6 bump (odd problems) or
-        # only at the 1e-4 bump (problems 2 mod 4), with the first control
-        # decoupled from the states and the other controls (Qux, qu and
-        # Quu's off-diagonal zero) so the rescued gains stay bounded
-        for sel, gap in ((slice(1, None, 2), 2e-7), (slice(2, None, 4), 2e-5)):
-            Bm[sel, 1] = 0.0
-            for X in (G, M):
-                diag = X[sel, 1, nx, nx].clone()
-                X[sel, 1, nx, :] = 0.0
-                X[sel, 1, :, nx] = 0.0
-                X[sel, 1, nx, nx] = diag
-            M[sel, 1, nx, nx] = -G[sel, 1, nx, nx] - gap
-            mu[sel, 1] = 0.0
-    return [t.contiguous() for t in (A, Bm, G, M, mx, mu, c, delta)]
+def sweep_case(kind, seed, Bn=B, Hn=H, nx=2, nu=1):
+    """One of the seeded cases the CPU parity tests use too
+    (pyneuralempc_tpu_torch/ops/cuda/sweep_cases.py), on the card."""
+    from pyneuralempc_tpu_torch.ops.cuda import sweep_cases
+    case = sweep_cases.sweep_case(kind, B=Bn, H=Hn, nx=nx, nu=nu, seed=seed)
+    return [torch.as_tensor(a, device="cuda") for a in case]
 
 
 def expected_ok(kind, Bn):
@@ -251,7 +216,7 @@ def kernel_entry(name, source, site, call, kernel_name, plain, nbytes,
 def phase_kernels(rk):
     worst_abs, worst_scaled = 0.0, 0.0
     for kind, seed in CASES.items():
-        args = sweep_case(kind, seed, "cuda")
+        args = sweep_case(kind, seed)
         out = rk.riccati_sweep_cuda(*args)
         torch.cuda.synchronize()
         ref = rk.riccati_sweep_plain(*args)
@@ -274,7 +239,7 @@ def phase_kernels(rk):
         worst_abs = max(worst_abs, abs_err)
         worst_scaled = max(worst_scaled, scaled)
 
-    args = sweep_case("delta0", 0, "cuda")
+    args = sweep_case("delta0", 0)
     entry = kernel_entry(
         "riccati_sweep", "riccati_sweep.cu", f"{PALLAS}:445",
         lambda: rk.riccati_sweep_cuda(*args), "riccati_sweep_kernel",
@@ -298,7 +263,7 @@ def phase_streamed(rk):
                                f"by {scaled:.3e} > {STREAMED_TOL}")
 
     for kind, seed in CASES.items():
-        args = sweep_case(kind, seed, "cuda", **shape)
+        args = sweep_case(kind, seed, **shape)
         A, Bm, c = args[0], args[1], args[6]
         gains, ok = rk.riccati_backward_cuda(*args)
         torch.cuda.synchronize()
@@ -326,7 +291,7 @@ def phase_streamed(rk):
         del args, gains, g_ref, out, same, pair, ref
 
     # two CUDA designs on one function: the pair against the fused kernel
-    args = sweep_case("delta0", 0, "cuda")
+    args = sweep_case("delta0", 0)
     fused = rk.riccati_sweep_cuda(*args)
     pair = rk.riccati_sweep_streamed_cuda(*args)
     torch.cuda.synchronize()
@@ -338,7 +303,7 @@ def phase_streamed(rk):
     if not scaled <= SWEEP_TOL:
         raise RuntimeError(f"pair and fused kernel differ by {scaled:.3e}")
 
-    args = sweep_case("delta0", 0, "cuda", **shape)
+    args = sweep_case("delta0", 0, **shape)
     A, Bm, c = args[0], args[1], args[6]
     gains, _ = rk.riccati_backward_cuda(*args)
     dims = (B, QH, QNX, QNU)
@@ -496,7 +461,7 @@ def phase_main_path(nempc, rk, card):
     check_plan(res, H, 2, 1)
     log(f"converged per warm step {conv}")
 
-    args = sweep_case("delta0", 0, "cuda")
+    args = sweep_case("delta0", 0)
     sweep_ms = cuda_median_ms(lambda: rk.riccati_sweep_cuda(*args))
     report_split(nempc, mpc, carry, xs, res, times, launches[-1], sweep_ms,
                  card, params=params)

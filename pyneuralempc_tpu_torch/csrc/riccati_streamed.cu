@@ -11,9 +11,9 @@
 // pyneuralempc_tpu_torch/ops/cuda/riccati_kernel.py.
 //
 // What bounds them on an H100: bytes.  At B=4096, H=50, nx=12, nu=4 the
-// backward kernel must read A, B, G, M, mx, mu, c (732 floats a stage) and
-// write the gains (256 floats a stage): ~809 MB, ~242 us at 3.35 TB/s,
-// against ~3.0 GFLOP (~44 us at 67 TFLOP/s in f32).  The forward kernel
+// backward kernel must read A, B, the upper triangles of G and M, mx, mu, c
+// (492 floats a stage) and write the gains (256 floats a stage): ~613 MB,
+// ~183 us at 3.35 TB/s, against ~3.0 GFLOP (~44 us at 67 TFLOP/s in f32).  The forward kernel
 // reads A, B, c and the gains (460 floats a stage) and writes dX, dU, dLam
 // (28): ~400 MB, ~119 us, for ~0.18 GFLOP.
 //

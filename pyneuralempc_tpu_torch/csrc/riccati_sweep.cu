@@ -10,9 +10,9 @@
 // `riccati_sweep_plain` in pyneuralempc_tpu_torch/ops/cuda/riccati_kernel.py.
 //
 // What bounds it on an H100: bytes.  At B=4096, H=20, nx=2, nu=1 the sweep
-// must read A, B, G, M, mx, mu, c (29 floats a stage) and write dX, dU,
-// dLam (5 floats a stage): at least 4096*20*34*4 B ~= 11 MB, ~3.3 us at
-// 3.35 TB/s.  Its arithmetic is ~1e7 flop, which is negligible at 67
+// must read A, B, the upper triangles of G and M, mx, mu, c (23 floats a
+// stage) and write dX, dU, dLam (5 floats a stage): at least
+// 4096*20*28*4 B ~= 9.2 MB, ~2.7 us at 3.35 TB/s.  Its arithmetic is ~1e7 flop, which is negligible at 67
 // TFLOP/s (f32, outside the tensor cores).
 //
 // This first design is latency-bound, not bandwidth-bound: each thread

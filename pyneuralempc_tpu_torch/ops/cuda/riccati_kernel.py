@@ -65,12 +65,9 @@ SOURCE = "riccati_sweep.cu"
 STREAMED_SOURCE = "riccati_streamed.cu"
 
 
-def gain_width(nx: int, nu: int, R: int = 1, r: int = 0) -> int:
-    """Floats of per-stage gains: K, k, Pbar, pbar, Mxu (and, for the
-    general sweep's R right-hand sides and r stage-equality rows, Knu and
-    knu)."""
-    return (nu * nx + R * nu + nx * nx + R * nx + nx * nu
-            + r * nx + R * r)
+def gain_width(nx: int, nu: int) -> int:
+    """Floats of per-stage gains: K, k, Pbar, pbar, Mxu."""
+    return nu * nx + nu + nx * nx + nx + nx * nu
 
 
 def _streamed_fits(nx: int, nu: int) -> bool:
@@ -105,101 +102,78 @@ def kernel_plan(H: int, nx: int, nu: int, device) -> dict:
 
 
 # ---- bytes and operations (the least the card must do) ----
-#
-# R (right-hand sides) and r (stage-equality rows) give the same counts for
-# the general sweep (ROADMAP Queue 2 #4-#6, not ported yet); the plain
-# sweep is R=1, r=0.
 
-def _bwd_stage_flops(nx: int, nu: int, R: int = 1, r: int = 0) -> int:
+def _bwd_stage_flops(nx: int, nu: int) -> int:
     """Operations of one backward stage, counted from its formulae with one
-    Cholesky factorisation of Quu (and of the Schur complement S when
-    r > 0) at the δ=0 level."""
-    n = (2 * nx * nx                          # Pbar
-         + R * nx                             # pbar
-         + 2 * nx * nx * nx                   # PA
-         + 2 * nx * nx * nu                   # PB
-         + 2 * nx * nx * nx + nx * nx         # Qxx
-         + 2 * nu * nu * nx                   # BtMxu
-         + nu * nu * (2 * nx + 5)             # Quu
-         + nu * nx * (4 * nx + 2)             # Qux
-         + R * nx * (2 * nx + 1)              # Pc_p
-         + R * 2 * nx * nx                    # qx
-         + R * nu * (4 * nx + 2)              # qu
-         + nu * nu * nu // 3 + 2 * nu         # Cholesky
-         + (nx + R + r) * 2 * nu * nu         # substitutions
-         + nx * nx * (2 * nu + 2 * r + 2)     # P update + symmetrise
-         + R * nx * (2 * nu + 2 * r))         # p update
-    if r:
-        n += (r * r * (2 * nu + 1)            # S = E Y + δ_c I
-              + (nx + R) * r * (2 * nu + 1)   # Schur right-hand sides
-              + r * r * r // 3 + 2 * r        # Cholesky of S
-              + (nx + R) * 2 * r * r          # its substitutions
-              + nu * nx * 2 * r + R * nu * 2 * r)   # K, k corrections
-    return n
+    Cholesky factorisation of Quu at the δ=0 level."""
+    return (2 * nx * nx                       # Pbar
+            + nx                              # pbar
+            + 2 * nx * nx * nx                # PA
+            + 2 * nx * nx * nu                # PB
+            + 2 * nx * nx * nx + nx * nx      # Qxx
+            + 2 * nu * nu * nx                # BtMxu
+            + nu * nu * (2 * nx + 5)          # Quu
+            + nu * nx * (4 * nx + 2)          # Qux
+            + nx * (2 * nx + 1)               # Pc_p
+            + 2 * nx * nx                     # qx
+            + nu * (4 * nx + 2)               # qu
+            + nu * nu * nu // 3 + 2 * nu      # Cholesky
+            + (nx + 1) * 2 * nu * nu          # substitutions
+            + nx * nx * (2 * nu + 2)          # P update + symmetrise
+            + nx * 2 * nu)                    # p update
 
 
-def _fwd_stage_flops(nx: int, nu: int, R: int = 1, r: int = 0) -> int:
+def _fwd_stage_flops(nx: int, nu: int) -> int:
     ns = nx + nu
-    return R * (2 * nu * nx + nu               # du
-                + r * (2 * nx + 1)             # dnu
-                + nx * (2 * ns + 1)            # dx'
-                + nx * (2 * ns + 1 + 2 * r))   # dlam
+    return (2 * nu * nx + nu                  # du
+            + nx * (2 * ns + 1)               # dx'
+            + nx * (2 * ns + 1))              # dlam
 
 
-def _input_floats(H: int, nx: int, nu: int, R: int = 1, r: int = 0) -> int:
-    """A, B, G, M (full ns×ns, as given), mx, mu, c (and h, E, F) of one
-    problem, with its δ (and δ_c)."""
+def _input_floats(H: int, nx: int, nu: int) -> int:
+    """A, B, the upper triangles of G and M (all the sweep needs of them,
+    and all the kernels read), mx, mu, c of one problem, with its δ."""
     ns = nx + nu
-    per_stage = (nx * nx + nx * nu + 2 * ns * ns + R * (2 * nx + nu)
-                 + r * (R + nu + nx))
-    return H * per_stage + 1 + (1 if r else 0)
+    return H * (nx * nx + nx * nu + ns * (ns + 1) + 2 * nx + nu) + 1
 
 
-def _output_floats(H: int, nx: int, nu: int, R: int = 1, r: int = 0) -> int:
-    """dX, dU, dLam (and dNu) of one problem."""
-    return H * R * (2 * nx + nu + r)
+def _output_floats(H: int, nx: int, nu: int) -> int:
+    """dX, dU, dLam of one problem."""
+    return H * (2 * nx + nu)
 
 
-def sweep_bytes(Bn: int, H: int, nx: int, nu: int, R: int = 1,
-                r: int = 0) -> int:
-    """Least bytes a fused sweep must move: every input read once (Jx too
-    when r > 0), every output written once, one ok byte a problem."""
-    ins = _input_floats(H, nx, nu, R, r) + H * r * nx
-    return 4 * Bn * (ins + _output_floats(H, nx, nu, R, r)) + Bn
+def sweep_bytes(Bn: int, H: int, nx: int, nu: int) -> int:
+    """Least bytes a fused sweep must move: every input read once, every
+    output written once, one ok byte a problem."""
+    floats = _input_floats(H, nx, nu) + _output_floats(H, nx, nu)
+    return 4 * Bn * floats + Bn
 
 
-def sweep_flops(Bn: int, H: int, nx: int, nu: int, R: int = 1,
-                r: int = 0) -> int:
+def sweep_flops(Bn: int, H: int, nx: int, nu: int) -> int:
     """Operations of one sweep (backward and forward)."""
-    return Bn * H * (_bwd_stage_flops(nx, nu, R, r)
-                     + _fwd_stage_flops(nx, nu, R, r))
+    return Bn * H * (_bwd_stage_flops(nx, nu) + _fwd_stage_flops(nx, nu))
 
 
-def backward_bytes(Bn: int, H: int, nx: int, nu: int, R: int = 1,
-                   r: int = 0) -> int:
+def backward_bytes(Bn: int, H: int, nx: int, nu: int) -> int:
     """Least bytes a streamed backward kernel must move: the sweep's inputs
     read once, the gains written once, one ok byte a problem."""
-    outs = H * gain_width(nx, nu, R, r)
-    return 4 * Bn * (_input_floats(H, nx, nu, R, r) + outs) + Bn
+    outs = H * gain_width(nx, nu)
+    return 4 * Bn * (_input_floats(H, nx, nu) + outs) + Bn
 
 
-def backward_flops(Bn: int, H: int, nx: int, nu: int, R: int = 1,
-                   r: int = 0) -> int:
-    return Bn * H * _bwd_stage_flops(nx, nu, R, r)
+def backward_flops(Bn: int, H: int, nx: int, nu: int) -> int:
+    return Bn * H * _bwd_stage_flops(nx, nu)
 
 
-def forward_bytes(Bn: int, H: int, nx: int, nu: int, R: int = 1,
-                  r: int = 0) -> int:
-    """Least bytes a streamed forward kernel must move: A, B, c (and Jx)
-    and the gains read once, dX, dU, dLam (and dNu) written once."""
-    ins = H * (nx * nx + nx * nu + R * nx + r * nx
-               + gain_width(nx, nu, R, r))
-    return 4 * Bn * (ins + _output_floats(H, nx, nu, R, r))
+def forward_bytes(Bn: int, H: int, nx: int, nu: int) -> int:
+    """Least bytes a streamed forward kernel must move: A, B, c and the
+    gains read once, dX, dU, dLam written once."""
+    ins = H * (nx * nx + nx * nu + nx + gain_width(nx, nu))
+    return 4 * Bn * (ins + _output_floats(H, nx, nu))
 
 
-def forward_flops(Bn: int, H: int, nx: int, nu: int, R: int = 1,
-                  r: int = 0) -> int:
-    return Bn * H * _fwd_stage_flops(nx, nu, R, r)
+def forward_flops(Bn: int, H: int, nx: int, nu: int) -> int:
+    return Bn * H * _fwd_stage_flops(nx, nu)
 
 
 # ---- plain PyTorch versions ----

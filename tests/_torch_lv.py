@@ -70,51 +70,3 @@ def x0_batch(B, seed=0):
     rng = np.random.default_rng(seed)
     return np.stack([rng.uniform(0.2, 0.8, B), rng.uniform(-0.9, -0.3, B)],
                     axis=1).astype(np.float32)
-
-
-def sweep_data(B=3, H=5, nx=2, nu=1, seed=0):
-    """tests/test_pallas_kernel.py's sweep data, as float32 numpy arrays
-    (G and M exactly symmetric)."""
-    rng = np.random.default_rng(seed)
-    ns = nx + nu
-    A = np.eye(nx) + 0.1 * rng.normal(0, 0.3, (B, H, nx, nx))
-    Bm = 0.1 * rng.normal(0, 1, (B, H, nx, nu))
-    G = rng.normal(0, 0.05, (B, H, ns, ns)).astype(np.float32)
-    G = 0.5 * (G + G.transpose(0, 1, 3, 2))
-    M = rng.normal(0, 0.1, (B, H, ns, ns)).astype(np.float32)
-    M = 0.5 * (M + M.transpose(0, 1, 3, 2)) + np.eye(ns, dtype=np.float32)
-    mx = rng.normal(0, 1, (B, H, nx))
-    mu_ = rng.normal(0, 1, (B, H, nu))
-    c = rng.normal(0, 0.1, (B, H, nx))
-    delta = np.zeros((B,))
-    return [np.asarray(a, np.float32)
-            for a in (A, Bm, G, M, mx, mu_, c, delta)]
-
-
-def sweep_case(kind, B=4, H=5, nx=2, nu=1, seed=0):
-    """:func:`sweep_data` with one of chip_smoke.py's sweep cases:
-    ``delta0``; ``delta_per_problem`` (δ cycling 0, 0.1, 1, 10);
-    ``negative_curvature`` (every odd problem's first control at -50);
-    ``local_bump`` (stage 1's Quu pivot for the first control just below
-    zero, rescued at the 1e-6 bump on odd problems and only at the 1e-4
-    bump on problems 2 mod 4, with that control decoupled so the rescued
-    gains stay bounded)."""
-    args = sweep_data(B=B, H=H, nx=nx, nu=nu, seed=seed)
-    A, Bm, G, M, mx, mu_, c, delta = args
-    if kind == "delta_per_problem":
-        delta[:] = np.resize(np.float32([0.0, 0.1, 1.0, 10.0]), B)
-    elif kind == "negative_curvature":
-        M[1::2, :, nx, nx] = -50.0
-    elif kind == "local_bump":
-        for sel, gap in ((slice(1, None, 2), 2e-7), (slice(2, None, 4), 2e-5)):
-            Bm[sel, 1] = 0.0
-            for X in (G, M):
-                diag = X[sel, 1, nx, nx].copy()
-                X[sel, 1, nx, :] = 0.0
-                X[sel, 1, :, nx] = 0.0
-                X[sel, 1, nx, nx] = diag
-            M[sel, 1, nx, nx] = -G[sel, 1, nx, nx] - gap
-            mu_[sel, 1] = 0.0
-    elif kind != "delta0":
-        raise ValueError(kind)
-    return args

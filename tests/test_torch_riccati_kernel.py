@@ -17,8 +17,7 @@ import torch
 from pyneuralempc_tpu.ops.pallas.riccati_kernel import riccati_sweep_pallas
 from pyneuralempc_tpu.solve.riccati import riccati_sweep_ref
 from pyneuralempc_tpu_torch.ops.cuda import riccati_kernel as rk
-
-from _torch_lv import sweep_case, sweep_data
+from pyneuralempc_tpu_torch.ops.cuda.sweep_cases import sweep_case, sweep_data
 
 ATOL = 2e-5     # the JAX kernel test's own tolerance (f32)
 # one horizon for every case: interpret mode compiles once per shape
@@ -122,22 +121,24 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 
 
 def test_bound_counts():
-    """Bytes: 29 input and 5 output floats a stage at LV size, plus δ and
-    the ok byte per problem.  The streamed pair at quadrotor size: the
-    backward kernel reads 732 floats a stage (A 144, B 48, G 256, M 256,
-    mx 12, mu 4, c 12) and writes 256 gain floats; the forward kernel reads
-    A, B, c and the gains (460) and writes dX, dU, dLam (28)."""
-    assert rk.sweep_bytes(1, 1, 2, 1) == 4 * (29 + 1 + 5) + 1
-    assert rk.sweep_bytes(4096, 20, 2, 1) == 4096 * (4 * (20 * 34 + 1) + 1)
+    """Bytes count G and M as their upper triangles (ns(ns+1)/2 floats
+    each: all the sweep needs of them, and all the kernels read).  At LV
+    size, 23 input and 5 output floats a stage, plus δ and the ok byte per
+    problem.  The streamed pair at quadrotor size: the backward kernel reads
+    492 floats a stage (A 144, B 48, G 136, M 136, mx 12, mu 4, c 12) and
+    writes 256 gain floats; the forward kernel reads A, B, c and the gains
+    (460) and writes dX, dU, dLam (28)."""
+    assert rk.sweep_bytes(1, 1, 2, 1) == 4 * (23 + 1 + 5) + 1
+    assert rk.sweep_bytes(4096, 20, 2, 1) == 4096 * (4 * (20 * 28 + 1) + 1)
     assert rk.sweep_flops(4096, 20, 2, 1) == 20 * rk.sweep_flops(4096, 1, 2,
                                                                   1)
     assert rk.gain_width(2, 1) == 2 + 1 + 4 + 2 + 2
     assert rk.gain_width(12, 4) == 256
-    assert rk.backward_bytes(1, 1, 12, 4) == 4 * (732 + 1 + 256) + 1
+    assert rk.backward_bytes(1, 1, 12, 4) == 4 * (492 + 1 + 256) + 1
     assert rk.forward_bytes(1, 1, 12, 4) == 4 * (460 + 28)
     assert rk.backward_flops(1, 1, 12, 4) == 14525
     assert rk.forward_flops(1, 1, 12, 4) == 892
-    assert rk.backward_bytes(4096, 50, 12, 4) == 809_390_080   # ~242 us
+    assert rk.backward_bytes(4096, 50, 12, 4) == 612_782_080   # ~183 us
     assert rk.forward_bytes(4096, 50, 12, 4) == 399_769_600    # ~119 us
     assert rk.backward_flops(4096, 50, 12, 4) == 2_974_720_000
     assert rk.forward_flops(4096, 50, 12, 4) == 182_681_600
@@ -146,26 +147,40 @@ def test_bound_counts():
                 == rk.sweep_flops(7, 3, *dims))
 
 
-def test_general_bound_counts():
-    """The general kernels' bounds (not ported yet) at the EQ/border
-    quadrotor fleet (tools/fleet_eq_tpu.py --border: R=2 right-hand sides,
-    r=1 stage-equality row): the backward kernel reads 778 floats a stage
-    (A 144, B 48, G 256, M 256, mx 24, mu 8, c 24, h 2, E 4, F 12) and
-    writes 286 gain floats; R=1, r=0 is the plain sweep."""
-    assert rk.gain_width(12, 4, R=2, r=1) == 48 + 8 + 144 + 24 + 48 + 12 + 2
-    assert rk.backward_bytes(1, 1, 12, 4, R=2, r=1) == 4 * (778 + 2 + 286) + 1
-    assert rk.forward_bytes(1, 1, 12, 4, R=2, r=1) == 4 * (
-        144 + 48 + 24 + 12 + 286 + 58)
-    assert rk.sweep_bytes(1, 1, 12, 4, R=2, r=1) == 4 * (778 + 2 + 12 + 58) + 1
-    assert rk.backward_bytes(4096, 50, 12, 4, R=2, r=1) == 871_665_664
-    assert rk.forward_bytes(4096, 50, 12, 4, R=2, r=1) == 468_582_400
-    assert rk.sweep_bytes(4096, 50, 12, 4, R=2, r=1) == 694_718_464
-    assert rk.backward_flops(4096, 50, 12, 4, R=2, r=1) == 3_296_870_400
-    assert rk.forward_flops(4096, 50, 12, 4, R=2, r=1) == 385_433_600
-    for f in (rk.sweep_bytes, rk.sweep_flops, rk.backward_bytes,
-              rk.backward_flops, rk.forward_bytes, rk.forward_flops):
-        assert f(5, 7, 12, 4) == f(5, 7, 12, 4, R=1, r=0)
-        assert f(5, 7, 12, 4, R=2, r=1) > f(5, 7, 12, 4)
+@pytest.mark.parametrize("kind", ["delta0", "delta_per_problem",
+                                  "negative_curvature", "local_bump"])
+def test_sweep_cases(kind):
+    """The shared cases that chip_smoke.py holds the kernels to: float32,
+    contiguous, G and M exactly symmetric (the kernels read their upper
+    triangles, the plain version the full matrices), and each case's
+    change where its docstring puts it."""
+    nx, nu = 4, 2
+    args = sweep_case(kind, B=8, H=3, nx=nx, nu=nu, seed=11)
+    base = sweep_data(B=8, H=3, nx=nx, nu=nu, seed=11)
+    for a in args:
+        assert a.dtype == np.float32 and a.flags.c_contiguous
+    A, Bm, G, M, mx, mu_, c, delta = args
+    for X in (G, M):
+        np.testing.assert_array_equal(X, X.transpose(0, 1, 3, 2))
+    if kind == "delta_per_problem":
+        np.testing.assert_array_equal(
+            delta, np.float32([0.0, 0.1, 1.0, 10.0] * 2))
+    else:
+        assert not delta.any()
+    if kind == "negative_curvature":
+        assert (M[1::2, :, nx, nx] == -50.0).all()
+        np.testing.assert_array_equal(M[::2], base[3][::2])
+    if kind == "local_bump":
+        for sel, gap in ((slice(1, None, 2), 2e-7), (slice(2, None, 4), 2e-5)):
+            assert not Bm[sel, 1].any() and not mu_[sel, 1].any()
+            pivot = (M[sel, 1, nx, nx].astype(np.float64)
+                     + G[sel, 1, nx, nx])
+            # -gap up to one f32 rounding of -G - gap (|G| ~ 0.1)
+            np.testing.assert_allclose(pivot, -gap, rtol=0, atol=1e-8)
+        np.testing.assert_array_equal(M[0], base[3][0])
+    if kind == "delta0":
+        for a, b in zip(args, base):
+            np.testing.assert_array_equal(a, b)
 
 
 # ---- the streamed pair's plain halves at quadrotor-like stage widths ----
@@ -228,8 +243,9 @@ def test_plain_counters():
     rk.riccati_forward_plain(t[0], t[1], t[6], gains)
     rk.riccati_sweep_plain(*t)
     assert rk.PLAIN_CALLS == n0 + 3
+    launches = (rk.BACKWARD_LAUNCHES, rk.FORWARD_LAUNCHES)
     with pytest.raises(ValueError, match="CUDA device"):
         rk.riccati_sweep_streamed_cuda(*t)
     with pytest.raises(ValueError, match="CUDA device"):
         rk.riccati_forward_cuda(t[0], t[1], t[6], gains)
-    assert rk.BACKWARD_LAUNCHES == rk.FORWARD_LAUNCHES == 0
+    assert (rk.BACKWARD_LAUNCHES, rk.FORWARD_LAUNCHES) == launches
