@@ -22,6 +22,15 @@ Phases (each raises, and the script exits non-zero, on failure):
    flags against riccati_backward_plain, the forward kernel against
    riccati_forward_plain fed the same gains, the pair against the plain
    sweep; then the pair against the fused kernel at (2, 1).  Times as in 3.
+3c. General pair vs plain: the general backward and forward kernels
+   (csrc/riccati_general.cu) at the EQ/border quadrotor path's shapes
+   (B=4096, H=50, nx=12, nu=4, R=2 right-hand sides, r=1 stage equality
+   row) on the four cases (per-problem delta_c too): gains and ok flags
+   against riccati_general_backward_plain, the forward kernel against the
+   plain forward fed the same gains, the pair against the plain general
+   sweep; then one border-only case (R=2, r=0), one pure-EQ case (R=1,
+   r=nu, H=10), and the pair at R=1, r=0 against the plain streamed pair.
+   Times as in 3.
 4. LV path: trains the 2x32 tanh MLP surrogate of the Lotka-Volterra
    system on the card, builds NMPC as bench.py does, solves B=4096 cold and
    then warm re-plans, the plant advanced by the true ODE through the port's
@@ -33,8 +42,15 @@ Phases (each raises, and the script exits non-zero, on failure):
    one cold solve, one untimed warm re-plan, then timed warm re-plans, each
    from the plan's first state.  Counters as in 4: the streamed pair must
    have launched, the fused kernel and the plain sweep must not have.
-5. Card vs CPU: 16 LV problems and 16 quadrotor problems solved on the card
-   and on the CPU.
+4c. EQ/border quadrotor path: the quadrotor with a zero-net-yaw-torque
+   stage equality row and a horizon thrust-impulse budget row
+   (pyneuralempc_tpu_torch/examples/fleet_eq.py) on B=4096 starts, 4b's
+   protocol.  Counters: the general pair must have launched, every other
+   kernel and plain version must not have.  Every plan converged (up to 4
+   of 4096) keeps |u0 - u1 + u2 - u3| <= 1e-4 and its thrust impulse
+   within the budget.
+5. Card vs CPU: 16 LV problems, 16 quadrotor problems and 16 EQ/border
+   quadrotor problems solved on the card and on the CPU.
 6. Numbers: warm re-plan p50 latency, solves/s, the time split and the
    device busy share, for each path.
 
@@ -71,6 +87,12 @@ CSRC = "pyneuralempc_tpu_torch/csrc/"
 # the quadrotor path (bench.py's BASELINE config 4)
 QH, QNX, QNU = 50, 12, 4
 Q_WARM_STEPS = 4
+# the EQ/border quadrotor path: R right-hand sides (1 + one budget row), r
+# stage equality rows
+QR, QEQ = 2, 1
+PURE_EQ_H = 10                # the r = nu kernel check's horizon
+EQ_RESIDUAL = 1e-4            # the solver's tol
+BUDGET_SLACK = 1e-3
 
 
 def log(*a):
@@ -93,14 +115,23 @@ def f_true(x, u):
     return torch.cat([d1, d2], dim=1) / 30.0
 
 
-def reset_counters(rk):
+def reset_counters(rk, rg):
     rk.LAUNCHES = rk.BACKWARD_LAUNCHES = rk.FORWARD_LAUNCHES = 0
     rk.PLAIN_CALLS = 0
+    rg.BACKWARD_LAUNCHES = rg.FORWARD_LAUNCHES = 0
 
 
-def counters(rk):
+def counters(rk, rg):
     return {"fused": rk.LAUNCHES, "backward": rk.BACKWARD_LAUNCHES,
-            "forward": rk.FORWARD_LAUNCHES, "plain": rk.PLAIN_CALLS}
+            "forward": rk.FORWARD_LAUNCHES, "plain": rk.PLAIN_CALLS,
+            "general_backward": rg.BACKWARD_LAUNCHES,
+            "general_forward": rg.FORWARD_LAUNCHES}
+
+
+def only_launched(n, *names):
+    """The named counters moved and every other one stayed at 0."""
+    return (all(n[k] > 0 for k in names)
+            and all(v == 0 for k, v in n.items() if k not in names))
 
 
 # ---- phases 3, 3b: kernels vs plain ----
@@ -135,9 +166,12 @@ def check_ok(kind, got, ref):
 
 def errors(outs, refs, ok):
     """(max |diff|, max |diff|/max(1, |plain|), [max(1, max|plain|) per
-    output]) over the ok problems."""
+    output]) over the ok problems; empty outputs (dNu with no equality
+    rows) are skipped."""
     abs_err, scaled, mags = 0.0, 0.0, []
     for o, r in zip(outs, refs):
+        if r.numel() == 0:
+            continue
         d = (o - r).abs()[ok]
         abs_err = max(abs_err, float(d.max()))
         scaled = max(scaled, float((d / r.abs()[ok].clamp(min=1.0)).max()))
@@ -328,7 +362,118 @@ def phase_streamed(rk):
     return bwd, fwd, pair_ms
 
 
-# ---- phases 4, 4b: main paths ----
+def general_case(kind, seed, R=QR, r=QEQ, Hn=QH):
+    """One of the seeded general cases the CPU tests use too, on the card, at
+    the EQ/border quadrotor path's stage widths."""
+    from pyneuralempc_tpu_torch.ops.cuda import sweep_cases
+    case = sweep_cases.general_sweep_case(kind, B=B, H=Hn, nx=QNX, nu=QNU,
+                                          R=R, r=r, seed=seed)
+    return [torch.as_tensor(a, device="cuda") for a in case]
+
+
+def phase_general(rk, rg):
+    """The general pair against its plain halves at the EQ/border quadrotor
+    path's shapes on the four cases; then a border-only and a pure-EQ case,
+    and the pair at R=1, r=0 against the plain streamed pair."""
+    worst = {"backward": [0.0, 0.0], "forward": [0.0, 0.0]}
+
+    def gate(kind, what, abs_err, scaled):
+        log(f"general {what} vs plain [{kind}]: max |diff| {abs_err:.3e}, "
+            f"max |diff|/max(1,|plain|) {scaled:.3e} (limit {STREAMED_TOL})")
+        if not scaled <= STREAMED_TOL:
+            raise RuntimeError(f"{kind}: general {what} differs from plain "
+                               f"by {scaled:.3e} > {STREAMED_TOL}")
+
+    def pair_vs_plain(kind, args, label):
+        pair = rg.riccati_sweep_general_streamed_cuda(*args)
+        torch.cuda.synchronize()
+        ref = rg.riccati_sweep_general_plain(*args)
+        check_ok(kind, pair[4], ref[4])
+        e = errors(pair[:4], ref[:4], ref[4])
+        gate(kind, f"pair end to end, {label} (dX, dU, dLam, dNu)", *e[:2])
+        return e
+
+    for kind, seed in CASES.items():
+        args = general_case(kind, seed)
+        A, Bm, c, Jx = args[0], args[1], args[6], args[12]
+        gains, ok = rg.riccati_general_backward_cuda(*args[:12])
+        torch.cuda.synchronize()
+        g_ref, ok_ref = rg.riccati_general_backward_plain(*args[:12])
+        check_ok(kind, ok, ok_ref)
+        e = errors([gains], [g_ref], ok_ref)
+        gate(kind, "backward (gains)", *e[:2])
+        worst["backward"] = [max(a, b) for a, b in zip(worst["backward"],
+                                                       e[:2])]
+        out = rg.riccati_general_forward_cuda(A, Bm, c, Jx, gains)
+        torch.cuda.synchronize()
+        same = rg.riccati_general_forward_plain(A, Bm, c, Jx, gains)
+        e = errors(out, same, ok_ref)
+        gate(kind, "forward (dX, dU, dLam, dNu; same gains)", *e[:2])
+        worst["forward"] = [max(a, b) for a, b in zip(worst["forward"],
+                                                      e[:2])]
+        pair_vs_plain(kind, args, f"R={QR}, r={QEQ}")
+        log(f"  [{kind}] ok {int(ok.sum())}/{B} (equal to plain, as "
+            "expected)")
+        del args, gains, g_ref, out, same
+
+    pair_vs_plain("delta_per_problem",
+                  general_case("delta_per_problem", 1, R=2, r=0),
+                  "R=2, r=0 (border only)")
+    # at r = nu the rows fix the control and nothing steers the states:
+    # a short horizon keeps the comparison about the kernel, not about
+    # conditioning (sweep_cases.general_sweep_case)
+    pair_vs_plain("delta_per_problem",
+                  general_case("delta_per_problem", 1, R=1, r=QNU,
+                               Hn=PURE_EQ_H),
+                  f"R=1, r={QNU}, H={PURE_EQ_H} (pure EQ)")
+
+    # two CUDA designs on one function: at R=1, r=0 the general pair
+    # computes the plain streamed pair's sweep
+    args = general_case("delta_per_problem", 1, R=1, r=0)
+    gen = rg.riccati_sweep_general_streamed_cuda(*args)
+    plain = rk.riccati_sweep_streamed_cuda(
+        *[a[:, :, 0].contiguous() if i in (4, 5, 6) else a
+          for i, a in enumerate(args[:8])])
+    torch.cuda.synchronize()
+    check_ok("delta_per_problem", gen[4], plain[3])
+    abs_err, scaled, _ = errors([g[:, :, 0] for g in gen[:3]], plain[:3],
+                                plain[3])
+    log(f"general pair at R=1, r=0 vs streamed pair (B={B}, H={QH}, "
+        f"nx={QNX}, nu={QNU}): max |diff| {abs_err:.3e}, scaled "
+        f"{scaled:.3e} (limit {STREAMED_TOL})")
+    if not scaled <= STREAMED_TOL:
+        raise RuntimeError(f"general and streamed pairs differ by "
+                           f"{scaled:.3e}")
+
+    args = general_case("delta0", 0)
+    A, Bm, c, Jx = args[0], args[1], args[6], args[12]
+    gains, _ = rg.riccati_general_backward_cuda(*args[:12])
+    dims = (B, QH, QNX, QNU, QR, QEQ)
+    label = f"B={B}, H={QH}, nx={QNX}, nu={QNU}, R={QR}, r={QEQ}"
+    bwd = kernel_entry(
+        "riccati_general_backward", "riccati_general.cu", f"{PALLAS}:991",
+        lambda: rg.riccati_general_backward_cuda(*args[:12]),
+        "riccati_general_backward_kernel",
+        lambda: rg.riccati_general_backward_plain(*args[:12]),
+        rg.general_backward_bytes(*dims), rg.general_backward_flops(*dims),
+        label, plain_runs=5)
+    fwd = kernel_entry(
+        "riccati_general_forward", "riccati_general.cu", f"{PALLAS}:1024",
+        lambda: rg.riccati_general_forward_cuda(A, Bm, c, Jx, gains),
+        "riccati_general_forward_kernel",
+        lambda: rg.riccati_general_forward_plain(A, Bm, c, Jx, gains),
+        rg.general_forward_bytes(*dims), rg.general_forward_flops(*dims),
+        label, plain_runs=5)
+    for entry, key in ((bwd, "backward"), (fwd, "forward")):
+        entry.update(max_abs_err=worst[key][0], max_scaled_err=worst[key][1])
+    pair_ms = cuda_median_ms(
+        lambda: rg.riccati_sweep_general_streamed_cuda(*args))
+    log(f"general sweep (backward + forward, one wrapper call): "
+        f"{pair_ms * 1e3:.1f} us")
+    return bwd, fwd, pair_ms
+
+
+# ---- phases 4, 4b, 4c: main paths ----
 
 def make_controller(nempc, device):
     surrogate = nempc.MLPDynamics.make(x_dim=2, u_dim=1, hidden=[32, 32])
@@ -403,7 +548,7 @@ def report_split(nempc, mpc, carry, xs, res, times, sweeps, sweep_ms, card,
         f"{min(times) * 1e3:.1f} ms -> {B / p50:,.0f} solves/s")
 
 
-def phase_main_path(nempc, rk, card):
+def phase_main_path(nempc, rk, rg, card):
     from pyneuralempc_tpu_torch.ops.integrators import step_fn
 
     t0 = time.perf_counter()
@@ -427,7 +572,7 @@ def phase_main_path(nempc, rk, card):
                    axis=1).astype(np.float32)
     plant = step_fn(nempc.torch_dynamics(f_true, 2, 1), "rk4", DT)
 
-    reset_counters(rk)
+    reset_counters(rk, rg)
     t0 = time.perf_counter()
     xs = torch.as_tensor(x0s, device="cuda")
     carry, res = mpc.next_batch(xs, params=params)
@@ -447,12 +592,12 @@ def phase_main_path(nempc, rk, card):
         launches.append(rk.LAUNCHES - n0)
         log(f"warm {step}: {times[-1] * 1e3:.1f} ms  sweeps "
             f"{launches[-1]}  " + telemetry("warm", res))
-    n = counters(rk)
+    n = counters(rk, rg)
     log(f"LV path: fused kernel launches {n['fused']}, streamed backward "
-        f"{n['backward']} / forward {n['forward']}, plain sweep calls "
+        f"{n['backward']} / forward {n['forward']}, general "
+        f"{n['general_backward']} / {n['general_forward']}, plain calls "
         f"{n['plain']}")
-    if (n["fused"] <= 0 or n["plain"] != 0 or n["backward"] != 0
-            or n["forward"] != 0):
+    if not only_launched(n, "fused"):
         raise RuntimeError("the LV path did not go through the fused "
                            "kernel alone")
     if min(conv) < MIN_WARM_CONVERGED:
@@ -468,7 +613,7 @@ def phase_main_path(nempc, rk, card):
     return params, x0s, n["fused"]
 
 
-def phase_quadrotor(nempc, rk, card, pair_ms):
+def phase_quadrotor(nempc, rk, rg, card, pair_ms):
     from pyneuralempc_tpu_torch.examples.quadrotor import (make_quadrotor_mpc,
                                                            quad_x0s)
 
@@ -478,7 +623,7 @@ def phase_quadrotor(nempc, rk, card, pair_ms):
     x0s = quad_x0s(np.random.default_rng(0), B)
     xs = torch.as_tensor(x0s, device="cuda")
 
-    reset_counters(rk)
+    reset_counters(rk, rg)
     t0 = time.perf_counter()
     carry, res = mpc.next_batch(xs)
     torch.cuda.synchronize()
@@ -512,12 +657,13 @@ def phase_quadrotor(nempc, rk, card, pair_ms):
         launches.append(rk.BACKWARD_LAUNCHES - n0)
         log(f"warm {step}: {times[-1] * 1e3:.1f} ms  sweeps "
             f"{launches[-1]}  " + telemetry("warm", res))
-    n = counters(rk)
+    n = counters(rk, rg)
     log(f"quadrotor path: streamed backward launches {n['backward']}, "
-        f"forward {n['forward']}, fused kernel {n['fused']}, plain sweep "
-        f"calls {n['plain']}")
-    if (n["backward"] <= 0 or n["forward"] != n["backward"]
-            or n["fused"] != 0 or n["plain"] != 0):
+        f"forward {n['forward']}, fused kernel {n['fused']}, general "
+        f"{n['general_backward']} / {n['general_forward']}, plain calls "
+        f"{n['plain']}")
+    if (not only_launched(n, "backward", "forward")
+            or n["forward"] != n["backward"]):
         raise RuntimeError("the quadrotor path did not go through the "
                            "streamed pair alone")
     if min(conv) < MIN_WARM_CONVERGED:
@@ -528,6 +674,87 @@ def phase_quadrotor(nempc, rk, card, pair_ms):
     report_split(nempc, mpc, carry, xs, res, times, launches[-1], pair_ms,
                  card)
     return x0s, n["backward"], n["forward"]
+
+
+def check_fleet_eq(tag, res, budget, yaw_residual):
+    """EQ residual and budget over the converged plans; the share of them
+    on which the budget binds."""
+    conv = res.converged
+    yaw = float(yaw_residual(res.u)[conv].max())
+    total = res.u.sum(dim=(1, 2))[conv]
+    binding = float((total > budget - BUDGET_SLACK).float().mean())
+    log(f"  {tag}: max |u0-u1+u2-u3| {yaw:.3e} (limit {EQ_RESIDUAL}), "
+        f"thrust impulse max {float(total.max()):.4f} (budget {budget:.4f}),"
+        f" binding on {binding:.2%} of converged plans")
+    if not yaw <= EQ_RESIDUAL:
+        raise RuntimeError(f"{tag}: yaw-trim row violated by {yaw:.3e}")
+    if not bool((total <= budget + BUDGET_SLACK).all()):
+        raise RuntimeError(f"{tag}: thrust budget exceeded")
+    return binding
+
+
+def phase_fleet_eq(nempc, rk, rg, card, pair_ms):
+    from pyneuralempc_tpu_torch.examples.fleet_eq import (BUDGET,
+                                                          make_fleet_eq_mpc,
+                                                          yaw_residual)
+    from pyneuralempc_tpu_torch.examples.quadrotor import quad_x0s
+
+    mpc = make_fleet_eq_mpc("cuda", border=True, H=QH)
+    log(f"EQ/border quadrotor: kkt backend {mpc.kkt_backend}; sweep plan: "
+        f"{rk.kernel_plan(QH, QNX, QNU, 'cuda', R=QR, r=QEQ)}")
+    x0s = quad_x0s(np.random.default_rng(0), B)
+    xs = torch.as_tensor(x0s, device="cuda")
+
+    reset_counters(rk, rg)
+    t0 = time.perf_counter()
+    carry, res = mpc.next_batch(xs)
+    torch.cuda.synchronize()
+    log(f"EQ/border quadrotor cold B={B}, H={QH}: "
+        f"{time.perf_counter() - t0:.2f} s  " + telemetry("cold", res))
+    conv = [int(res.converged.sum())]
+    check_plan(res, QH, QNX, QNU)
+    binding = [check_fleet_eq("cold", res, BUDGET, yaw_residual)]
+
+    t0 = time.perf_counter()
+    xs = res.x[:, 0].contiguous()
+    carry, res = mpc.next_batch(xs, carry=carry)
+    torch.cuda.synchronize()
+    conv.append(int(res.converged.sum()))
+    log(f"warm (untimed): {(time.perf_counter() - t0) * 1e3:.1f} ms  "
+        + telemetry("warm", res))
+    binding.append(check_fleet_eq("warm", res, BUDGET, yaw_residual))
+    times, launches = [], []
+    for step in range(Q_WARM_STEPS):
+        xs = res.x[:, 0].contiguous()
+        n0 = rg.BACKWARD_LAUNCHES
+        t0 = time.perf_counter()
+        carry, res = mpc.next_batch(xs, carry=carry)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        conv.append(int(res.converged.sum()))
+        launches.append(rg.BACKWARD_LAUNCHES - n0)
+        log(f"warm {step}: {times[-1] * 1e3:.1f} ms  sweeps "
+            f"{launches[-1]}  " + telemetry("warm", res))
+        binding.append(check_fleet_eq(f"warm {step}", res, BUDGET,
+                                      yaw_residual))
+    n = counters(rk, rg)
+    log(f"EQ/border path: general backward launches "
+        f"{n['general_backward']}, forward {n['general_forward']}; fused "
+        f"{n['fused']}, streamed backward {n['backward']} / forward "
+        f"{n['forward']}, plain calls {n['plain']}")
+    if (not only_launched(n, "general_backward", "general_forward")
+            or n["general_forward"] != n["general_backward"]):
+        raise RuntimeError("the EQ/border path did not go through the "
+                           "general pair alone")
+    if min(conv) < MIN_WARM_CONVERGED:
+        raise RuntimeError(f"EQ/border convergence {conv} (cold, warm...) "
+                           f"below {MIN_WARM_CONVERGED}/{B}")
+    check_plan(res, QH, QNX, QNU)
+    log(f"converged: cold, then every warm step {conv}; budget binding "
+        f"share (cold, warm...) {[round(b, 4) for b in binding]}")
+    report_split(nempc, mpc, carry, xs, res, times, launches[-1], pair_ms,
+                 card)
+    return x0s, n["general_backward"], n["general_forward"]
 
 
 # ---- phase 5: card vs CPU ----
@@ -544,7 +771,8 @@ def card_vs_cpu(tag, solve):
                            f"{du:.3e}, masks equal {same}")
 
 
-def phase_card_vs_cpu(nempc, params, x0s, q_x0s):
+def phase_card_vs_cpu(nempc, params, x0s, q_x0s, eq_x0s):
+    from pyneuralempc_tpu_torch.examples.fleet_eq import make_fleet_eq_mpc
     from pyneuralempc_tpu_torch.examples.quadrotor import make_quadrotor_mpc
 
     def lv(dev):
@@ -558,8 +786,14 @@ def phase_card_vs_cpu(nempc, params, x0s, q_x0s):
         return mpc.next_batch(torch.as_tensor(q_x0s[:N_CARD_VS_CPU],
                                               device=dev))[1]
 
+    def fleet_eq(dev):
+        mpc = make_fleet_eq_mpc(dev, border=True, H=QH)
+        return mpc.next_batch(torch.as_tensor(eq_x0s[:N_CARD_VS_CPU],
+                                              device=dev))[1]
+
     card_vs_cpu("LV", lv)
     card_vs_cpu(f"quadrotor, H={QH}", quad)
+    card_vs_cpu(f"EQ/border quadrotor, H={QH}", fleet_eq)
 
 
 def main():
@@ -570,6 +804,7 @@ def main():
     import pyneuralempc_tpu_torch as nempc
     from pyneuralempc_tpu_torch.ops.cuda import build
     rk = nempc.riccati_kernel
+    rg = nempc.riccati_general
 
     # phase 1: device
     card = card_line()
@@ -582,7 +817,7 @@ def main():
 
     # phase 2: build, one nvcc for each source, all at once
     t0 = time.perf_counter()
-    sources = (rk.SOURCE, rk.STREAMED_SOURCE)
+    sources = (rk.SOURCE, rk.STREAMED_SOURCE, rk.GENERAL_SOURCE)
     for src, r in zip(sources,
                       build.build_all([build.CSRC_DIR / s for s in sources])):
         log(f"built {src} -> {r.path.name} in {r.seconds:.1f} s")
@@ -591,19 +826,22 @@ def main():
                 log(f"  ptxas: {line.strip()}")
     log(f"build phase {time.perf_counter() - t0:.1f} s")
 
-    # phases 3, 3b: kernels vs plain
+    # phases 3, 3b, 3c: kernels vs plain
     fused = phase_kernels(rk)
     bwd, fwd, pair_ms = phase_streamed(rk)
+    gbwd, gfwd, gpair_ms = phase_general(rk, rg)
 
-    # phases 4, 4b, 6: main paths and their numbers
-    params, x0s, fused["launches"] = phase_main_path(nempc, rk, card)
-    q_x0s, bwd["launches"], fwd["launches"] = phase_quadrotor(nempc, rk, card,
-                                                              pair_ms)
+    # phases 4, 4b, 4c, 6: main paths and their numbers
+    params, x0s, fused["launches"] = phase_main_path(nempc, rk, rg, card)
+    q_x0s, bwd["launches"], fwd["launches"] = phase_quadrotor(
+        nempc, rk, rg, card, pair_ms)
+    eq_x0s, gbwd["launches"], gfwd["launches"] = phase_fleet_eq(
+        nempc, rk, rg, card, gpair_ms)
 
     # phase 5: card vs CPU
-    phase_card_vs_cpu(nempc, params, x0s, q_x0s)
+    phase_card_vs_cpu(nempc, params, x0s, q_x0s, eq_x0s)
 
-    print(json.dumps({"kernels": [fused, bwd, fwd]}))
+    print(json.dumps({"kernels": [fused, bwd, fwd, gbwd, gfwd]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

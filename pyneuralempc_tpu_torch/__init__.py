@@ -6,9 +6,11 @@ in as the system dynamics; the package transcribes the nonlinear program
 (multiple-shooting defects, economic objective, exact derivatives by
 ``torch.func``) and solves a whole batch of MPC problems with a batched
 primal-dual interior-point method.  Its KKT systems go through a
-block-tridiagonal Riccati sweep, hand-written CUDA kernels on the card.
-:mod:`.examples.quadrotor` is the quadrotor fleet (12 states, 4 thrusts,
-H=50).
+block-tridiagonal Riccati sweep, hand-written CUDA kernels on the card;
+stage-equality rows and trajectory-level constraint rows take the general
+sweep.  :mod:`.examples.quadrotor` is the quadrotor fleet (12 states, 4
+thrusts, H=50), :mod:`.examples.fleet_eq` the same fleet with a stage
+equality row and a horizon budget row.
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``.
@@ -32,7 +34,10 @@ Quick start::
     res.u  # planned controls, (1024, H, 1)
 """
 
-from .core.problem import Box, Dims, MPCSpec, StageCost, runtime
+from .core.problem import (Box, Dims, MPCSpec, PathConstraint, StageCost,
+                           StageConstraint, equality_constraint,
+                           inequality_constraint, interval_constraint,
+                           runtime, stage_inequality, stage_interval)
 from .core.structure import SeparableObjective, probe_stage_separable
 from .core.transcription import NLP, transcribe
 from .models.base import DynamicsModel, torch_dynamics
@@ -41,7 +46,7 @@ from .models.mlp import MLPDynamics, mlp_apply, mlp_init
 from .models.train import fit_surrogate, sample_transitions
 from .solve.interior_point import IPConfig, IPResult, make_solver
 from .api.controller import NMPC, NMPCResult, WarmStart
-from .ops.cuda import riccati_kernel
+from .ops.cuda import riccati_general, riccati_kernel
 
 # Reference-compatible alias (pyNeuralEMPC.constraints.DomainConstraint).
 DomainConstraint = Box.make
@@ -49,10 +54,13 @@ DomainConstraint = Box.make
 __version__ = "0.1.0"
 
 __all__ = [
-    "Box", "Dims", "MPCSpec", "StageCost", "DomainConstraint", "runtime",
+    "Box", "Dims", "MPCSpec", "PathConstraint", "StageConstraint",
+    "StageCost", "DomainConstraint", "stage_inequality", "stage_interval",
+    "equality_constraint", "inequality_constraint", "interval_constraint",
+    "runtime",
     "SeparableObjective", "probe_stage_separable", "NLP", "transcribe",
     "DynamicsModel", "torch_dynamics", "mlp_params_from_numpy",
     "MLPDynamics", "mlp_apply", "mlp_init", "fit_surrogate",
     "sample_transitions", "IPConfig", "IPResult", "make_solver", "NMPC",
-    "NMPCResult", "WarmStart", "riccati_kernel",
+    "NMPCResult", "WarmStart", "riccati_kernel", "riccati_general",
 ]

@@ -17,7 +17,8 @@ from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..core.problem import Box, MPCSpec, StageCost, runtime
+from ..core.problem import (Box, MPCSpec, PathConstraint, StageConstraint,
+                            StageCost, runtime)
 from ..core.structure import SeparableObjective, probe_stage_separable
 from ..core.transcription import NLP, transcribe
 from ..ops.integrators import step_fn
@@ -56,16 +57,17 @@ class WarmStart(NamedTuple):
 
 def _split_constraints(constraints):
     box = None
+    path = []
     for c in constraints or ():
         if isinstance(c, Box):
             if box is not None:
                 raise ValueError("at most one Box/DomainConstraint allowed")
             box = c
+        elif isinstance(c, (PathConstraint, StageConstraint)):
+            path.append(c)
         else:
-            raise NotImplementedError(
-                f"constraint {type(c).__name__}: path and stage constraints "
-                "are ROADMAP Queue 1 #9; this port takes one Box")
-    return box
+            raise TypeError(f"unknown constraint type: {type(c)!r}")
+    return box, tuple(path)
 
 
 def _to(tree, device):
@@ -94,7 +96,8 @@ class NMPC:
     ----------
     model:       a :class:`~pyneuralempc_tpu_torch.models.base.DynamicsModel`.
     objective:   scalar economic cost ``J(x, u, p=None, tvp=None)``.
-    constraints: iterable holding at most one :class:`Box`.
+    constraints: iterable of at most one :class:`Box` and any number of
+                 :class:`StageConstraint` / :class:`PathConstraint`.
     H, DT:       horizon length and integrator step.
     integrator:  "delta" | "euler" | "rk4" | "direct".
     config:      :class:`IPConfig` solver settings (exact Hessian).
@@ -117,7 +120,7 @@ class NMPC:
             raise NotImplementedError(
                 "mesh=: multi-device solves are ROADMAP Queue 1 #14")
         self.device = torch.device(device)
-        box = _split_constraints(constraints)
+        box, path = _split_constraints(constraints)
         if box is None:
             box = Box.unbounded(model.dims.x, model.dims.u)
         # a plain-callable cost that probes stage-separable is certified,
@@ -128,13 +131,16 @@ class NMPC:
                 and probe_stage_separable(objective, model.dims, H)):
             objective = SeparableObjective(fn=objective)
         self.spec = MPCSpec(model=model, integrator=integrator,
-                            objective=objective, box=box, H=H, DT=DT)
+                            objective=objective, box=box, H=H, DT=DT,
+                            path_constraints=path)
         self.nlp: NLP = transcribe(self.spec, device=self.device)
         self.config = config
         if config.kkt == "auto" and not riccati.eligible(self.nlp):
             raise NotImplementedError(
-                "the objective probes stage-coupled, which needs the dense "
-                "KKT backend (ROADMAP Queue 1 #10)")
+                "this problem needs the dense KKT backend (ROADMAP Queue 1 "
+                "#10): its objective probes stage-coupled, or it has more "
+                "equality rows a stage than controls, or more than 64 "
+                "trajectory-level constraint rows")
         self.kkt_backend = "riccati"
         self._solve = make_solver(self.nlp, config,
                                   direction=riccati.make_riccati_direction)

@@ -1,0 +1,318 @@
+"""The general Riccati sweep: CUDA kernels, plain PyTorch versions, dispatch.
+
+The general sweep extends the plain one (:mod:`.riccati_kernel`) two ways:
+
+* **R right-hand sides.**  The linear terms mx, mu, c (and h) carry an rhs
+  axis, while the factorisation (Quu's Cholesky, K, P) is computed once a
+  stage.  The Riccati backend's trajectory-level border rows ride these
+  extra right-hand sides.
+* **r stage equality rows** ``E Δu = h − F Δx`` a stage, solved by a Schur
+  complement S = E Quu⁻¹ Eᵀ + δ_c I on Quu's factor; their multipliers Δν
+  come back beside Δx, Δu, Δλ, and ``Jx`` adds Jxᵀ Δν to Δλ.
+
+Replaces ``pyneuralempc_tpu/ops/pallas/riccati_kernel.py``
+``_riccati_general_pallas_call``'s streamed pair: the backward kernel
+(:991, body ``_bwd_general_body`` :610-787) and the forward kernel (:1024,
+body ``_fwd_general_body`` :790-847), both in ``csrc/riccati_general.cu``:
+one warp per problem, any nx <= 32, nu <= 16, R <= 65, r <= nu at run time.
+
+Beside them:
+
+* :func:`riccati_general_backward_plain`,
+  :func:`riccati_general_forward_plain` — the plain PyTorch versions of the
+  two halves, a port of ``solve/riccati.py`` ``riccati_sweep_general_ref``
+  with the per-stage ``_LOCAL_DELTAS`` retry on both Cholesky factors;
+  :func:`riccati_sweep_general_plain` is their composition.  CPU tensors
+  take them; ``chip_smoke.py`` holds the kernels against them on the card.
+  Each call adds one to ``riccati_kernel.PLAIN_CALLS``.
+* :func:`riccati_general_backward_cuda`, :func:`riccati_general_forward_cuda`,
+  :func:`riccati_sweep_general_streamed_cuda` — check their inputs,
+  allocate outputs, launch on PyTorch's current stream.
+* :func:`riccati_sweep_general` — the dispatch the solver calls.  It never
+  drops a CUDA tensor to a plain version.
+
+``BACKWARD_LAUNCHES`` and ``FORWARD_LAUNCHES`` count the kernels' launches.
+
+Layouts are batch-first and stage-major, so a stage's R right-hand sides
+are contiguous: A (B,H,nx,nx), B (B,H,nx,nu), G and M (B,H,ns,ns)
+symmetric, mx and c (B,H,R,nx), mu (B,H,R,nu), delta and delta_c (B,),
+E (B,H,r,nu), F and Jx (B,H,r,nx), h (B,H,R,r).  A sweep returns dX and
+dLam (B,H,R,nx), dU (B,H,R,nu), dNu (B,H,R,r) and ok (B,).  The gains
+between the halves are (B,H,gain_width(nx, nu, R, r)), each stage laid out
+``[K (nu,nx) | k (R,nu) | Pbar (nx,nx) | pbar (R,nx) | Mxu (nx,nu) |
+Knu (r,nx) | knu (R,r)]``, all row-major.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import riccati_kernel as _rk
+from .riccati_kernel import (GENERAL_MAX_R, GENERAL_SOURCE,
+                             STREAMED_MAX_NU, STREAMED_MAX_NX, _check,
+                             _chol_local_retry, _entry, _general_fits, _stream,
+                             backward_bytes, backward_flops, forward_bytes,
+                             forward_flops, gain_width, kernel_plan)
+
+__all__ = ["riccati_general_backward_plain", "riccati_general_forward_plain",
+           "riccati_sweep_general_plain", "riccati_general_backward_cuda",
+           "riccati_general_forward_cuda",
+           "riccati_sweep_general_streamed_cuda", "riccati_sweep_general",
+           "general_backward_bytes", "general_backward_flops",
+           "general_forward_bytes", "general_forward_flops"]
+
+BACKWARD_LAUNCHES = 0   # general backward launches
+FORWARD_LAUNCHES = 0    # general forward launches
+
+
+# ---- bytes and operations (the least the card must do) ----
+# The plain pair's counts with R and r: the backward kernel reads A, B, the
+# upper triangles of G and M, mx, mu, c, h, E, F once (and δ, δ_c) and
+# writes the gains and an ok byte; the forward kernel reads A, B, c, Jx and
+# the gains once and writes dX, dU, dLam, dNu.
+
+general_backward_bytes = backward_bytes
+general_backward_flops = backward_flops
+general_forward_bytes = forward_bytes
+general_forward_flops = forward_flops
+
+
+# ---- plain PyTorch versions ----
+
+def _backward(A, B, G, M, mx, mu, c, delta, delta_c, E, F, h):
+    Bn, H, R, nx = c.shape
+    nu = B.shape[-1]
+    r = E.shape[-2]
+    ns = nx + nu
+    eye_u = torch.eye(nu, dtype=A.dtype, device=A.device)
+    eye_r = torch.eye(r, dtype=A.dtype, device=A.device)
+    Md = M + torch.diag_embed(delta.reshape(Bn, 1).expand(Bn, ns))[:, None]
+    dc = delta_c.reshape(Bn, 1, 1)
+
+    P = A.new_zeros((Bn, nx, nx))
+    p = A.new_zeros((Bn, R, nx))
+    okc = torch.ones((Bn,), dtype=torch.bool, device=A.device)
+    gains = [None] * H
+    for t in range(H - 1, -1, -1):
+        A_t, B_t, G_t, M_t, c_t = A[:, t], B[:, t], G[:, t], Md[:, t], c[:, t]
+        Mxx, Mxu, Muu = M_t[:, :nx, :nx], M_t[:, :nx, nx:], M_t[:, nx:, nx:]
+        Pbar = P + Mxx
+        pbar = p + mx[:, t]                              # (Bn, R, nx)
+        PA = Pbar @ A_t
+        PB = Pbar @ B_t
+        Qxx = A_t.mT @ PA + G_t[:, :nx, :nx]
+        BtMxu = B_t.mT @ Mxu
+        Quu = B_t.mT @ PB + Muu + BtMxu + BtMxu.mT + G_t[:, nx:, nx:]
+        Qux = B_t.mT @ PA + Mxu.mT @ A_t + G_t[:, nx:, :nx]
+        Pc_p = c_t @ Pbar.mT + pbar                      # (Bn, R, nx)
+        qx = Pc_p @ A_t                                  # (Bn, R, nx)
+        qu = Pc_p @ B_t + c_t @ Mxu + mu[:, t]           # (Bn, R, nu)
+
+        L, ok_t = _chol_local_retry(Quu, eye_u)
+        K = -torch.cholesky_solve(Qux, L)                # (Bn, nu, nx)
+        k = -torch.cholesky_solve(qu.mT, L)              # (Bn, nu, R)
+        if r:
+            # the stage QP's equality rows: Schur complement on Quu's factor
+            E_t, F_t = E[:, t], F[:, t]
+            Y = torch.cholesky_solve(E_t.mT, L)          # (Bn, nu, r)
+            S = E_t @ Y + dc * eye_r
+            Ls, ok_s = _chol_local_retry(0.5 * (S + S.mT), eye_r)
+            Knu = torch.cholesky_solve(E_t @ K + F_t, Ls)            # (r, nx)
+            knu = torch.cholesky_solve(E_t @ k - h[:, t].mT, Ls)     # (r, R)
+            K = K - Y @ Knu
+            k = k - Y @ knu
+            ok_t = ok_t & ok_s
+        else:
+            Knu = A.new_zeros((Bn, 0, nx))
+            knu = A.new_zeros((Bn, 0, R))
+        P_new = Qxx + Qux.mT @ K
+        p_new = qx + k.mT @ Qux                          # (Bn, R, nx)
+        if r:
+            P_new = P_new + F_t.mT @ Knu
+            p_new = p_new + knu.mT @ F_t
+        P = 0.5 * (P_new + P_new.mT)
+        p = p_new
+        okc = okc & ok_t
+        gains[t] = torch.cat([K.reshape(Bn, -1), k.mT.reshape(Bn, -1),
+                              Pbar.reshape(Bn, -1), pbar.reshape(Bn, -1),
+                              Mxu.reshape(Bn, -1), Knu.reshape(Bn, -1),
+                              knu.mT.reshape(Bn, -1)], dim=-1)
+    return torch.stack(gains, 1), okc
+
+
+def _split_gains(g, nx, nu, R, r):
+    """One stage's gains (Bn, width) -> K, k, Pbar, pbar, Mxu, Knu, knu."""
+    Bn = g.shape[0]
+    shapes = ((nu, nx), (R, nu), (nx, nx), (R, nx), (nx, nu), (r, nx),
+              (R, r))
+    out, o = [], 0
+    for a, b in shapes:
+        out.append(g[:, o:o + a * b].reshape(Bn, a, b))
+        o += a * b
+    return out
+
+
+def _forward(A, B, c, Jx, gains):
+    Bn, H, R, nx = c.shape
+    nu = B.shape[-1]
+    r = Jx.shape[-2]
+    dx = A.new_zeros((Bn, R, nx))
+    dXs, dUs, dLams, dNus = [], [], [], []
+    for t in range(H):
+        K, k, Pbar, pbar, Mxu, Knu, knu = _split_gains(gains[:, t], nx, nu,
+                                                       R, r)
+        du = dx @ K.mT + k                               # (Bn, R, nu)
+        dnu = dx @ Knu.mT + knu                          # (Bn, R, r)
+        dx = dx @ A[:, t].mT + du @ B[:, t].mT + c[:, t]
+        dXs.append(dx)
+        dUs.append(du)
+        dNus.append(dnu)
+        dLams.append(dx @ Pbar.mT + du @ Mxu.mT + pbar + dnu @ Jx[:, t])
+    return (torch.stack(dXs, 1), torch.stack(dUs, 1), torch.stack(dLams, 1),
+            torch.stack(dNus, 1))
+
+
+def riccati_general_backward_plain(A, B, G, M, mx, mu, c, delta, delta_c, E,
+                                   F, h):
+    """Plain general backward sweep: a Python loop from the last stage to
+    the first, each stage a batched small-matrix step.  Returns ``(gains,
+    ok)``."""
+    _rk.PLAIN_CALLS += 1
+    return _backward(A, B, G, M, mx, mu, c, delta, delta_c, E, F, h)
+
+
+def riccati_general_forward_plain(A, B, c, Jx, gains):
+    """Plain general forward sweep from the backward sweep's gains, per
+    right-hand side: du = K dx + k, dnu = Knu dx + knu, dx' = A dx + B du +
+    c, dlam = Pbar dx' + Mxu du + pbar + Jxᵀ dnu.  Returns ``(dX, dU, dLam,
+    dNu)``."""
+    _rk.PLAIN_CALLS += 1
+    return _forward(A, B, c, Jx, gains)
+
+
+def riccati_sweep_general_plain(A, B, G, M, mx, mu, c, delta, delta_c, E, F,
+                                h, Jx):
+    """Plain general sweep: :func:`riccati_general_backward_plain` then
+    :func:`riccati_general_forward_plain`."""
+    _rk.PLAIN_CALLS += 1
+    gains, ok = _backward(A, B, G, M, mx, mu, c, delta, delta_c, E, F, h)
+    return _forward(A, B, c, Jx, gains) + (ok,)
+
+
+# ---- CUDA wrappers ----
+
+def _dims(c, E):
+    if c.dim() != 4:
+        raise ValueError(f"c must be (B, H, R, nx), got {tuple(c.shape)}")
+    if E.dim() != 4:
+        raise ValueError(f"E must be (B, H, r, nu), got {tuple(E.shape)}")
+    Bn, H, R, nx = c.shape
+    return Bn, H, R, nx, E.shape[-1], E.shape[-2]
+
+
+def _require(Bn, H, nx, nu, R, r):
+    if Bn == 0 or H == 0:
+        raise ValueError("the CUDA sweeps need B >= 1 and H >= 1")
+    if not _general_fits(nx, nu, R, r):
+        raise NotImplementedError(
+            f"csrc/{GENERAL_SOURCE} takes nx <= {STREAMED_MAX_NX}, nu <= "
+            f"{STREAMED_MAX_NU}, 1 <= R <= {GENERAL_MAX_R}, r <= nu, not "
+            f"nx={nx}, nu={nu}, R={R}, r={r}")
+
+
+def _raise_on(err, what, Bn, H, nx, nu, R, r):
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} "
+                           f"(B={Bn}, H={H}, nx={nx}, nu={nu}, R={R}, r={r})")
+
+
+def riccati_general_backward_cuda(A, B, G, M, mx, mu, c, delta, delta_c, E,
+                                  F, h):
+    """Launch the general backward kernel of ``csrc/riccati_general.cu`` on
+    CUDA tensors (no fallback).  Returns ``(gains, ok)`` as
+    :func:`riccati_general_backward_plain` does.
+
+    Raises on a tensor that is not float32, not contiguous, not on one CUDA
+    device or of the wrong shape, and on dims outside the kernel's range.
+    """
+    global BACKWARD_LAUNCHES
+    Bn, H, R, nx, nu, r = _dims(c, E)
+    ns = nx + nu
+    _check(c.device, {
+        "A": (A, (Bn, H, nx, nx)), "B": (B, (Bn, H, nx, nu)),
+        "G": (G, (Bn, H, ns, ns)), "M": (M, (Bn, H, ns, ns)),
+        "mx": (mx, (Bn, H, R, nx)), "mu": (mu, (Bn, H, R, nu)),
+        "c": (c, (Bn, H, R, nx)), "delta": (delta, (Bn,)),
+        "delta_c": (delta_c, (Bn,)), "E": (E, (Bn, H, r, nu)),
+        "F": (F, (Bn, H, r, nx)), "h": (h, (Bn, H, R, r))})
+    _require(Bn, H, nx, nu, R, r)
+    fn = _entry(GENERAL_SOURCE, "riccati_general_backward_f32", 14, 7)
+    dev = c.device
+    gains = torch.empty((Bn, H, gain_width(nx, nu, R, r)),
+                        dtype=torch.float32, device=dev)
+    ok = torch.empty((Bn,), dtype=torch.bool, device=dev)
+    err = fn(A.data_ptr(), B.data_ptr(), G.data_ptr(), M.data_ptr(),
+             mx.data_ptr(), mu.data_ptr(), c.data_ptr(), delta.data_ptr(),
+             delta_c.data_ptr(), E.data_ptr(), F.data_ptr(), h.data_ptr(),
+             gains.data_ptr(), ok.data_ptr(), Bn, H, nx, nu, R, r,
+             dev.index or 0, _stream(dev))
+    _raise_on(err, "riccati_general_backward", Bn, H, nx, nu, R, r)
+    BACKWARD_LAUNCHES += 1
+    return gains, ok
+
+
+def riccati_general_forward_cuda(A, B, c, Jx, gains):
+    """Launch the general forward kernel of ``csrc/riccati_general.cu`` on
+    CUDA tensors (no fallback).  Returns ``(dX, dU, dLam, dNu)`` as
+    :func:`riccati_general_forward_plain` does."""
+    global FORWARD_LAUNCHES
+    if Jx.dim() != 4:
+        raise ValueError(f"Jx must be (B, H, r, nx), got {tuple(Jx.shape)}")
+    if c.dim() != 4:
+        raise ValueError(f"c must be (B, H, R, nx), got {tuple(c.shape)}")
+    Bn, H, R, nx = c.shape
+    nu, r = B.shape[-1], Jx.shape[-2]
+    _check(c.device, {
+        "A": (A, (Bn, H, nx, nx)), "B": (B, (Bn, H, nx, nu)),
+        "c": (c, (Bn, H, R, nx)), "Jx": (Jx, (Bn, H, r, nx)),
+        "gains": (gains, (Bn, H, gain_width(nx, nu, R, r)))})
+    _require(Bn, H, nx, nu, R, r)
+    fn = _entry(GENERAL_SOURCE, "riccati_general_forward_f32", 9, 7)
+    dev = c.device
+    dX = torch.empty((Bn, H, R, nx), dtype=torch.float32, device=dev)
+    dU = torch.empty((Bn, H, R, nu), dtype=torch.float32, device=dev)
+    dLam = torch.empty((Bn, H, R, nx), dtype=torch.float32, device=dev)
+    dNu = torch.empty((Bn, H, R, r), dtype=torch.float32, device=dev)
+    err = fn(A.data_ptr(), B.data_ptr(), c.data_ptr(), Jx.data_ptr(),
+             gains.data_ptr(), dX.data_ptr(), dU.data_ptr(), dLam.data_ptr(),
+             dNu.data_ptr(), Bn, H, nx, nu, R, r, dev.index or 0,
+             _stream(dev))
+    _raise_on(err, "riccati_general_forward", Bn, H, nx, nu, R, r)
+    FORWARD_LAUNCHES += 1
+    return dX, dU, dLam, dNu
+
+
+def riccati_sweep_general_streamed_cuda(A, B, G, M, mx, mu, c, delta,
+                                        delta_c, E, F, h, Jx):
+    """The general sweep on CUDA tensors: the backward kernel writes one
+    gains buffer (allocated once per call), the forward kernel reads it;
+    both launch on PyTorch's current stream."""
+    gains, ok = riccati_general_backward_cuda(A, B, G, M, mx, mu, c, delta,
+                                              delta_c, E, F, h)
+    return riccati_general_forward_cuda(A, B, c, Jx, gains) + (ok,)
+
+
+def riccati_sweep_general(A, B, G, M, mx, mu, c, delta, delta_c, E, F, h,
+                          Jx):
+    """Dispatch on :func:`~.riccati_kernel.kernel_plan`: CPU -> the plain
+    version, CUDA -> the general kernels (which take (R, r) = (1, 0) too),
+    anything else raises."""
+    Bn, H, R, nx, nu, r = _dims(c, E)
+    plan = kernel_plan(H, nx, nu, c.device, R=R, r=r)
+    if plan["path"] == "plain":
+        return riccati_sweep_general_plain(A, B, G, M, mx, mu, c, delta,
+                                           delta_c, E, F, h, Jx)
+    if plan["path"] == "unsupported":
+        raise NotImplementedError(plan["reason"])
+    return riccati_sweep_general_streamed_cuda(A, B, G, M, mx, mu, c, delta,
+                                               delta_c, E, F, h, Jx)

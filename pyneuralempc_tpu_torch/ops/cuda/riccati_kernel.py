@@ -55,6 +55,10 @@ _INSTANCES = frozenset({(2, 1)})
 # the forward kernel; nu <= 16 is the reference kernel's own cap.
 STREAMED_MAX_NX = 32
 STREAMED_MAX_NU = 16
+# csrc/riccati_general.cu takes the same stage widths, up to 65 right-hand
+# sides (1 + the 64 border rows the Riccati backend takes) and r <= nu
+# stage equality rows.
+GENERAL_MAX_R = 65
 
 LAUNCHES = 0            # fused kernel launches by riccati_sweep_cuda
 BACKWARD_LAUNCHES = 0   # streamed backward launches by riccati_backward_cuda
@@ -63,27 +67,51 @@ PLAIN_CALLS = 0         # calls of a plain version
 
 SOURCE = "riccati_sweep.cu"
 STREAMED_SOURCE = "riccati_streamed.cu"
+GENERAL_SOURCE = "riccati_general.cu"
 
 
-def gain_width(nx: int, nu: int) -> int:
-    """Floats of per-stage gains: K, k, Pbar, pbar, Mxu."""
-    return nu * nx + nu + nx * nx + nx + nx * nu
+def gain_width(nx: int, nu: int, R: int = 1, r: int = 0) -> int:
+    """Floats of per-stage gains: K, k, Pbar, pbar, Mxu (and, for the
+    general sweep's R right-hand sides and r stage-equality rows, Knu and
+    knu; k, pbar and knu are per right-hand side)."""
+    return (nu * nx + R * nu + nx * nx + R * nx + nx * nu
+            + r * nx + R * r)
 
 
 def _streamed_fits(nx: int, nu: int) -> bool:
     return 1 <= nx <= STREAMED_MAX_NX and 1 <= nu <= STREAMED_MAX_NU
 
 
-def kernel_plan(H: int, nx: int, nu: int, device) -> dict:
+def _general_fits(nx: int, nu: int, R: int, r: int) -> bool:
+    return (_streamed_fits(nx, nu) and 1 <= R <= GENERAL_MAX_R
+            and 0 <= r <= nu)
+
+
+def kernel_plan(H: int, nx: int, nu: int, device, R: int = 1,
+                r: int = 0) -> dict:
     """Which sweep a problem of these dims takes on ``device``, and why.
 
-    A pure function of (H, nx, nu, device type): ``{"path": "plain" |
-    "cuda_fused" | "cuda_streamed" | "unsupported", "reason": str}``.
+    A pure function of (H, nx, nu, device type, R, r): ``{"path": "plain" |
+    "cuda_fused" | "cuda_streamed" | "cuda_streamed_general" |
+    "unsupported", "reason": str}``.  R is the general sweep's number of
+    right-hand sides (1 + trajectory-level border rows) and r its stage
+    equality rows; (R, r) = (1, 0) is the plain sweep.
     """
     kind = torch.device(device).type
     if kind == "cpu":
         return {"path": "plain",
                 "reason": "CPU tensors take the plain PyTorch sweep"}
+    if (R, r) != (1, 0):
+        if kind == "cuda" and H >= 1 and _general_fits(nx, nu, R, r):
+            return {"path": "cuda_streamed_general",
+                    "reason": f"csrc/{GENERAL_SOURCE} takes nx={nx}, "
+                              f"nu={nu}, R={R}, r={r} at run time"}
+        return {"path": "unsupported",
+                "reason": (f"no CUDA general sweep for H={H}, nx={nx}, "
+                           f"nu={nu}, R={R}, r={r} on {kind}: "
+                           f"csrc/{GENERAL_SOURCE} takes nx <= "
+                           f"{STREAMED_MAX_NX}, nu <= {STREAMED_MAX_NU}, "
+                           f"1 <= R <= {GENERAL_MAX_R}, r <= nu")}
     if kind == "cuda" and H >= 1:
         if (nx, nu) in _INSTANCES:
             return {"path": "cuda_fused",
@@ -102,44 +130,59 @@ def kernel_plan(H: int, nx: int, nu: int, device) -> dict:
 
 
 # ---- bytes and operations (the least the card must do) ----
+#
+# R (right-hand sides) and r (stage equality rows) give the general sweep's
+# counts (riccati_general.py); the plain sweep is R=1, r=0.
 
-def _bwd_stage_flops(nx: int, nu: int) -> int:
+def _bwd_stage_flops(nx: int, nu: int, R: int = 1, r: int = 0) -> int:
     """Operations of one backward stage, counted from its formulae with one
-    Cholesky factorisation of Quu at the δ=0 level."""
-    return (2 * nx * nx                       # Pbar
-            + nx                              # pbar
-            + 2 * nx * nx * nx                # PA
-            + 2 * nx * nx * nu                # PB
-            + 2 * nx * nx * nx + nx * nx      # Qxx
-            + 2 * nu * nu * nx                # BtMxu
-            + nu * nu * (2 * nx + 5)          # Quu
-            + nu * nx * (4 * nx + 2)          # Qux
-            + nx * (2 * nx + 1)               # Pc_p
-            + 2 * nx * nx                     # qx
-            + nu * (4 * nx + 2)               # qu
-            + nu * nu * nu // 3 + 2 * nu      # Cholesky
-            + (nx + 1) * 2 * nu * nu          # substitutions
-            + nx * nx * (2 * nu + 2)          # P update + symmetrise
-            + nx * 2 * nu)                    # p update
+    Cholesky factorisation of Quu (and of the Schur complement S when
+    r > 0) at the δ=0 level."""
+    n = (2 * nx * nx                          # Pbar
+         + R * nx                             # pbar
+         + 2 * nx * nx * nx                   # PA
+         + 2 * nx * nx * nu                   # PB
+         + 2 * nx * nx * nx + nx * nx         # Qxx
+         + 2 * nu * nu * nx                   # BtMxu
+         + nu * nu * (2 * nx + 5)             # Quu
+         + nu * nx * (4 * nx + 2)             # Qux
+         + R * nx * (2 * nx + 1)              # Pc_p
+         + R * 2 * nx * nx                    # qx
+         + R * nu * (4 * nx + 2)              # qu
+         + nu * nu * nu // 3 + 2 * nu         # Cholesky
+         + (nx + R + r) * 2 * nu * nu         # substitutions
+         + nx * nx * (2 * nu + 2 * r + 2)     # P update + symmetrise
+         + R * nx * (2 * nu + 2 * r))         # p update
+    if r:
+        n += (r * r * (2 * nu + 1)            # S = E Y + δ_c I
+              + (nx + R) * r * (2 * nu + 1)   # Schur right-hand sides
+              + r * r * r // 3 + 2 * r        # Cholesky of S
+              + (nx + R) * 2 * r * r          # its substitutions
+              + nu * nx * 2 * r + R * nu * 2 * r)   # K, k corrections
+    return n
 
 
-def _fwd_stage_flops(nx: int, nu: int) -> int:
+def _fwd_stage_flops(nx: int, nu: int, R: int = 1, r: int = 0) -> int:
     ns = nx + nu
-    return (2 * nu * nx + nu                  # du
-            + nx * (2 * ns + 1)               # dx'
-            + nx * (2 * ns + 1))              # dlam
+    return R * (2 * nu * nx + nu               # du
+                + r * (2 * nx + 1)             # dnu
+                + nx * (2 * ns + 1)            # dx'
+                + nx * (2 * ns + 1 + 2 * r))   # dlam
 
 
-def _input_floats(H: int, nx: int, nu: int) -> int:
+def _input_floats(H: int, nx: int, nu: int, R: int = 1, r: int = 0) -> int:
     """A, B, the upper triangles of G and M (all the sweep needs of them,
-    and all the kernels read), mx, mu, c of one problem, with its δ."""
+    and all the kernels read), mx, mu, c (and h, E, F) of one problem, with
+    its δ (and δ_c)."""
     ns = nx + nu
-    return H * (nx * nx + nx * nu + ns * (ns + 1) + 2 * nx + nu) + 1
+    per_stage = (nx * nx + nx * nu + ns * (ns + 1) + R * (2 * nx + nu)
+                 + r * (R + nu + nx))
+    return H * per_stage + 1 + (1 if r else 0)
 
 
-def _output_floats(H: int, nx: int, nu: int) -> int:
-    """dX, dU, dLam of one problem."""
-    return H * (2 * nx + nu)
+def _output_floats(H: int, nx: int, nu: int, R: int = 1, r: int = 0) -> int:
+    """dX, dU, dLam (and dNu) of one problem."""
+    return H * R * (2 * nx + nu + r)
 
 
 def sweep_bytes(Bn: int, H: int, nx: int, nu: int) -> int:
@@ -154,26 +197,31 @@ def sweep_flops(Bn: int, H: int, nx: int, nu: int) -> int:
     return Bn * H * (_bwd_stage_flops(nx, nu) + _fwd_stage_flops(nx, nu))
 
 
-def backward_bytes(Bn: int, H: int, nx: int, nu: int) -> int:
+def backward_bytes(Bn: int, H: int, nx: int, nu: int, R: int = 1,
+                   r: int = 0) -> int:
     """Least bytes a streamed backward kernel must move: the sweep's inputs
     read once, the gains written once, one ok byte a problem."""
-    outs = H * gain_width(nx, nu)
-    return 4 * Bn * (_input_floats(H, nx, nu) + outs) + Bn
+    outs = H * gain_width(nx, nu, R, r)
+    return 4 * Bn * (_input_floats(H, nx, nu, R, r) + outs) + Bn
 
 
-def backward_flops(Bn: int, H: int, nx: int, nu: int) -> int:
-    return Bn * H * _bwd_stage_flops(nx, nu)
+def backward_flops(Bn: int, H: int, nx: int, nu: int, R: int = 1,
+                   r: int = 0) -> int:
+    return Bn * H * _bwd_stage_flops(nx, nu, R, r)
 
 
-def forward_bytes(Bn: int, H: int, nx: int, nu: int) -> int:
-    """Least bytes a streamed forward kernel must move: A, B, c and the
-    gains read once, dX, dU, dLam written once."""
-    ins = H * (nx * nx + nx * nu + nx + gain_width(nx, nu))
-    return 4 * Bn * (ins + _output_floats(H, nx, nu))
+def forward_bytes(Bn: int, H: int, nx: int, nu: int, R: int = 1,
+                  r: int = 0) -> int:
+    """Least bytes a streamed forward kernel must move: A, B, c (and Jx)
+    and the gains read once, dX, dU, dLam (and dNu) written once."""
+    ins = H * (nx * nx + nx * nu + R * nx + r * nx
+               + gain_width(nx, nu, R, r))
+    return 4 * Bn * (ins + _output_floats(H, nx, nu, R, r))
 
 
-def forward_flops(Bn: int, H: int, nx: int, nu: int) -> int:
-    return Bn * H * _fwd_stage_flops(nx, nu)
+def forward_flops(Bn: int, H: int, nx: int, nu: int, R: int = 1,
+                  r: int = 0) -> int:
+    return Bn * H * _fwd_stage_flops(nx, nu, R, r)
 
 
 # ---- plain PyTorch versions ----
@@ -296,12 +344,14 @@ def riccati_sweep_plain(A, B, G, M, mx, mu, c, delta):
 _ENTRIES = {}     # C entry points, bound on first launch
 
 
-def _entry(source, name, n_ptrs):
+def _entry(source, name, n_ptrs, n_ints=5):
+    """The C entry point ``name`` of ``csrc/<source>``: ``n_ptrs`` pointers,
+    ``n_ints`` ints (dims, then the device), then the stream."""
     fn = _ENTRIES.get(name)
     if fn is None:
         from .build import load
         fn = getattr(load(source), name)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _ENTRIES[name] = fn

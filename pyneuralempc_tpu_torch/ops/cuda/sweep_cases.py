@@ -59,3 +59,55 @@ def sweep_case(kind, B=4, H=5, nx=2, nu=1, seed=0):
     elif kind != "delta0":
         raise ValueError(kind)
     return args
+
+
+def general_sweep_case(kind, B=4, H=5, nx=2, nu=1, R=2, r=1, seed=0):
+    """Inputs of the general sweep, stage-major: A, B, G, M, mx, mu, c (with
+    an rhs axis, (B, H, R, ·)), delta, delta_c, E, F, h, Jx.
+
+    The first right-hand side and A, B, G, M, delta are :func:`sweep_case`'s
+    (so at R=1, r=0 the case is the plain one); the other right-hand sides
+    and the equality rows come from a second seeded draw.  E is identity
+    dominant, as in tests/test_pallas_general.py: a random E makes the
+    Schur complement S = E Quu⁻¹ Eᵀ nearly singular, and a comparison then
+    measures conditioning.  Its noise is half that test's (0.1, not 0.2):
+    over 4096 × 50 stages at r = nu = 4, a 0.2 draw gives a few E whose S
+    pivot sits at the Cholesky test's 1e-12, and two correct factorisations
+    then disagree on ok.  At r = nu the rows fix the control
+    (Δu = E⁻¹(h − F Δx)) and nothing steers the states, so the value
+    function grows with A's spectral radius (up to ~1.1 here) over the
+    horizon; F is drawn at a tenth of its scale there (0.05, not 0.5), and
+    the horizon should stay short (H=10: the plain version in f32 is then
+    within 1.7e-5 of f64 at B=4096, against 0.25 at H=50 with the full F).
+    ``kind`` is one of :func:`sweep_case`'s; on
+    ``delta_per_problem`` δ_c cycles 1e-8, 1e-6, 1e-4, 1e-2 too (else 1e-8),
+    and on ``local_bump`` the rescued control is decoupled from the
+    equality rows (their identity moves to the other controls there, so it
+    needs r < nu) and from every right-hand side as well.
+    """
+    if kind == "local_bump" and r >= nu:
+        raise ValueError("local_bump decouples a control from the equality "
+                         "rows, which needs r < nu")
+    A, Bm, G, M, mx1, mu1, c1, delta = sweep_case(kind, B=B, H=H, nx=nx,
+                                                  nu=nu, seed=seed)
+    rng = np.random.default_rng(seed + 10007)
+    mx = np.concatenate([mx1[:, :, None], rng.normal(0, 1, (B, H, R - 1, nx))],
+                        axis=2)
+    mu_ = np.concatenate([mu1[:, :, None],
+                          rng.normal(0, 1, (B, H, R - 1, nu))], axis=2)
+    c = np.concatenate([c1[:, :, None], rng.normal(0, 0.1, (B, H, R - 1, nx))],
+                       axis=2)
+    E = np.eye(r, nu) + 0.1 * rng.normal(0, 1, (B, H, r, nu))
+    F = rng.normal(0, 0.05 if r == nu else 0.5, (B, H, r, nx))
+    h = rng.normal(0, 0.3, (B, H, R, r))
+    Jx = rng.normal(0, 0.5, (B, H, r, nx))
+    dc = np.full((B,), 1e-8)
+    if kind == "delta_per_problem":
+        dc = np.resize(np.asarray([1e-8, 1e-6, 1e-4, 1e-2]), B)
+    elif kind == "local_bump":
+        for sel in (slice(1, None, 2), slice(2, None, 4)):
+            mu_[sel, 1, :, 0] = 0.0
+            E[sel, 1, :, 0] = 0.0
+            E[sel, 1, :, 1:] += np.eye(r, nu - 1) - np.eye(r, nu)[:, 1:]
+    return [np.ascontiguousarray(a, np.float32)
+            for a in (A, Bm, G, M, mx, mu_, c, delta, dc, E, F, h, Jx)]

@@ -81,6 +81,8 @@ class IPConfig:
     polish_iters: int = 0          # fixed centering steps at polish_mu
     polish_mu: float = 1e-8
     warm_z_corridor: float = 1e2   # warm-start bound-dual re-centering
+    delta_c: float = 1e-8          # dual regularisation of the equality
+                                   # rows of the Riccati general path
     nu_init: float = 1.0           # merit penalty initial value
     hessian: str = "exact"
     kkt: str = "auto"              # "auto" | "riccati"

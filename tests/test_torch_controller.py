@@ -99,7 +99,13 @@ def test_unported_features_raise():
         T.IPConfig(kkt="nope")
     model = T.MLPDynamics.make(x_dim=2, u_dim=1, hidden=[4])
     cost = lambda x, u: torch.sum(u)  # noqa: E731
+    # path and stage constraints are ported; one the Riccati backend cannot
+    # take (more equality rows a stage than controls) needs the dense one
+    two_eq = T.StageConstraint(stage=lambda x, u: torch.cat([u, u]), dim=2,
+                               lb=(0.0, 0.0), ub=(0.0, 0.0))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        T.NMPC(model, cost, [two_eq], H=4, device="cpu")
+    with pytest.raises(TypeError, match="unknown constraint"):
         T.NMPC(model, cost, [object()], H=4, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.NMPC(model, cost, H=4, differentiable=True, device="cpu")

@@ -1,7 +1,8 @@
 """Tests of the port that need an NVIDIA card: the CUDA sweeps (the fused
-kernel and the streamed backward/forward pair) against their plain
-versions and each other, the wrappers' checks and dispatch, and the LV and
-quadrotor paths on the card against the CPU.  They skip without a CUDA
+kernel, the streamed backward/forward pair and the general pair) against
+their plain versions and each other, the wrappers' checks and dispatch, and
+the LV, quadrotor and EQ/border quadrotor paths on the card against the
+CPU.  They skip without a CUDA
 device.  This file imports no JAX, so on the card it runs without the JAX
 package's test configuration:
 
@@ -13,7 +14,9 @@ import pytest
 import torch
 
 import pyneuralempc_tpu_torch as nempc
+from pyneuralempc_tpu_torch.ops.cuda import riccati_general as rg
 from pyneuralempc_tpu_torch.ops.cuda import riccati_kernel as rk
+from pyneuralempc_tpu_torch.ops.cuda.sweep_cases import general_sweep_case
 
 pytestmark = pytest.mark.cuda
 
@@ -201,4 +204,136 @@ def test_quadrotor_on_card_matches_cpu():
             assert (rk.LAUNCHES, rk.PLAIN_CALLS) == (counts[0], counts[2])
     assert torch.equal(res["cuda"].converged.cpu(), res["cpu"].converged)
     assert bool(res["cpu"].converged.all())
+    assert float((res["cuda"].u.cpu() - res["cpu"].u).abs().max()) <= 1e-4
+
+
+def _general(kind, B, H, nx, nu, R, r, seed=0):
+    return [torch.as_tensor(a, device="cuda") for a in general_sweep_case(
+        kind, B=B, H=H, nx=nx, nu=nu, R=R, r=r, seed=seed)]
+
+
+@pytest.mark.parametrize("kind", ["delta0", "delta_per_problem",
+                                  "negative_curvature", "local_bump"])
+@pytest.mark.parametrize("B,H,nx,nu,R,r", [(257, 50, 12, 4, 2, 1),
+                                           (65, 20, 12, 4, 2, 0),
+                                           (33, 10, 4, 2, 1, 0),
+                                           (9, 3, 32, 16, 65, 2)])
+def test_general_pair_matches_plain_on_card(kind, B, H, nx, nu, R, r):
+    """The general backward kernel's gains and ok flags against
+    riccati_general_backward_plain, the forward kernel against the plain
+    forward fed the same gains, the pair against the plain sweep; the
+    widest shape asks for more than 48 KB of shared memory a block."""
+    _card()
+    args = _general(kind, B, H, nx, nu, R, r, seed=B + r)
+    b0, f0 = rg.BACKWARD_LAUNCHES, rg.FORWARD_LAUNCHES
+    gains, ok = rg.riccati_general_backward_cuda(*args[:12])
+    out = rg.riccati_general_forward_cuda(args[0], args[1], args[6],
+                                          args[12], gains)
+    torch.cuda.synchronize()
+    assert (rg.BACKWARD_LAUNCHES, rg.FORWARD_LAUNCHES) == (b0 + 1, f0 + 1)
+    g_ref, ok_ref = rg.riccati_general_backward_plain(*args[:12])
+    assert torch.equal(ok, ok_ref)
+    want = (torch.arange(B, device="cuda") % 2 == 0
+            if kind == "negative_curvature"
+            else torch.ones(B, dtype=torch.bool, device="cuda"))
+    assert torch.equal(ok_ref, want)
+    assert _scaled_err(gains, g_ref, ok_ref) <= STREAMED_ATOL
+    same = rg.riccati_general_forward_plain(args[0], args[1], args[6],
+                                            args[12], gains)
+    for o, q in zip(out, same):
+        if q.numel():
+            assert _scaled_err(o, q, ok_ref) <= STREAMED_ATOL
+    pair = rg.riccati_sweep_general_streamed_cuda(*args)
+    ref = rg.riccati_sweep_general_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(pair[4], ref[4])
+    for o, q in zip(pair[:4], ref[:4]):
+        if q.numel():
+            assert _scaled_err(o, q, ref[4]) <= STREAMED_ATOL
+
+
+@pytest.mark.parametrize("kind", ["delta0", "delta_per_problem",
+                                  "negative_curvature"])
+def test_general_pair_pure_eq_matches_plain_on_card(kind):
+    """r = nu: as many equality rows as controls, so the 4x4 Schur
+    complement fixes each stage's control (short horizon: nothing steers
+    the states, see sweep_cases.general_sweep_case)."""
+    _card()
+    args = _general(kind, 129, 10, 12, 4, 1, 4, seed=3)
+    pair = rg.riccati_sweep_general_streamed_cuda(*args)
+    ref = rg.riccati_sweep_general_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(pair[4], ref[4])
+    for o, q in zip(pair[:4], ref[:4]):
+        assert _scaled_err(o, q, ref[4]) <= STREAMED_ATOL
+
+
+def test_general_pair_at_one_rhs_matches_streamed_pair():
+    """R=1, r=0: the general pair computes the plain streamed pair's
+    function."""
+    _card()
+    args = _general("delta_per_problem", 257, 50, 12, 4, 1, 0)
+    gen = rg.riccati_sweep_general_streamed_cuda(*args)
+    plain = rk.riccati_sweep_streamed_cuda(
+        *[a[:, :, 0].contiguous() if a.dim() == 4 and i in (4, 5, 6) else a
+          for i, a in enumerate(args[:8])])
+    torch.cuda.synchronize()
+    assert torch.equal(gen[4], plain[3])
+    for o, q in zip(gen[:3], plain[:3]):
+        assert _scaled_err(o[:, :, 0], q) <= STREAMED_ATOL
+
+
+def test_general_refusals_on_card():
+    """Shapes outside the kernels' range and malformed tensors raise on CUDA
+    tensors, and a refused call launches nothing."""
+    _card()
+    counts = (rg.BACKWARD_LAUNCHES, rg.FORWARD_LAUNCHES, rk.PLAIN_CALLS)
+    for shape in ((4, 3, 6, 2, 2, 2), (4, 3, 6, 2, 66, 1)):
+        B, H, nx, nu, R, r = shape
+        rng = np.random.default_rng(0)
+        args = [torch.as_tensor(rng.normal(size=s).astype(np.float32),
+                                device="cuda") for s in (
+            (B, H, nx, nx), (B, H, nx, nu), (B, H, nx + nu, nx + nu),
+            (B, H, nx + nu, nx + nu), (B, H, R, nx), (B, H, R, nu),
+            (B, H, R, nx), (B,), (B,), (B, H, r + 1, nu), (B, H, r + 1, nx),
+            (B, H, R, r + 1), (B, H, r + 1, nx))]
+        with pytest.raises(NotImplementedError, match="r <= nu"):
+            rg.riccati_sweep_general(*args)
+        with pytest.raises(NotImplementedError, match="R <= 65"):
+            rg.riccati_general_backward_cuda(*args[:12])
+    args = _general("delta0", 8, 3, 4, 2, 2, 1)
+    with pytest.raises(TypeError, match="float32"):
+        rg.riccati_general_backward_cuda(*[a.double() for a in args[:12]])
+    bad = list(args)
+    bad[4] = args[4].transpose(1, 2)
+    with pytest.raises(ValueError, match="mx"):
+        rg.riccati_general_backward_cuda(*bad[:12])
+    with pytest.raises(ValueError, match="gains"):
+        rg.riccati_general_forward_cuda(args[0], args[1], args[6], args[12],
+                                        torch.zeros(8, 3, 5, device="cuda"))
+    assert (rg.BACKWARD_LAUNCHES, rg.FORWARD_LAUNCHES,
+            rk.PLAIN_CALLS) == counts
+
+
+def test_fleet_eq_on_card_matches_cpu():
+    """The EQ/border quadrotor fleet on the card goes through the general
+    pair only and agrees with the CPU port to 1e-4 in u."""
+    _card()
+    from pyneuralempc_tpu_torch.examples.fleet_eq import (make_fleet_eq_mpc,
+                                                          yaw_residual)
+    from pyneuralempc_tpu_torch.examples.quadrotor import quad_x0s
+    x0s = quad_x0s(np.random.default_rng(0), 16)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        mpc = make_fleet_eq_mpc(dev)
+        counts = (rk.LAUNCHES, rk.BACKWARD_LAUNCHES, rk.PLAIN_CALLS,
+                  rg.BACKWARD_LAUNCHES)
+        _, res[dev] = mpc.next_batch(torch.tensor(x0s, device=dev))
+        if dev == "cuda":
+            assert rg.BACKWARD_LAUNCHES > counts[3]
+            assert (rk.LAUNCHES, rk.BACKWARD_LAUNCHES,
+                    rk.PLAIN_CALLS) == counts[:3]
+    assert torch.equal(res["cuda"].converged.cpu(), res["cpu"].converged)
+    assert bool(res["cpu"].converged.all())
+    assert float(yaw_residual(res["cuda"].u).max()) <= 1e-4
     assert float((res["cuda"].u.cpu() - res["cpu"].u).abs().max()) <= 1e-4

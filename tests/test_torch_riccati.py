@@ -62,8 +62,9 @@ def test_stage_blocks_match_jax(setup, seed):
     x0, w, lam, *_ = _point(jm.nlp, seed)
     jrt, trt = _rts(np_params, x0, 0.7)
     jA, jB, jG, jM, _, _ = jd.prepare(jnp.asarray(w), jnp.asarray(lam), jrt)
-    tA, tB, tG, tM = td.prepare(torch.as_tensor(w)[None],
-                                torch.as_tensor(lam)[None], trt)
+    tA, tB, tG, tM, tJg, tJq = td.prepare(torch.as_tensor(w)[None],
+                                          torch.as_tensor(lam)[None], trt)
+    assert tJg == () and tJq == ()     # no path constraints
     for j, t in ((jA, tA), (jB, tB), (jG, tG), (jM, tM)):
         assert t.shape[1:] == j.shape and t.is_contiguous()
         np.testing.assert_allclose(t[0].numpy(), np.asarray(j),
@@ -104,10 +105,11 @@ def test_delta_ladder_is_per_problem(setup):
     blocks = td.prepare(w, lam, trt)
     dw0, dl0, ok0 = td.solve_blocks(blocks, Sigma, r, c)
     # make member 1 genuinely indefinite in u at one stage: fails at δ=0
-    A, Bm, G, M0 = (b.clone() for b in blocks)
+    A, Bm, G, M0 = (b.clone() for b in blocks[:4])
     M0[1, 3, 2, 2] = -0.5
-    dw1, dl1, ok1 = td.solve_blocks((A, Bm, G, M0), Sigma, r, c)
-    dwn, _, okn = td.solve_blocks((A, Bm, G, M0), Sigma, r, c, retry=False)
+    bad = (A, Bm, G, M0) + blocks[4:]
+    dw1, dl1, ok1 = td.solve_blocks(bad, Sigma, r, c)
+    dwn, _, okn = td.solve_blocks(bad, Sigma, r, c, retry=False)
     assert bool(ok0.all()) and bool(ok1.all())
     assert okn.tolist() == [True, False]
     assert torch.equal(dw1[0], dw0[0])
