@@ -31,6 +31,14 @@ Phases (each raises, and the script exits non-zero, on failure):
    sweep; then one border-only case (R=2, r=0), one pure-EQ case (R=1,
    r=nu, H=10), and the pair at R=1, r=0 against the plain streamed pair.
    Times as in 3.
+3d. Fused general kernel vs plain: csrc/riccati_general_fused.cu at the
+   budgeted LV path's shapes (B=4096, H=20, nx=2, nu=1) at (R, r) = (2, 0),
+   (2, 1) and (3, 0) on the four cases (local_bump only at r=0: it
+   decouples a control from the equality rows, which needs r < nu) and at
+   (1, 1) with H=10: ok flags, every output and the gains scratch against
+   riccati_sweep_general_plain / riccati_general_backward_plain, and the
+   largest difference from the streamed general pair on the same inputs.
+   Times as in 3, and the streamed general pair timed at the same shape.
 4. LV path: trains the 2x32 tanh MLP surrogate of the Lotka-Volterra
    system on the card, builds NMPC as bench.py does, solves B=4096 cold and
    then warm re-plans, the plant advanced by the true ODE through the port's
@@ -49,8 +57,26 @@ Phases (each raises, and the script exits non-zero, on failure):
    kernel and plain version must not have.  Every plan converged (up to 4
    of 4096) keeps |u0 - u1 + u2 - u3| <= 1e-4 and its thrust impulse
    within the budget.
-5. Card vs CPU: 16 LV problems, 16 quadrotor problems and 16 EQ/border
-   quadrotor problems solved on the card and on the CPU.
+4d. Budgeted LV path: the LV MLP fleet (phase 4's trained surrogate) with a
+   minimum feed delivery over the horizon, Σu ≥ U_FLOOR
+   (pyneuralempc_tpu_torch/examples/lotka_volterra.py: one trajectory-level
+   row, R=2, r=0), on B=4096: one cold solve and 8 timed warm re-plans as
+   in phase 4, then one closed_loop_batch run (api/simulate.py, steps=16,
+   replan_every=2: a cold solve and 8 warm re-plans) against the true ODE.
+   Counters: the fused general kernel must have launched and nothing else
+   in either run; every plan converged (up to 4 of 4096) on every solve;
+   the floor held on every converged plan and binding on 5-95% of the
+   converged cold plans.  Closed loop: solves/s, the largest state-box
+   violation on the true plant, the mean feed cost.
+5. Card vs CPU: 16 LV problems, 16 quadrotor problems, 16 EQ/border
+   quadrotor problems and 16 budgeted LV problems solved on the card and on
+   the CPU, and the budgeted fleet's closed loop (B=16, steps=4) on both.
+   The budgeted comparisons hold to the 1e-4 gates the members whose CPU
+   answer is fixed to them: with the floor binding, feed moved between
+   stages at constant Σu is tie-broken only by the 1e-4·Σu² term, and some
+   plans move by ~1e-3 when their start moves by 1e-7; those members are
+   named, held to equal masks, the floor and the objective, and their
+   |Δu| or |Δx| to 1e-4 + 2× what the CPU answer moved.
 6. Numbers: warm re-plan p50 latency, solves/s, the time split and the
    device busy share, for each path.
 
@@ -93,6 +119,18 @@ QR, QEQ = 2, 1
 PURE_EQ_H = 10                # the r = nu kernel check's horizon
 EQ_RESIDUAL = 1e-4            # the solver's tol
 BUDGET_SLACK = 1e-3
+# the budgeted LV path: R right-hand sides (1 + the feed floor row), r = 0;
+# the kernel's other instantiated shapes checked beside it
+LR, LEQ = 2, 0
+FUSED_GENERAL_SHAPES = ((2, 0), (2, 1), (3, 0))
+CL_STEPS, CL_REPLAN = 16, 2   # the reference example's cadence
+# the floor binds on this share of the converged cold plans (at least, at
+# most)
+BINDING_SHARE = (0.05, 0.95)
+# budgeted card vs CPU: a member is held to the 1e-4 gates when its CPU
+# answer moves by at most DETERMINED under a ±PERTURB move of its start;
+# any other member to 1e-4 + SPREAD times that move
+PERTURB, DETERMINED, SPREAD = 1e-7, 5e-5, 2.0
 
 
 def log(*a):
@@ -118,14 +156,15 @@ def f_true(x, u):
 def reset_counters(rk, rg):
     rk.LAUNCHES = rk.BACKWARD_LAUNCHES = rk.FORWARD_LAUNCHES = 0
     rk.PLAIN_CALLS = 0
-    rg.BACKWARD_LAUNCHES = rg.FORWARD_LAUNCHES = 0
+    rg.BACKWARD_LAUNCHES = rg.FORWARD_LAUNCHES = rg.FUSED_LAUNCHES = 0
 
 
 def counters(rk, rg):
     return {"fused": rk.LAUNCHES, "backward": rk.BACKWARD_LAUNCHES,
             "forward": rk.FORWARD_LAUNCHES, "plain": rk.PLAIN_CALLS,
             "general_backward": rg.BACKWARD_LAUNCHES,
-            "general_forward": rg.FORWARD_LAUNCHES}
+            "general_forward": rg.FORWARD_LAUNCHES,
+            "fused_general": rg.FUSED_LAUNCHES}
 
 
 def only_launched(n, *names):
@@ -473,6 +512,83 @@ def phase_general(rk, rg):
     return bwd, fwd, pair_ms
 
 
+def lv_general_case(kind, seed, R, r, Hn=H):
+    """One of the seeded general cases at the LV stage (2, 1), on the
+    card."""
+    from pyneuralempc_tpu_torch.ops.cuda import sweep_cases
+    case = sweep_cases.general_sweep_case(kind, B=B, H=Hn, nx=2, nu=1, R=R,
+                                          r=r, seed=seed)
+    return [torch.as_tensor(a, device="cuda") for a in case]
+
+
+def phase_fused_general(rk, rg):
+    """The fused general kernel against the plain general sweep (outputs,
+    ok flags, gains scratch) at the budgeted LV path's stage, and against
+    the streamed general pair on the same inputs; then its times and the
+    pair's at the path's shape (R=2, r=0)."""
+    worst, worst_pair = [0.0, 0.0], 0.0
+    checks = [(kind, seed, R, r, H) for R, r in FUSED_GENERAL_SHAPES
+              for kind, seed in CASES.items()
+              if kind != "local_bump" or r == 0]
+    checks += [(kind, seed, 1, 1, PURE_EQ_H) for kind, seed in CASES.items()
+               if kind != "local_bump"]
+    for kind, seed, R, r, Hn in checks:
+        label = f"R={R}, r={r}, H={Hn}"
+        args = lv_general_case(kind, seed, R, r, Hn)
+        *out, gains = rg.riccati_sweep_general_fused_cuda(*args,
+                                                          return_gains=True)
+        torch.cuda.synchronize()
+        ref = rg.riccati_sweep_general_plain(*args)
+        g_ref, ok_ref = rg.riccati_general_backward_plain(*args[:12])
+        check_ok(kind, out[4], ref[4])
+        e = errors(out[:4] + [gains], list(ref[:4]) + [g_ref], ref[4])
+        pair = rg.riccati_sweep_general_streamed_cuda(*args)
+        torch.cuda.synchronize()
+        check_ok(kind, pair[4], out[4])
+        e_pair = errors(pair[:4], out[:4], out[4])
+        log(f"fused general vs plain [{kind}, {label}]: ok "
+            f"{int(ref[4].sum())}/{B} (equal), max |diff| {e[0]:.3e}, max "
+            f"|diff|/max(1,|plain|) {e[1]:.3e} (outputs and gains; limit "
+            f"{STREAMED_TOL}); vs the general pair {e_pair[1]:.3e}")
+        if not (e[1] <= STREAMED_TOL and e_pair[1] <= STREAMED_TOL):
+            raise RuntimeError(f"{kind}, {label}: fused general kernel "
+                               f"differs from plain by {e[1]:.3e}, from the "
+                               f"general pair by {e_pair[1]:.3e}")
+        worst = [max(a, b) for a, b in zip(worst, e[:2])]
+        worst_pair = max(worst_pair, e_pair[1])
+        del args, out, gains, ref, g_ref, pair
+
+    args = lv_general_case("delta0", 0, LR, LEQ)
+    dims = (B, H, 2, 1, LR, LEQ)
+    label = f"B={B}, H={H}, nx=2, nu=1, R={LR}, r={LEQ}"
+    entry = kernel_entry(
+        "riccati_general_fused", "riccati_general_fused.cu", f"{PALLAS}:953",
+        lambda: rg.riccati_sweep_general_fused_cuda(*args),
+        "riccati_general_fused_kernel",
+        lambda: rg.riccati_sweep_general_plain(*args),
+        rg.general_fused_bytes(*dims), rg.general_fused_flops(*dims), label)
+    entry.update(max_abs_err=worst[0], max_scaled_err=worst[1],
+                 max_scaled_err_vs_pair=worst_pair)
+    # the comparison the Pallas design made between its two branches
+    gains, _ = rg.riccati_general_backward_cuda(*args[:12])
+    A, Bm, c, Jx = args[0], args[1], args[6], args[12]
+    bwd_ms, how_b = kernel_device_ms(
+        lambda: rg.riccati_general_backward_cuda(*args[:12]),
+        "riccati_general_backward_kernel")
+    fwd_ms, how_f = kernel_device_ms(
+        lambda: rg.riccati_general_forward_cuda(A, Bm, c, Jx, gains),
+        "riccati_general_forward_kernel")
+    pair_ms = cuda_median_ms(
+        lambda: rg.riccati_sweep_general_streamed_cuda(*args))
+    entry["pair_ms"] = bwd_ms + fwd_ms
+    log(f"streamed general pair at {label}: backward {bwd_ms * 1e3:.2f} us "
+        f"({how_b}) + forward {fwd_ms * 1e3:.2f} us ({how_f}) of device "
+        f"time; {pair_ms * 1e3:.1f} us per wrapper call; the fused kernel "
+        f"takes {entry['ms'] / (bwd_ms + fwd_ms):.2%} of the pair's device "
+        "time")
+    return entry
+
+
 # ---- phases 4, 4b, 4c: main paths ----
 
 def make_controller(nempc, device):
@@ -757,6 +873,117 @@ def phase_fleet_eq(nempc, rk, rg, card, pair_ms):
     return x0s, n["general_backward"], n["general_forward"]
 
 
+def check_floor(tag, res, u_floor):
+    """The floor on every converged plan; the share of them on which it
+    binds."""
+    conv = res.converged
+    total = res.u.sum(dim=(1, 2))[conv]
+    binding = float(((total - u_floor).abs() <= BUDGET_SLACK).float().mean())
+    log(f"  {tag}: Σu min {float(total.min()):.6f} (floor {u_floor}), "
+        f"binding on {binding:.2%} of converged plans")
+    if not bool((total >= u_floor - BUDGET_SLACK).all()):
+        raise RuntimeError(f"{tag}: feed floor violated")
+    return binding
+
+
+def lv_plant(nempc):
+    """The true ODE as a single-state plant step (api/simulate.py)."""
+    from pyneuralempc_tpu_torch.api.simulate import plant_from_model
+    return plant_from_model(nempc.torch_dynamics(f_true, 2, 1), "rk4", DT)
+
+
+def phase_budget(nempc, rk, rg, card, params, x0s, fused_ms):
+    from pyneuralempc_tpu_torch.api.simulate import closed_loop_batch
+    from pyneuralempc_tpu_torch.examples.lotka_volterra import (
+        U_FLOOR, make_budget_mpc)
+    from pyneuralempc_tpu_torch.ops.integrators import step_fn
+
+    surrogate = nempc.MLPDynamics.make(x_dim=2, u_dim=1, hidden=[32, 32])
+    mpc = make_budget_mpc(surrogate, "cuda", H=H, DT=DT)
+    plan = rk.kernel_plan(H, 2, 1, "cuda", R=LR, r=LEQ)
+    log(f"budgeted LV: kkt backend {mpc.kkt_backend}; sweep plan: {plan}")
+    if plan["path"] != "cuda_fused_general":
+        raise RuntimeError("the budgeted LV path does not plan the fused "
+                           "general kernel")
+    plant = step_fn(nempc.torch_dynamics(f_true, 2, 1), "rk4", DT)
+
+    reset_counters(rk, rg)
+    t0 = time.perf_counter()
+    xs = torch.as_tensor(x0s, device="cuda")
+    carry, res = mpc.next_batch(xs, params=params)
+    torch.cuda.synchronize()
+    log(f"budgeted LV cold B={B}: {time.perf_counter() - t0:.2f} s  "
+        + telemetry("cold", res))
+    conv = [int(res.converged.sum())]
+    check_plan(res, H, 2, 1)
+    binding = check_floor("cold", res, U_FLOOR)
+    lo, hi = BINDING_SHARE
+    if not lo <= binding <= hi:
+        raise RuntimeError(f"the floor binds on {binding:.2%} of the cold "
+                           f"plans, outside [{lo:.0%}, {hi:.0%}]")
+    times, launches = [], []
+    for step in range(WARM_STEPS):
+        xs = plant(xs, res.u[:, 0])
+        torch.cuda.synchronize()
+        n0 = rg.FUSED_LAUNCHES
+        t0 = time.perf_counter()
+        carry, res = mpc.next_batch(xs, params=params, carry=carry)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        conv.append(int(res.converged.sum()))
+        launches.append(rg.FUSED_LAUNCHES - n0)
+        log(f"warm {step}: {times[-1] * 1e3:.1f} ms  sweeps "
+            f"{launches[-1]}  " + telemetry("warm", res))
+        check_floor(f"warm {step}", res, U_FLOOR)
+    n = counters(rk, rg)
+    log(f"budgeted LV path: fused general launches {n['fused_general']}; "
+        f"fused {n['fused']}, streamed {n['backward']} / {n['forward']}, "
+        f"general pair {n['general_backward']} / {n['general_forward']}, "
+        f"plain calls {n['plain']}")
+    if not only_launched(n, "fused_general"):
+        raise RuntimeError("the budgeted LV path did not go through the "
+                           "fused general kernel alone")
+    if min(conv) < MIN_WARM_CONVERGED:
+        raise RuntimeError(f"budgeted LV convergence {conv} (cold, warm...) "
+                           f"below {MIN_WARM_CONVERGED}/{B}")
+    check_plan(res, H, 2, 1)
+    log(f"converged: cold, then every warm step {conv}")
+    report_split(nempc, mpc, carry, xs, res, times, launches[-1], fused_ms,
+                 card, params=params)
+
+    # the closed loop: a cold solve and CL_STEPS // CL_REPLAN warm re-plans
+    reset_counters(rk, rg)
+    t0 = time.perf_counter()
+    out = closed_loop_batch(mpc, lv_plant(nempc),
+                            torch.as_tensor(x0s, device="cuda"),
+                            steps=CL_STEPS, replan_every=CL_REPLAN,
+                            params=params)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n_cl = counters(rk, rg)
+    n_solves = out.converged.shape[0]
+    conv_cl = out.converged.sum(dim=1).tolist()
+    lb, ub = mpc.nlp.spec.box.tile(1, device="cuda")
+    viol = torch.clamp(torch.maximum(lb[:2] - out.x[1:], out.x[1:] - ub[:2]),
+                       min=0.0)
+    feed = (1.1 * 50.0 * DT * out.u.sum(dim=(0, 2))).mean()
+    log(f"closed loop ({CL_STEPS} steps, re-plan every {CL_REPLAN}): "
+        f"{n_solves} solves x {B} plants in {dt:.2f} s -> "
+        f"{n_solves * B / dt:,.0f} solves/s; converged per solve {conv_cl}; "
+        f"max state-box violation on the true plant {float(viol.max()):.3e};"
+        f" mean feed cost {float(feed):.4f} (raw units, 1.1 a unit fed); "
+        f"fused general launches {n_cl['fused_general']}")
+    if not only_launched(n_cl, "fused_general"):
+        raise RuntimeError("the closed loop did not go through the fused "
+                           "general kernel alone")
+    if min(conv_cl) < MIN_WARM_CONVERGED:
+        raise RuntimeError(f"closed-loop convergence {conv_cl} below "
+                           f"{MIN_WARM_CONVERGED}/{B}")
+    if not bool(torch.isfinite(out.x).all()):
+        raise RuntimeError("non-finite closed-loop trajectory")
+    return n["fused_general"]
+
+
 # ---- phase 5: card vs CPU ----
 
 def card_vs_cpu(tag, solve):
@@ -771,15 +998,59 @@ def card_vs_cpu(tag, solve):
                            f"{du:.3e}, masks equal {same}")
 
 
+def budget_card_vs_cpu(tag, run, diff, compare):
+    """The budgeted fleet on the card and on the CPU, the CPU run also from
+    starts moved by ±PERTURB: members whose CPU answer moves by more than
+    DETERMINED under that (``diff(alt, cpu)``, per member) or whose
+    iteration counts change are not fixed to the 1e-4 gates by f32.  The
+    others are held to CARD_VS_CPU_DU in ``diff(card, cpu)``; these flat
+    members to CARD_VS_CPU_DU + SPREAD times their own move.
+    ``compare(card, cpu, determined)`` holds every member to what f32 does
+    fix (masks, objective, floor)."""
+    card, cpu = run("cuda", 0.0), run("cpu", 0.0)
+    moved = torch.zeros(N_CARD_VS_CPU)
+    same_iters = torch.ones(N_CARD_VS_CPU, dtype=torch.bool)
+    for eps in (PERTURB, -PERTURB):
+        alt = run("cpu", eps)
+        moved = torch.maximum(moved, diff(alt, cpu))
+        same_iters &= (alt.iterations == cpu.iterations).reshape(
+            -1, N_CARD_VS_CPU).all(0)
+    determined = (moved <= DETERMINED) & same_iters
+    flat = torch.nonzero(~determined).flatten().tolist()
+    d = diff(card, cpu)
+    limit = torch.where(determined, torch.tensor(CARD_VS_CPU_DU),
+                        CARD_VS_CPU_DU + SPREAD * moved)
+    log(f"card vs CPU ({tag}): {int(determined.sum())}/{N_CARD_VS_CPU} "
+        f"members fixed by f32 (the CPU answer moves by <= {DETERMINED} "
+        f"under ±{PERTURB} on the start, with the same iterations), max "
+        f"|diff| {float(d[determined].max()):.3e} on them (limit "
+        f"{CARD_VS_CPU_DU}); flat: {flat}, moved "
+        f"{[float(moved[i]) for i in flat]}, card vs CPU "
+        f"{[float(d[i]) for i in flat]} (limit {CARD_VS_CPU_DU} + {SPREAD} x "
+        "moved)")
+    if int(determined.sum()) < N_CARD_VS_CPU // 2:
+        raise RuntimeError(f"{tag}: fewer than half the members are fixed "
+                           "by f32; the comparison says nothing")
+    if not bool((d <= limit).all()):
+        raise RuntimeError(f"{tag}: card and CPU differ by more than f32 "
+                           "explains")
+    compare(card, cpu, determined)
+
+
 def phase_card_vs_cpu(nempc, params, x0s, q_x0s, eq_x0s):
+    from pyneuralempc_tpu_torch.api.simulate import closed_loop_batch
     from pyneuralempc_tpu_torch.examples.fleet_eq import make_fleet_eq_mpc
+    from pyneuralempc_tpu_torch.examples.lotka_volterra import (
+        U_FLOOR, make_budget_mpc)
     from pyneuralempc_tpu_torch.examples.quadrotor import make_quadrotor_mpc
+
+    def on(dev):
+        return [{k: v.to(dev) for k, v in layer.items()} for layer in params]
 
     def lv(dev):
         mpc = make_controller(nempc, dev)
-        p_dev = [{k: v.to(dev) for k, v in layer.items()} for layer in params]
         return mpc.next_batch(torch.as_tensor(x0s[:N_CARD_VS_CPU],
-                                              device=dev), params=p_dev)[1]
+                                              device=dev), params=on(dev))[1]
 
     def quad(dev):
         mpc = make_quadrotor_mpc(dev, H=QH)
@@ -794,6 +1065,51 @@ def phase_card_vs_cpu(nempc, params, x0s, q_x0s, eq_x0s):
     card_vs_cpu("LV", lv)
     card_vs_cpu(f"quadrotor, H={QH}", quad)
     card_vs_cpu(f"EQ/border quadrotor, H={QH}", fleet_eq)
+
+    surrogate = nempc.MLPDynamics.make(x_dim=2, u_dim=1, hidden=[32, 32])
+    starts = x0s[:N_CARD_VS_CPU]
+
+    def budget(dev, eps):
+        mpc = make_budget_mpc(surrogate, dev, H=H, DT=DT)
+        xs = torch.as_tensor(starts + np.float32(eps), device=dev)
+        return mpc.next_batch(xs, params=on(dev))[1]
+
+    def compare_plans(card, cpu, determined):
+        same = bool(torch.equal(card.converged.cpu(), cpu.converged))
+        dobj = float((card.objective.cpu() - cpu.objective).abs().max())
+        floor = float(card.u.sum(dim=(1, 2)).min())
+        log(f"card vs CPU (budgeted LV, {N_CARD_VS_CPU} cold solves): max "
+            f"|dobjective| {dobj:.3e}, converged masks equal: {same}, Σu min "
+            f"{floor:.6f}")
+        if not (same and dobj <= 1e-5 and floor >= U_FLOOR - BUDGET_SLACK):
+            raise RuntimeError("budgeted LV: card and CPU solves differ")
+
+    budget_card_vs_cpu("budgeted LV, cold, |du|", budget,
+                       lambda alt, ref: (alt.u.cpu() - ref.u).abs()
+                       .amax(dim=(1, 2)), compare_plans)
+
+    def loop(dev, eps):
+        mpc = make_budget_mpc(surrogate, dev, H=H, DT=DT)
+        xs = torch.as_tensor(starts + np.float32(eps), device=dev)
+        out = closed_loop_batch(mpc, lv_plant(nempc), xs, steps=4,
+                                replan_every=CL_REPLAN, params=on(dev))
+        return out._replace(x=out.x.cpu(), converged=out.converged.cpu(),
+                            iterations=out.iterations.cpu())
+
+    def compare_loops(card, cpu, determined):
+        conv_same = bool(torch.equal(card.converged, cpu.converged))
+        it_same = bool(torch.equal(card.iterations[:, determined],
+                                   cpu.iterations[:, determined]))
+        log(f"card vs CPU (budgeted LV closed loop, B={N_CARD_VS_CPU}, 4 "
+            f"steps): converged equal: {conv_same}, iterations equal on the "
+            f"fixed members: {it_same}")
+        if not (conv_same and it_same):
+            raise RuntimeError("budgeted LV closed loop: card and CPU "
+                               "differ")
+
+    budget_card_vs_cpu("budgeted LV closed loop, |dx|", loop,
+                       lambda alt, ref: (alt.x - ref.x).abs().amax(dim=(0, 2)),
+                       compare_loops)
 
 
 def main():
@@ -817,7 +1133,8 @@ def main():
 
     # phase 2: build, one nvcc for each source, all at once
     t0 = time.perf_counter()
-    sources = (rk.SOURCE, rk.STREAMED_SOURCE, rk.GENERAL_SOURCE)
+    sources = (rk.SOURCE, rk.STREAMED_SOURCE, rk.GENERAL_SOURCE,
+               rk.GENERAL_FUSED_SOURCE)
     for src, r in zip(sources,
                       build.build_all([build.CSRC_DIR / s for s in sources])):
         log(f"built {src} -> {r.path.name} in {r.seconds:.1f} s")
@@ -826,22 +1143,25 @@ def main():
                 log(f"  ptxas: {line.strip()}")
     log(f"build phase {time.perf_counter() - t0:.1f} s")
 
-    # phases 3, 3b, 3c: kernels vs plain
+    # phases 3, 3b, 3c, 3d: kernels vs plain
     fused = phase_kernels(rk)
     bwd, fwd, pair_ms = phase_streamed(rk)
     gbwd, gfwd, gpair_ms = phase_general(rk, rg)
+    gfused = phase_fused_general(rk, rg)
 
-    # phases 4, 4b, 4c, 6: main paths and their numbers
+    # phases 4, 4b, 4c, 4d, 6: main paths and their numbers
     params, x0s, fused["launches"] = phase_main_path(nempc, rk, rg, card)
     q_x0s, bwd["launches"], fwd["launches"] = phase_quadrotor(
         nempc, rk, rg, card, pair_ms)
     eq_x0s, gbwd["launches"], gfwd["launches"] = phase_fleet_eq(
         nempc, rk, rg, card, gpair_ms)
+    gfused["launches"] = phase_budget(nempc, rk, rg, card, params, x0s,
+                                      gfused["call_ms"])
 
     # phase 5: card vs CPU
     phase_card_vs_cpu(nempc, params, x0s, q_x0s, eq_x0s)
 
-    print(json.dumps({"kernels": [fused, bwd, fwd, gbwd, gfwd]}))
+    print(json.dumps({"kernels": [fused, bwd, fwd, gbwd, gfwd, gfused]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

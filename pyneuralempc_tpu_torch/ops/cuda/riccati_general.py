@@ -11,10 +11,18 @@ The general sweep extends the plain one (:mod:`.riccati_kernel`) two ways:
   come back beside Δx, Δu, Δλ, and ``Jx`` adds Jxᵀ Δν to Δλ.
 
 Replaces ``pyneuralempc_tpu/ops/pallas/riccati_kernel.py``
-``_riccati_general_pallas_call``'s streamed pair: the backward kernel
-(:991, body ``_bwd_general_body`` :610-787) and the forward kernel (:1024,
-body ``_fwd_general_body`` :790-847), both in ``csrc/riccati_general.cu``:
-one warp per problem, any nx <= 32, nu <= 16, R <= 65, r <= nu at run time.
+``_riccati_general_pallas_call``'s three kernels, bodies
+``_bwd_general_body`` (:610-787) and ``_fwd_general_body`` (:790-847):
+
+* its resident branch (:890-970, ``pallas_call`` :953), both bodies in one
+  program: ``csrc/riccati_general_fused.cu``, one thread per problem,
+  backward then forward in one launch, instantiated for the (nx, nu, R, r)
+  of ``riccati_kernel._GENERAL_INSTANCES`` (the LV stage (2, 1) with
+  R <= 3, r <= 1);
+* its streamed pair, the backward kernel (:991) and the forward kernel
+  (:1024): ``csrc/riccati_general.cu``, one warp per problem, any
+  nx <= 32, nu <= 16, R <= 65, r <= nu at run time; every other general
+  shape takes it.
 
 Beside them:
 
@@ -25,20 +33,25 @@ Beside them:
   :func:`riccati_sweep_general_plain` is their composition.  CPU tensors
   take them; ``chip_smoke.py`` holds the kernels against them on the card.
   Each call adds one to ``riccati_kernel.PLAIN_CALLS``.
-* :func:`riccati_general_backward_cuda`, :func:`riccati_general_forward_cuda`,
+* :func:`riccati_sweep_general_fused_cuda`,
+  :func:`riccati_general_backward_cuda`, :func:`riccati_general_forward_cuda`,
   :func:`riccati_sweep_general_streamed_cuda` — check their inputs,
-  allocate outputs, launch on PyTorch's current stream.
-* :func:`riccati_sweep_general` — the dispatch the solver calls.  It never
-  drops a CUDA tensor to a plain version.
+  allocate outputs (and the fused kernel's gains scratch), launch on
+  PyTorch's current stream.
+* :func:`riccati_sweep_general` — the dispatch the solver calls, on
+  :func:`~.riccati_kernel.kernel_plan`.  It never drops a CUDA tensor to a
+  plain version, and a kernel that fails to launch raises.
 
-``BACKWARD_LAUNCHES`` and ``FORWARD_LAUNCHES`` count the kernels' launches.
+``FUSED_LAUNCHES`` counts the fused kernel's launches, ``BACKWARD_LAUNCHES``
+and ``FORWARD_LAUNCHES`` the pair's.
 
 Layouts are batch-first and stage-major, so a stage's R right-hand sides
 are contiguous: A (B,H,nx,nx), B (B,H,nx,nu), G and M (B,H,ns,ns)
 symmetric, mx and c (B,H,R,nx), mu (B,H,R,nu), delta and delta_c (B,),
 E (B,H,r,nu), F and Jx (B,H,r,nx), h (B,H,R,r).  A sweep returns dX and
 dLam (B,H,R,nx), dU (B,H,R,nu), dNu (B,H,R,r) and ok (B,).  The gains
-between the halves are (B,H,gain_width(nx, nu, R, r)), each stage laid out
+between the halves (the fused kernel's scratch too) are
+(B,H,gain_width(nx, nu, R, r)), each stage laid out
 ``[K (nu,nx) | k (R,nu) | Pbar (nx,nx) | pbar (R,nx) | Mxu (nx,nu) |
 Knu (r,nx) | knu (R,r)]``, all row-major.
 """
@@ -48,29 +61,37 @@ from __future__ import annotations
 import torch
 
 from . import riccati_kernel as _rk
-from .riccati_kernel import (GENERAL_MAX_R, GENERAL_SOURCE,
-                             STREAMED_MAX_NU, STREAMED_MAX_NX, _check,
-                             _chol_local_retry, _entry, _general_fits, _stream,
-                             backward_bytes, backward_flops, forward_bytes,
-                             forward_flops, gain_width, kernel_plan)
+from .riccati_kernel import (GENERAL_FUSED_SOURCE, GENERAL_MAX_R,
+                             GENERAL_SOURCE, STREAMED_MAX_NU, STREAMED_MAX_NX,
+                             _GENERAL_INSTANCES, _check, _chol_local_retry,
+                             _entry, _general_fits, _stream, backward_bytes,
+                             backward_flops, forward_bytes, forward_flops,
+                             gain_width, kernel_plan, sweep_bytes,
+                             sweep_flops)
 
 __all__ = ["riccati_general_backward_plain", "riccati_general_forward_plain",
-           "riccati_sweep_general_plain", "riccati_general_backward_cuda",
-           "riccati_general_forward_cuda",
+           "riccati_sweep_general_plain", "riccati_sweep_general_fused_cuda",
+           "riccati_general_backward_cuda", "riccati_general_forward_cuda",
            "riccati_sweep_general_streamed_cuda", "riccati_sweep_general",
+           "general_fused_bytes", "general_fused_flops",
            "general_backward_bytes", "general_backward_flops",
            "general_forward_bytes", "general_forward_flops"]
 
+FUSED_LAUNCHES = 0      # fused general launches
 BACKWARD_LAUNCHES = 0   # general backward launches
 FORWARD_LAUNCHES = 0    # general forward launches
 
 
 # ---- bytes and operations (the least the card must do) ----
-# The plain pair's counts with R and r: the backward kernel reads A, B, the
-# upper triangles of G and M, mx, mu, c, h, E, F once (and δ, δ_c) and
-# writes the gains and an ok byte; the forward kernel reads A, B, c, Jx and
-# the gains once and writes dX, dU, dLam, dNu.
+# The plain kernels' counts with R and r: the fused kernel reads the
+# backward kernel's inputs and Jx once and writes the forward kernel's
+# outputs and an ok byte (its gains scratch never counts); the backward
+# kernel reads A, B, the upper triangles of G and M, mx, mu, c, h, E, F once
+# (and δ, δ_c) and writes the gains and an ok byte; the forward kernel reads
+# A, B, c, Jx and the gains once and writes dX, dU, dLam, dNu.
 
+general_fused_bytes = sweep_bytes
+general_fused_flops = sweep_flops
 general_backward_bytes = backward_bytes
 general_backward_flops = backward_flops
 general_forward_bytes = forward_bytes
@@ -302,17 +323,76 @@ def riccati_sweep_general_streamed_cuda(A, B, G, M, mx, mu, c, delta,
     return riccati_general_forward_cuda(A, B, c, Jx, gains) + (ok,)
 
 
+def _require_fused(Bn, H, nx, nu, R, r):
+    if (nx, nu, R, r) not in _GENERAL_INSTANCES:
+        raise NotImplementedError(
+            f"csrc/{GENERAL_FUSED_SOURCE} instantiates (nx, nu, R, r) in "
+            f"{sorted(_GENERAL_INSTANCES)} only, not nx={nx}, nu={nu}, R={R},"
+            f" r={r}; riccati_sweep_general_streamed_cuda takes it")
+    if Bn == 0 or H == 0:
+        raise ValueError("the CUDA sweeps need B >= 1 and H >= 1")
+
+
+def riccati_sweep_general_fused_cuda(A, B, G, M, mx, mu, c, delta, delta_c,
+                                     E, F, h, Jx, return_gains=False):
+    """Launch the fused ``csrc/riccati_general_fused.cu`` on CUDA tensors (no
+    fallback).  Returns ``(dX, dU, dLam, dNu, ok)`` as
+    :func:`riccati_sweep_general_plain` does, and the gains scratch after
+    them when ``return_gains`` (the layout of
+    :func:`riccati_general_backward_plain`'s gains).
+
+    Raises on an (nx, nu, R, r) the source does not instantiate, and on a
+    tensor that is not float32, not contiguous, not on one CUDA device or
+    of the wrong shape.
+    """
+    global FUSED_LAUNCHES
+    Bn, H, R, nx, nu, r = _dims(c, E)
+    _require_fused(Bn, H, nx, nu, R, r)
+    ns = nx + nu
+    _check(c.device, {
+        "A": (A, (Bn, H, nx, nx)), "B": (B, (Bn, H, nx, nu)),
+        "G": (G, (Bn, H, ns, ns)), "M": (M, (Bn, H, ns, ns)),
+        "mx": (mx, (Bn, H, R, nx)), "mu": (mu, (Bn, H, R, nu)),
+        "c": (c, (Bn, H, R, nx)), "delta": (delta, (Bn,)),
+        "delta_c": (delta_c, (Bn,)), "E": (E, (Bn, H, r, nu)),
+        "F": (F, (Bn, H, r, nx)), "h": (h, (Bn, H, R, r)),
+        "Jx": (Jx, (Bn, H, r, nx))})
+    fn = _entry(GENERAL_FUSED_SOURCE, "riccati_general_fused_f32", 19, 7)
+    dev = c.device
+    dX = torch.empty((Bn, H, R, nx), dtype=torch.float32, device=dev)
+    dU = torch.empty((Bn, H, R, nu), dtype=torch.float32, device=dev)
+    dLam = torch.empty((Bn, H, R, nx), dtype=torch.float32, device=dev)
+    dNu = torch.empty((Bn, H, R, r), dtype=torch.float32, device=dev)
+    ok = torch.empty((Bn,), dtype=torch.bool, device=dev)
+    gains = torch.empty((Bn, H, gain_width(nx, nu, R, r)),
+                        dtype=torch.float32, device=dev)
+    err = fn(A.data_ptr(), B.data_ptr(), G.data_ptr(), M.data_ptr(),
+             mx.data_ptr(), mu.data_ptr(), c.data_ptr(), delta.data_ptr(),
+             delta_c.data_ptr(), E.data_ptr(), F.data_ptr(), h.data_ptr(),
+             Jx.data_ptr(), dX.data_ptr(), dU.data_ptr(), dLam.data_ptr(),
+             dNu.data_ptr(), ok.data_ptr(), gains.data_ptr(), Bn, H, nx, nu,
+             R, r, dev.index or 0, _stream(dev))
+    _raise_on(err, "riccati_general_fused", Bn, H, nx, nu, R, r)
+    FUSED_LAUNCHES += 1
+    out = (dX, dU, dLam, dNu, ok)
+    return out + (gains,) if return_gains else out
+
+
 def riccati_sweep_general(A, B, G, M, mx, mu, c, delta, delta_c, E, F, h,
                           Jx):
     """Dispatch on :func:`~.riccati_kernel.kernel_plan`: CPU -> the plain
-    version, CUDA -> the general kernels (which take (R, r) = (1, 0) too),
-    anything else raises."""
+    version; CUDA -> the fused general kernel for the shapes it
+    instantiates, the general pair for every other (which takes
+    (R, r) = (1, 0) too); anything else raises."""
     Bn, H, R, nx, nu, r = _dims(c, E)
-    plan = kernel_plan(H, nx, nu, c.device, R=R, r=r)
-    if plan["path"] == "plain":
+    path = kernel_plan(H, nx, nu, c.device, R=R, r=r)
+    if path["path"] == "plain":
         return riccati_sweep_general_plain(A, B, G, M, mx, mu, c, delta,
                                            delta_c, E, F, h, Jx)
-    if plan["path"] == "unsupported":
-        raise NotImplementedError(plan["reason"])
+    if path["path"] == "cuda_fused_general":
+        return riccati_sweep_general_fused_cuda(A, B, G, M, mx, mu, c, delta,
+                                                delta_c, E, F, h, Jx)
+    if path["path"] == "unsupported":
+        raise NotImplementedError(path["reason"])
     return riccati_sweep_general_streamed_cuda(A, B, G, M, mx, mu, c, delta,
                                                delta_c, E, F, h, Jx)

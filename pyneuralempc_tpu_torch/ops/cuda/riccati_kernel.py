@@ -1,4 +1,6 @@
-"""The plain Riccati sweep: CUDA kernels, plain PyTorch versions, dispatch.
+"""The plain Riccati sweep: CUDA kernels, plain PyTorch versions, dispatch;
+and the plan, sources and counts of every sweep kernel (the general ones'
+wrappers are in :mod:`.riccati_general`).
 
 Replaces the plain sweep of ``pyneuralempc_tpu/ops/pallas/riccati_kernel.py``
 ``_riccati_pallas_call``: its fused branch (:419-465) and its streamed pair,
@@ -59,6 +61,11 @@ STREAMED_MAX_NU = 16
 # sides (1 + the 64 border rows the Riccati backend takes) and r <= nu
 # stage equality rows.
 GENERAL_MAX_R = 65
+# (nx, nu, R, r) tuples that csrc/riccati_general_fused.cu instantiates (its
+# C entry point's list): the LV stage with up to two border rows and up to
+# one stage equality row; (R, r) = (1, 0) is the plain sweep's.
+_GENERAL_INSTANCES = frozenset((2, 1, R, r) for R in (1, 2, 3)
+                               for r in (0, 1) if (R, r) != (1, 0))
 
 LAUNCHES = 0            # fused kernel launches by riccati_sweep_cuda
 BACKWARD_LAUNCHES = 0   # streamed backward launches by riccati_backward_cuda
@@ -68,6 +75,7 @@ PLAIN_CALLS = 0         # calls of a plain version
 SOURCE = "riccati_sweep.cu"
 STREAMED_SOURCE = "riccati_streamed.cu"
 GENERAL_SOURCE = "riccati_general.cu"
+GENERAL_FUSED_SOURCE = "riccati_general_fused.cu"
 
 
 def gain_width(nx: int, nu: int, R: int = 1, r: int = 0) -> int:
@@ -92,16 +100,22 @@ def kernel_plan(H: int, nx: int, nu: int, device, R: int = 1,
     """Which sweep a problem of these dims takes on ``device``, and why.
 
     A pure function of (H, nx, nu, device type, R, r): ``{"path": "plain" |
-    "cuda_fused" | "cuda_streamed" | "cuda_streamed_general" |
-    "unsupported", "reason": str}``.  R is the general sweep's number of
-    right-hand sides (1 + trajectory-level border rows) and r its stage
-    equality rows; (R, r) = (1, 0) is the plain sweep.
+    "cuda_fused" | "cuda_streamed" | "cuda_fused_general" |
+    "cuda_streamed_general" | "unsupported", "reason": str}``.  R is the
+    general sweep's number of right-hand sides (1 + trajectory-level border
+    rows) and r its stage equality rows; (R, r) = (1, 0) is the plain sweep.
+    A general shape that csrc/riccati_general_fused.cu instantiates takes
+    the fused general kernel before the streamed general pair is asked.
     """
     kind = torch.device(device).type
     if kind == "cpu":
         return {"path": "plain",
                 "reason": "CPU tensors take the plain PyTorch sweep"}
     if (R, r) != (1, 0):
+        if kind == "cuda" and H >= 1 and (nx, nu, R, r) in _GENERAL_INSTANCES:
+            return {"path": "cuda_fused_general",
+                    "reason": f"csrc/{GENERAL_FUSED_SOURCE} instantiates "
+                              f"<{nx}, {nu}, {R}, {r}>"}
         if kind == "cuda" and H >= 1 and _general_fits(nx, nu, R, r):
             return {"path": "cuda_streamed_general",
                     "reason": f"csrc/{GENERAL_SOURCE} takes nx={nx}, "
@@ -185,16 +199,21 @@ def _output_floats(H: int, nx: int, nu: int, R: int = 1, r: int = 0) -> int:
     return H * R * (2 * nx + nu + r)
 
 
-def sweep_bytes(Bn: int, H: int, nx: int, nu: int) -> int:
-    """Least bytes a fused sweep must move: every input read once, every
-    output written once, one ok byte a problem."""
-    floats = _input_floats(H, nx, nu) + _output_floats(H, nx, nu)
+def sweep_bytes(Bn: int, H: int, nx: int, nu: int, R: int = 1,
+                r: int = 0) -> int:
+    """Least bytes a fused sweep must move: every input read once (the
+    general one's Jx too), every output written once, one ok byte a
+    problem; the gains between the two passes never count."""
+    floats = (_input_floats(H, nx, nu, R, r) + H * r * nx
+              + _output_floats(H, nx, nu, R, r))
     return 4 * Bn * floats + Bn
 
 
-def sweep_flops(Bn: int, H: int, nx: int, nu: int) -> int:
+def sweep_flops(Bn: int, H: int, nx: int, nu: int, R: int = 1,
+                r: int = 0) -> int:
     """Operations of one sweep (backward and forward)."""
-    return Bn * H * (_bwd_stage_flops(nx, nu) + _fwd_stage_flops(nx, nu))
+    return Bn * H * (_bwd_stage_flops(nx, nu, R, r)
+                     + _fwd_stage_flops(nx, nu, R, r))
 
 
 def backward_bytes(Bn: int, H: int, nx: int, nu: int, R: int = 1,

@@ -1,8 +1,8 @@
 """Tests of the port that need an NVIDIA card: the CUDA sweeps (the fused
-kernel, the streamed backward/forward pair and the general pair) against
-their plain versions and each other, the wrappers' checks and dispatch, and
-the LV, quadrotor and EQ/border quadrotor paths on the card against the
-CPU.  They skip without a CUDA
+kernel, the streamed backward/forward pair, the general pair and the fused
+general kernel) against their plain versions and each other, the wrappers'
+checks and dispatch, and the LV, quadrotor, EQ/border quadrotor and
+budgeted LV paths on the card against the CPU.  They skip without a CUDA
 device.  This file imports no JAX, so on the card it runs without the JAX
 package's test configuration:
 
@@ -337,3 +337,126 @@ def test_fleet_eq_on_card_matches_cpu():
     assert bool(res["cpu"].converged.all())
     assert float(yaw_residual(res["cuda"].u).max()) <= 1e-4
     assert float((res["cuda"].u.cpu() - res["cpu"].u).abs().max()) <= 1e-4
+
+
+# ---- the fused general kernel (csrc/riccati_general_fused.cu) ----
+
+KINDS = ["delta0", "delta_per_problem", "negative_curvature", "local_bump"]
+# odd batches, H=1, every instantiated (R, r); local_bump needs r < nu and
+# a second stage
+FUSED_CASES = [(kind, B, H, R, r)
+               for B, H, R, r in ((257, 20, 2, 0), (33, 20, 2, 1),
+                                  (65, 20, 3, 0), (129, 10, 1, 1),
+                                  (4096, 1, 3, 1), (31, 7, 3, 1))
+               for kind in KINDS
+               if kind != "local_bump" or (r == 0 and H > 1)]
+
+
+@pytest.mark.parametrize("kind,B,H,R,r", FUSED_CASES)
+def test_fused_general_matches_plain_on_card(kind, B, H, R, r):
+    """The fused general kernel against riccati_sweep_general_plain, its
+    ok flags as expected, and its gains scratch against
+    riccati_general_backward_plain's gains."""
+    _card()
+    args = _general(kind, B, H, 2, 1, R, r, seed=B + H + r)
+    n0 = rg.FUSED_LAUNCHES
+    *out, gains = rg.riccati_sweep_general_fused_cuda(*args,
+                                                      return_gains=True)
+    torch.cuda.synchronize()
+    assert rg.FUSED_LAUNCHES == n0 + 1
+    ref = rg.riccati_sweep_general_plain(*args)
+    g_ref, ok_ref = rg.riccati_general_backward_plain(*args[:12])
+    want = (torch.arange(B, device="cuda") % 2 == 0
+            if kind == "negative_curvature"
+            else torch.ones(B, dtype=torch.bool, device="cuda"))
+    assert torch.equal(out[4], ref[4]) and torch.equal(ref[4], want)
+    for o, q in zip(out[:4], ref[:4]):
+        if q.numel():
+            assert _scaled_err(o, q, ref[4]) <= STREAMED_ATOL
+    assert gains.shape == g_ref.shape
+    assert _scaled_err(gains, g_ref, ok_ref) <= STREAMED_ATOL
+
+
+@pytest.mark.parametrize("R,r", [(2, 0), (2, 1), (3, 0)])
+def test_fused_general_matches_general_pair(R, r):
+    """Both CUDA designs of the general sweep on one function."""
+    _card()
+    args = _general("delta_per_problem", 257, 20, 2, 1, R, r, seed=4)
+    fused = rg.riccati_sweep_general_fused_cuda(*args)
+    pair = rg.riccati_sweep_general_streamed_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(fused[4], pair[4]) and bool(pair[4].all())
+    for o, q in zip(fused[:4], pair[:4]):
+        if q.numel():
+            assert _scaled_err(o, q) <= STREAMED_ATOL
+
+
+def test_fused_general_dispatch_and_refusals_on_card():
+    """At an instantiated shape the dispatch launches the fused general
+    kernel and nothing else; other shapes and malformed tensors raise and
+    launch nothing."""
+    _card()
+    args = _general("delta0", 64, 5, 2, 1, 2, 0)
+    counts = (rk.LAUNCHES, rk.BACKWARD_LAUNCHES, rk.FORWARD_LAUNCHES,
+              rk.PLAIN_CALLS, rg.BACKWARD_LAUNCHES, rg.FORWARD_LAUNCHES)
+    n0 = rg.FUSED_LAUNCHES
+    rg.riccati_sweep_general(*args)
+    torch.cuda.synchronize()
+    assert rg.FUSED_LAUNCHES == n0 + 1
+    with pytest.raises(NotImplementedError, match="instantiates"):
+        rg.riccati_sweep_general_fused_cuda(
+            *_general("delta0", 8, 3, 4, 2, 2, 1))
+    with pytest.raises(TypeError, match="float32"):
+        rg.riccati_sweep_general_fused_cuda(*[a.double() for a in args])
+    bad = list(args)
+    bad[6] = args[6].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        rg.riccati_sweep_general_fused_cuda(*bad)
+    assert rg.FUSED_LAUNCHES == n0 + 1
+    assert (rk.LAUNCHES, rk.BACKWARD_LAUNCHES, rk.FORWARD_LAUNCHES,
+            rk.PLAIN_CALLS, rg.BACKWARD_LAUNCHES,
+            rg.FORWARD_LAUNCHES) == counts
+
+
+def test_budget_fleet_on_card_matches_cpu():
+    """The budgeted LV fleet (true ODE, H=20) on the card goes through the
+    fused general kernel only and agrees with the CPU port: equal masks,
+    the floor held, equal objectives to 1e-5, and |Δu|∞ ≤ 1e-4 on every
+    member whose CPU plan moves by under 5e-5 when its start moves by
+    ±1e-7 (with the floor binding, feed moved between stages at constant
+    Σu is tie-broken only by the 1e-4·Σu² term, and f32 does not fix those
+    plans to 1e-4: see PERF.md), 1e-4 + 2× that move on the others."""
+    _card()
+    from pyneuralempc_tpu_torch.examples.lotka_volterra import (
+        U_FLOOR, make_budget_mpc, normalized_lv)
+    rng = np.random.default_rng(0)
+    x0s = np.stack([rng.uniform(0.2, 0.8, 16), rng.uniform(-0.9, -0.3, 16)],
+                   axis=1).astype(np.float32)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        mpc = make_budget_mpc(nempc.torch_dynamics(normalized_lv(), 2, 1),
+                              device=dev)
+        counts = (rk.LAUNCHES, rk.BACKWARD_LAUNCHES, rk.PLAIN_CALLS,
+                  rg.BACKWARD_LAUNCHES, rg.FUSED_LAUNCHES)
+        _, res[dev] = mpc.next_batch(torch.tensor(x0s, device=dev))
+        if dev == "cuda":
+            assert rg.FUSED_LAUNCHES > counts[4]
+            assert (rk.LAUNCHES, rk.BACKWARD_LAUNCHES, rk.PLAIN_CALLS,
+                    rg.BACKWARD_LAUNCHES) == counts[:4]
+        else:
+            moved = torch.zeros(16)
+            for eps in (1e-7, -1e-7):
+                _, r2 = mpc.next_batch(torch.tensor(x0s + np.float32(eps)))
+                moved = torch.maximum(moved, (r2.u - res["cpu"].u).abs()
+                                      .amax(dim=(1, 2)))
+    card, cpu = res["cuda"], res["cpu"]
+    assert torch.equal(card.converged.cpu(), cpu.converged)
+    assert bool(cpu.converged.all())
+    assert float(card.u.sum(dim=(1, 2)).min()) >= U_FLOOR - 1e-3
+    assert float((card.objective.cpu() - cpu.objective).abs().max()) <= 1e-5
+    determined = moved <= 5e-5
+    assert int(determined.sum()) >= 12
+    du = (card.u.cpu() - cpu.u).abs().amax(dim=(1, 2))
+    assert float(du[determined].max()) <= 1e-4
+    # the other members within what f32 leaves open
+    assert bool((du <= 1e-4 + 2.0 * moved).all())

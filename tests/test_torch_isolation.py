@@ -24,7 +24,10 @@ def _imports(path):
 
 def test_fresh_import_pulls_in_no_jax():
     code = ("import sys, pyneuralempc_tpu_torch, "
-            "pyneuralempc_tpu_torch.solve.riccati; "
+            "pyneuralempc_tpu_torch.solve.riccati, "
+            "pyneuralempc_tpu_torch.api.simulate, "
+            "pyneuralempc_tpu_torch.examples.lotka_volterra, "
+            "pyneuralempc_tpu_torch.examples.fleet; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

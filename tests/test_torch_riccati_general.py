@@ -152,6 +152,11 @@ def test_kernel_plan_general_is_pinned():
         p = rk.kernel_plan(H, nx, nu, "cuda", R=R, r=r)
         assert p["path"] == "unsupported"
         assert "R <= 65" in p["reason"] and "r <= nu" in p["reason"]
+    # the LV stage's instantiated shapes take the fused general kernel
+    for H, nx, nu, R, r in ((20, 2, 1, 2, 0), (20, 2, 1, 2, 1),
+                            (10, 2, 1, 1, 1), (20, 2, 1, 3, 0)):
+        assert (rk.kernel_plan(H, nx, nu, "cuda", R=R, r=r)["path"]
+                == "cuda_fused_general")
     # (R, r) = (1, 0) stays the plain sweep's plan
     assert rk.kernel_plan(50, 12, 4, "cuda", R=1, r=0)["path"] == \
         "cuda_streamed"
