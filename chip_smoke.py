@@ -28,9 +28,14 @@ Phases (each raises, and the script exits non-zero, on failure):
    row) on the four cases (per-problem delta_c too): gains and ok flags
    against riccati_general_backward_plain, the forward kernel against the
    plain forward fed the same gains, the pair against the plain general
-   sweep; then one border-only case (R=2, r=0), one pure-EQ case (R=1,
-   r=nu, H=10), and the pair at R=1, r=0 against the plain streamed pair.
-   Times as in 3.
+   sweep.  At this shape the backward entry launches its compile-time
+   instance (riccati_general_backward_fixed<12, 4, 2, 1>); its gains and
+   ok flags are also held against the run-time backward kernel
+   (riccati_general_backward_runtime_cuda) on the same inputs, and both
+   designs are timed.  Then one border-only case (R=2, r=0), one pure-EQ
+   case (R=1, r=nu, H=10), and the pair at R=1, r=0 against the plain
+   streamed pair: these shapes take the run-time backward kernel, so they
+   keep covering it.  Times as in 3.
 3d. Fused general kernel vs plain: csrc/riccati_general_fused.cu at the
    budgeted LV path's shapes (B=4096, H=20, nx=2, nu=1) at (R, r) = (2, 0),
    (2, 1) and (3, 0) on the four cases (local_bump only at r=0: it
@@ -53,7 +58,8 @@ Phases (each raises, and the script exits non-zero, on failure):
 4c. EQ/border quadrotor path: the quadrotor with a zero-net-yaw-torque
    stage equality row and a horizon thrust-impulse budget row
    (pyneuralempc_tpu_torch/examples/fleet_eq.py) on B=4096 starts, 4b's
-   protocol.  Counters: the general pair must have launched, every other
+   protocol.  Counters: the general pair must have launched, every
+   backward launch through the compile-time instance, and every other
    kernel and plain version must not have.  Every plan converged (up to 4
    of 4096) keeps |u0 - u1 + u2 - u3| <= 1e-4 and its thrust impulse
    within the budget.
@@ -157,12 +163,15 @@ def reset_counters(rk, rg):
     rk.LAUNCHES = rk.BACKWARD_LAUNCHES = rk.FORWARD_LAUNCHES = 0
     rk.PLAIN_CALLS = 0
     rg.BACKWARD_LAUNCHES = rg.FORWARD_LAUNCHES = rg.FUSED_LAUNCHES = 0
+    rg.BACKWARD_INSTANCE_LAUNCHES = rg.BACKWARD_RUNTIME_LAUNCHES = 0
 
 
 def counters(rk, rg):
     return {"fused": rk.LAUNCHES, "backward": rk.BACKWARD_LAUNCHES,
             "forward": rk.FORWARD_LAUNCHES, "plain": rk.PLAIN_CALLS,
             "general_backward": rg.BACKWARD_LAUNCHES,
+            "general_backward_instance": rg.BACKWARD_INSTANCE_LAUNCHES,
+            "general_backward_runtime": rg.BACKWARD_RUNTIME_LAUNCHES,
             "general_forward": rg.FORWARD_LAUNCHES,
             "fused_general": rg.FUSED_LAUNCHES}
 
@@ -415,6 +424,7 @@ def phase_general(rk, rg):
     path's shapes on the four cases; then a border-only and a pure-EQ case,
     and the pair at R=1, r=0 against the plain streamed pair."""
     worst = {"backward": [0.0, 0.0], "forward": [0.0, 0.0]}
+    worst_rt = 0.0
 
     def gate(kind, what, abs_err, scaled):
         log(f"general {what} vs plain [{kind}]: max |diff| {abs_err:.3e}, "
@@ -443,6 +453,14 @@ def phase_general(rk, rg):
         gate(kind, "backward (gains)", *e[:2])
         worst["backward"] = [max(a, b) for a, b in zip(worst["backward"],
                                                        e[:2])]
+        g_rt, ok_rt = rg.riccati_general_backward_runtime_cuda(*args[:12])
+        torch.cuda.synchronize()
+        check_ok(kind, ok_rt, ok)
+        e = errors([gains], [g_rt], ok_ref)
+        gate(kind, "backward instance vs the run-time kernel (gains)",
+             *e[:2])
+        worst_rt = max(worst_rt, e[1])
+        del g_rt
         out = rg.riccati_general_forward_cuda(A, Bm, c, Jx, gains)
         torch.cuda.synchronize()
         same = rg.riccati_general_forward_plain(A, Bm, c, Jx, gains)
@@ -489,13 +507,31 @@ def phase_general(rk, rg):
     gains, _ = rg.riccati_general_backward_cuda(*args[:12])
     dims = (B, QH, QNX, QNU, QR, QEQ)
     label = f"B={B}, H={QH}, nx={QNX}, nu={QNU}, R={QR}, r={QEQ}"
+    instance = rk.general_backward_kernel(QNX, QNU, QR, QEQ)
+    if instance != "riccati_general_backward_fixed":
+        raise RuntimeError(f"the EQ/border stage takes {instance}, not the "
+                           "compile-time instance")
     bwd = kernel_entry(
         "riccati_general_backward", "riccati_general.cu", f"{PALLAS}:991",
-        lambda: rg.riccati_general_backward_cuda(*args[:12]),
-        "riccati_general_backward_kernel",
+        lambda: rg.riccati_general_backward_cuda(*args[:12]), instance,
         lambda: rg.riccati_general_backward_plain(*args[:12]),
         rg.general_backward_bytes(*dims), rg.general_backward_flops(*dims),
         label, plain_runs=5)
+    # the other CUDA design of the same function, timed in the same run
+    rt_ms, rt_how = kernel_device_ms(
+        lambda: rg.riccati_general_backward_runtime_cuda(*args[:12]),
+        "riccati_general_backward_kernel")
+    rt_call_ms = cuda_median_ms(
+        lambda: rg.riccati_general_backward_runtime_cuda(*args[:12]))
+    log(f"riccati_general_backward: instance {bwd['ms'] * 1e3:.2f} us, "
+        f"run-time kernel {rt_ms * 1e3:.2f} us ({rt_how}; "
+        f"{rt_call_ms * 1e3:.1f} us per wrapper call) of device time at "
+        f"{label}: the instance takes {bwd['ms'] / rt_ms:.2%} of the "
+        f"run-time kernel's time; instance vs run-time gains max scaled "
+        f"diff {worst_rt:.3e}")
+    bwd.update(design="compile-time instance <12, 4, 2, 1>",
+               runtime_ms=rt_ms, runtime_call_ms=rt_call_ms,
+               max_scaled_err_vs_runtime=worst_rt)
     fwd = kernel_entry(
         "riccati_general_forward", "riccati_general.cu", f"{PALLAS}:1024",
         lambda: rg.riccati_general_forward_cuda(A, Bm, c, Jx, gains),
@@ -855,13 +891,18 @@ def phase_fleet_eq(nempc, rk, rg, card, pair_ms):
                                       yaw_residual))
     n = counters(rk, rg)
     log(f"EQ/border path: general backward launches "
-        f"{n['general_backward']}, forward {n['general_forward']}; fused "
+        f"{n['general_backward']} (the compile-time instance "
+        f"{n['general_backward_instance']}), forward "
+        f"{n['general_forward']}; fused "
         f"{n['fused']}, streamed backward {n['backward']} / forward "
         f"{n['forward']}, plain calls {n['plain']}")
-    if (not only_launched(n, "general_backward", "general_forward")
-            or n["general_forward"] != n["general_backward"]):
+    if (not only_launched(n, "general_backward", "general_backward_instance",
+                          "general_forward")
+            or n["general_forward"] != n["general_backward"]
+            or n["general_backward_instance"] != n["general_backward"]):
         raise RuntimeError("the EQ/border path did not go through the "
-                           "general pair alone")
+                           "general pair alone, with the backward kernel's "
+                           "compile-time instance")
     if min(conv) < MIN_WARM_CONVERGED:
         raise RuntimeError(f"EQ/border convergence {conv} (cold, warm...) "
                            f"below {MIN_WARM_CONVERGED}/{B}")
@@ -870,7 +911,7 @@ def phase_fleet_eq(nempc, rk, rg, card, pair_ms):
         f"share (cold, warm...) {[round(b, 4) for b in binding]}")
     report_split(nempc, mpc, carry, xs, res, times, launches[-1], pair_ms,
                  card)
-    return x0s, n["general_backward"], n["general_forward"]
+    return x0s, n["general_backward_instance"], n["general_forward"]
 
 
 def check_floor(tag, res, u_floor):

@@ -89,6 +89,24 @@ def _shared(v, unbatched_ndim, name):
             "pass one shared value")
 
 
+def _per_member(params, B: int) -> bool:
+    """The JAX package's ``_baxis_tree`` rule: every tensor of ``params``
+    carries a leading axis of the batch size."""
+    if params is None:
+        return False
+    leaves, stack = [], [params]
+    while stack:
+        v = stack.pop()
+        if isinstance(v, dict):
+            stack.extend(v.values())
+        elif isinstance(v, (list, tuple)):
+            stack.extend(v)
+        else:
+            leaves.append(v)
+    return bool(leaves) and all(
+        getattr(leaf, "ndim", 0) and leaf.shape[0] == B for leaf in leaves)
+
+
 class NMPC:
     """``NMPC(model, objective, constraints, H, DT).next(x0)`` — one MPC step.
 
@@ -262,6 +280,10 @@ class NMPC:
         """
         _shared(p, 1, "p")
         _shared(tvp, 2, "tvp")
+        if _per_member(params, torch.as_tensor(x0s).shape[0]):
+            raise NotImplementedError(
+                "per-member params in next_batch is ROADMAP Queue 1 #6b; "
+                "pass one shared value")
         rt = self._runtime(x0s, p, tvp, params)
         if carry is None:
             carry = self.cold_start(rt["x0"], p=rt["p"], tvp=rt["tvp"],

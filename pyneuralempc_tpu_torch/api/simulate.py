@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..ops.integrators import step_fn
+from .controller import _per_member
 
 
 class ClosedLoopResult(NamedTuple):
@@ -80,24 +81,6 @@ class FleetLoopResult(NamedTuple):
     iterations: Any   # (n_solves, B)
     objective: Any    # (n_solves, B) planned objective at each solve
     theta: Any        # (n_solves, B) constraint violation at each solve
-
-
-def _per_member(params, B: int) -> bool:
-    """The JAX package's ``_baxis_tree`` rule: every tensor of ``params``
-    carries a leading axis of the batch size."""
-    if params is None:
-        return False
-    leaves, stack = [], [params]
-    while stack:
-        v = stack.pop()
-        if isinstance(v, dict):
-            stack.extend(v.values())
-        elif isinstance(v, (list, tuple)):
-            stack.extend(v)
-        else:
-            leaves.append(v)
-    return bool(leaves) and all(
-        getattr(leaf, "ndim", 0) and leaf.shape[0] == B for leaf in leaves)
 
 
 def closed_loop_batch(mpc, plant_step: Callable, x0s, steps: int,

@@ -22,7 +22,10 @@ Replaces ``pyneuralempc_tpu/ops/pallas/riccati_kernel.py``
 * its streamed pair, the backward kernel (:991) and the forward kernel
   (:1024): ``csrc/riccati_general.cu``, one warp per problem, any
   nx <= 32, nu <= 16, R <= 65, r <= nu at run time; every other general
-  shape takes it.
+  shape takes it.  The backward entry launches a compile-time instance of
+  the backward kernel for the (nx, nu, R, r) in
+  ``riccati_kernel._GENERAL_BACKWARD_INSTANCES`` (the EQ/border quadrotor
+  fleet's (12, 4, 2, 1)) and the run-time kernel for every other shape.
 
 Beside them:
 
@@ -38,12 +41,19 @@ Beside them:
   :func:`riccati_sweep_general_streamed_cuda` — check their inputs,
   allocate outputs (and the fused kernel's gains scratch), launch on
   PyTorch's current stream.
+* :func:`riccati_general_backward_runtime_cuda` — the run-time backward
+  kernel at any shape, the instance's shape too, so that ``chip_smoke.py``
+  and the card tests can hold the two designs against each other.  The
+  solver never calls it.
 * :func:`riccati_sweep_general` — the dispatch the solver calls, on
   :func:`~.riccati_kernel.kernel_plan`.  It never drops a CUDA tensor to a
   plain version, and a kernel that fails to launch raises.
 
 ``FUSED_LAUNCHES`` counts the fused kernel's launches, ``BACKWARD_LAUNCHES``
-and ``FORWARD_LAUNCHES`` the pair's.
+and ``FORWARD_LAUNCHES`` the pair's; ``BACKWARD_INSTANCE_LAUNCHES`` counts
+the backward launches that took the compile-time instance and
+``BACKWARD_RUNTIME_LAUNCHES`` those of
+:func:`riccati_general_backward_runtime_cuda`.
 
 Layouts are batch-first and stage-major, so a stage's R right-hand sides
 are contiguous: A (B,H,nx,nx), B (B,H,nx,nu), G and M (B,H,ns,ns)
@@ -63,15 +73,18 @@ import torch
 from . import riccati_kernel as _rk
 from .riccati_kernel import (GENERAL_FUSED_SOURCE, GENERAL_MAX_R,
                              GENERAL_SOURCE, STREAMED_MAX_NU, STREAMED_MAX_NX,
-                             _GENERAL_INSTANCES, _check, _chol_local_retry,
-                             _entry, _general_fits, _stream, backward_bytes,
+                             _GENERAL_BACKWARD_INSTANCES, _GENERAL_INSTANCES,
+                             _check, _chol_local_retry, _entry,
+                             _general_fits, _stream, backward_bytes,
                              backward_flops, forward_bytes, forward_flops,
                              gain_width, kernel_plan, sweep_bytes,
                              sweep_flops)
 
 __all__ = ["riccati_general_backward_plain", "riccati_general_forward_plain",
            "riccati_sweep_general_plain", "riccati_sweep_general_fused_cuda",
-           "riccati_general_backward_cuda", "riccati_general_forward_cuda",
+           "riccati_general_backward_cuda",
+           "riccati_general_backward_runtime_cuda",
+           "riccati_general_forward_cuda",
            "riccati_sweep_general_streamed_cuda", "riccati_sweep_general",
            "general_fused_bytes", "general_fused_flops",
            "general_backward_bytes", "general_backward_flops",
@@ -79,6 +92,8 @@ __all__ = ["riccati_general_backward_plain", "riccati_general_forward_plain",
 
 FUSED_LAUNCHES = 0      # fused general launches
 BACKWARD_LAUNCHES = 0   # general backward launches
+BACKWARD_INSTANCE_LAUNCHES = 0   # of them, the compile-time instance's
+BACKWARD_RUNTIME_LAUNCHES = 0    # riccati_general_backward_runtime_cuda's
 FORWARD_LAUNCHES = 0    # general forward launches
 
 
@@ -247,16 +262,8 @@ def _raise_on(err, what, Bn, H, nx, nu, R, r):
                            f"(B={Bn}, H={H}, nx={nx}, nu={nu}, R={R}, r={r})")
 
 
-def riccati_general_backward_cuda(A, B, G, M, mx, mu, c, delta, delta_c, E,
-                                  F, h):
-    """Launch the general backward kernel of ``csrc/riccati_general.cu`` on
-    CUDA tensors (no fallback).  Returns ``(gains, ok)`` as
-    :func:`riccati_general_backward_plain` does.
-
-    Raises on a tensor that is not float32, not contiguous, not on one CUDA
-    device or of the wrong shape, and on dims outside the kernel's range.
-    """
-    global BACKWARD_LAUNCHES
+def _backward_launch(entry, A, B, G, M, mx, mu, c, delta, delta_c, E, F,
+                     h):
     Bn, H, R, nx, nu, r = _dims(c, E)
     ns = nx + nu
     _check(c.device, {
@@ -267,7 +274,7 @@ def riccati_general_backward_cuda(A, B, G, M, mx, mu, c, delta, delta_c, E,
         "delta_c": (delta_c, (Bn,)), "E": (E, (Bn, H, r, nu)),
         "F": (F, (Bn, H, r, nx)), "h": (h, (Bn, H, R, r))})
     _require(Bn, H, nx, nu, R, r)
-    fn = _entry(GENERAL_SOURCE, "riccati_general_backward_f32", 14, 7)
+    fn = _entry(GENERAL_SOURCE, entry, 14, 7)
     dev = c.device
     gains = torch.empty((Bn, H, gain_width(nx, nu, R, r)),
                         dtype=torch.float32, device=dev)
@@ -277,8 +284,40 @@ def riccati_general_backward_cuda(A, B, G, M, mx, mu, c, delta, delta_c, E,
              delta_c.data_ptr(), E.data_ptr(), F.data_ptr(), h.data_ptr(),
              gains.data_ptr(), ok.data_ptr(), Bn, H, nx, nu, R, r,
              dev.index or 0, _stream(dev))
-    _raise_on(err, "riccati_general_backward", Bn, H, nx, nu, R, r)
+    _raise_on(err, entry, Bn, H, nx, nu, R, r)
+    return gains, ok, (nx, nu, R, r)
+
+
+def riccati_general_backward_cuda(A, B, G, M, mx, mu, c, delta, delta_c, E,
+                                  F, h):
+    """Launch the general backward kernel of ``csrc/riccati_general.cu`` on
+    CUDA tensors (no fallback): the compile-time instance at the shapes of
+    ``_GENERAL_BACKWARD_INSTANCES``, the run-time kernel at any other.
+    Returns ``(gains, ok)`` as :func:`riccati_general_backward_plain` does.
+
+    Raises on a tensor that is not float32, not contiguous, not on one CUDA
+    device or of the wrong shape, and on dims outside the kernel's range.
+    """
+    global BACKWARD_LAUNCHES, BACKWARD_INSTANCE_LAUNCHES
+    gains, ok, shape = _backward_launch(
+        "riccati_general_backward_f32", A, B, G, M, mx, mu, c, delta,
+        delta_c, E, F, h)
     BACKWARD_LAUNCHES += 1
+    if shape in _GENERAL_BACKWARD_INSTANCES:
+        BACKWARD_INSTANCE_LAUNCHES += 1
+    return gains, ok
+
+
+def riccati_general_backward_runtime_cuda(A, B, G, M, mx, mu, c, delta,
+                                          delta_c, E, F, h):
+    """:func:`riccati_general_backward_cuda` with the run-time backward
+    kernel at every shape.  Not on the solver's path: it lets one run hold
+    the instance against the run-time kernel and time both."""
+    global BACKWARD_RUNTIME_LAUNCHES
+    gains, ok, _ = _backward_launch(
+        "riccati_general_backward_runtime_f32", A, B, G, M, mx, mu, c,
+        delta, delta_c, E, F, h)
+    BACKWARD_RUNTIME_LAUNCHES += 1
     return gains, ok
 
 

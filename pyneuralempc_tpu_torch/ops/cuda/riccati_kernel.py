@@ -66,6 +66,11 @@ GENERAL_MAX_R = 65
 # one stage equality row; (R, r) = (1, 0) is the plain sweep's.
 _GENERAL_INSTANCES = frozenset((2, 1, R, r) for R in (1, 2, 3)
                                for r in (0, 1) if (R, r) != (1, 0))
+# (nx, nu, R, r) tuples for which csrc/riccati_general.cu's backward entry
+# launches its compile-time instance (its C entry point's list): the
+# EQ/border quadrotor fleet's stage.  Every other shape takes the run-time
+# backward kernel.
+_GENERAL_BACKWARD_INSTANCES = frozenset({(12, 4, 2, 1)})
 
 LAUNCHES = 0            # fused kernel launches by riccati_sweep_cuda
 BACKWARD_LAUNCHES = 0   # streamed backward launches by riccati_backward_cuda
@@ -93,6 +98,14 @@ def _streamed_fits(nx: int, nu: int) -> bool:
 def _general_fits(nx: int, nu: int, R: int, r: int) -> bool:
     return (_streamed_fits(nx, nu) and 1 <= R <= GENERAL_MAX_R
             and 0 <= r <= nu)
+
+
+def general_backward_kernel(nx: int, nu: int, R: int, r: int) -> str:
+    """The kernel that csrc/riccati_general.cu's backward entry launches at
+    this shape: the compile-time instance or the run-time kernel."""
+    if (nx, nu, R, r) in _GENERAL_BACKWARD_INSTANCES:
+        return "riccati_general_backward_fixed"
+    return "riccati_general_backward_kernel"
 
 
 def kernel_plan(H: int, nx: int, nu: int, device, R: int = 1,

@@ -4,6 +4,8 @@ import pytest
 
 from pyneuralempc_tpu_torch.ops.cuda import build
 
+import _torch_threads  # noqa: F401  (one torch thread)
+
 
 def test_library_path_follows_source_and_flags(tmp_path):
     src = tmp_path / "k.cu"

@@ -15,6 +15,8 @@ import pyneuralempc_tpu_torch as T
 from pyneuralempc_tpu.core.problem import expand_constraint as j_expand
 from pyneuralempc_tpu_torch.core.problem import expand_constraint as t_expand
 
+import _torch_threads  # noqa: F401  (one torch thread)
+
 ATOL = 1e-6
 H = 5
 INF = float("inf")

@@ -20,6 +20,7 @@ from pyneuralempc_tpu.ops.integrators import step_fn
 
 from _torch_lv import (jax_mpc, jax_params, lv_true_jax, torch_mpc,
                        x0_batch)
+import _torch_threads  # noqa: F401  (one torch thread)
 
 H = 20
 H_NEXT = 10
@@ -125,3 +126,45 @@ def test_input_checks():
     with pytest.raises(ValueError, match="init_x"):
         tm.next(torch.zeros(2), init_x=torch.zeros(3, 2),
                 init_u=torch.zeros(3, 1))
+
+
+def _decay_models(H_=10):
+    """A raw DynamicsModel ẋ = −params·x + u at (x_dim, u_dim) = (2, 1) in
+    both packages, tracking x = 0.5 with a small control cost."""
+    def jf(x, u, p, tvp, params):
+        return -params * x + u
+
+    def tf(x, u, p, tvp, params):
+        return -params * x + u
+
+    box = dict(states_constraint=[[-2.0, 2.0]] * 2,
+               control_constraint=[[-1.0, 1.0]])
+    jm = J.NMPC(J.DynamicsModel(fn=jf, dims=J.Dims(2, 1, 0, 0)),
+                lambda x, u: jnp.sum((x - 0.5) ** 2) + 0.1 * jnp.sum(u * u),
+                [J.DomainConstraint(**box)], H=H_, DT=0.1, integrator="rk4")
+    tm = T.NMPC(T.DynamicsModel(fn=tf, dims=T.Dims(2, 1, 0, 0)),
+                lambda x, u: torch.sum((x - 0.5) ** 2)
+                + 0.1 * torch.sum(u * u),
+                [T.DomainConstraint(**box)], H=H_, DT=0.1, integrator="rk4",
+                device="cpu")
+    return jm, tm
+
+
+def test_next_batch_refuses_per_member_params():
+    """params whose every tensor leads with the batch size are per member
+    in the JAX package (its ``_baxis_tree`` rule); the port refuses them,
+    naming ROADMAP Queue 1 #6b, instead of solving them as shared.  Shared
+    scalar params still solve and match the JAX package."""
+    jm, tm = _decay_models()
+    xs = np.full((2, 2), 1.0, np.float32)
+    _, jper = jm.next_batch(jnp.asarray(xs),
+                            params=jnp.asarray([0.5, 2.0], jnp.float32))
+    u = np.asarray(jper.u)
+    assert np.abs(u[0] - u[1]).max() > 1e-2    # equal starts, other plans
+    with pytest.raises(NotImplementedError, match="#6b"):
+        tm.next_batch(torch.as_tensor(xs),
+                      params=torch.tensor([0.5, 2.0]))
+    _, jres = jm.next_batch(jnp.asarray(xs), params=jnp.float32(0.5))
+    _, tres = tm.next_batch(torch.as_tensor(xs), params=torch.tensor(0.5))
+    _compare(jres, tres)
+    assert bool(tres.converged.all())

@@ -11,6 +11,7 @@ import pyneuralempc_tpu_torch as T
 from pyneuralempc_tpu_torch.core.problem import Dims
 
 from _torch_lv import glorot_params, jax_mpc, jax_params, torch_mpc
+import _torch_threads  # noqa: F401  (one torch thread)
 
 RTOL, ATOL = 1e-5, 1e-6
 H = 6

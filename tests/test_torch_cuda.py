@@ -1,6 +1,7 @@
 """Tests of the port that need an NVIDIA card: the CUDA sweeps (the fused
-kernel, the streamed backward/forward pair, the general pair and the fused
-general kernel) against their plain versions and each other, the wrappers'
+kernel, the streamed backward/forward pair, the general pair, with the
+general backward kernel's compile-time instance, and the fused general
+kernel) against their plain versions and each other, the wrappers'
 checks and dispatch, and the LV, quadrotor, EQ/border quadrotor and
 budgeted LV paths on the card against the CPU.  They skip without a CUDA
 device.  This file imports no JAX, so on the card it runs without the JAX
@@ -17,6 +18,8 @@ import pyneuralempc_tpu_torch as nempc
 from pyneuralempc_tpu_torch.ops.cuda import riccati_general as rg
 from pyneuralempc_tpu_torch.ops.cuda import riccati_kernel as rk
 from pyneuralempc_tpu_torch.ops.cuda.sweep_cases import general_sweep_case
+
+import _torch_threads  # noqa: F401  (one torch thread)
 
 pytestmark = pytest.mark.cuda
 
@@ -250,6 +253,44 @@ def test_general_pair_matches_plain_on_card(kind, B, H, nx, nu, R, r):
     for o, q in zip(pair[:4], ref[:4]):
         if q.numel():
             assert _scaled_err(o, q, ref[4]) <= STREAMED_ATOL
+
+
+@pytest.mark.parametrize("kind", ["delta0", "delta_per_problem",
+                                  "negative_curvature", "local_bump"])
+def test_general_backward_instance_matches_plain_and_runtime(kind):
+    """At the EQ/border fleet's stage (12, 4, 2, 1) the backward entry
+    launches the compile-time instance: its gains and ok flags against
+    riccati_general_backward_plain and against the run-time kernel on the
+    same inputs."""
+    _card()
+    args = _general(kind, 257, 50, 12, 4, 2, 1, seed=11)[:12]
+    n0 = (rg.BACKWARD_LAUNCHES, rg.BACKWARD_INSTANCE_LAUNCHES,
+          rg.BACKWARD_RUNTIME_LAUNCHES)
+    gains, ok = rg.riccati_general_backward_cuda(*args)
+    g_rt, ok_rt = rg.riccati_general_backward_runtime_cuda(*args)
+    torch.cuda.synchronize()
+    assert (rg.BACKWARD_LAUNCHES, rg.BACKWARD_INSTANCE_LAUNCHES,
+            rg.BACKWARD_RUNTIME_LAUNCHES) == (n0[0] + 1, n0[1] + 1,
+                                              n0[2] + 1)
+    g_ref, ok_ref = rg.riccati_general_backward_plain(*args)
+    assert torch.equal(ok, ok_ref) and torch.equal(ok_rt, ok_ref)
+    assert _scaled_err(gains, g_ref, ok_ref) <= STREAMED_ATOL
+    assert _scaled_err(gains, g_rt, ok_ref) <= STREAMED_ATOL
+
+
+def test_general_backward_instance_reads_upper_triangles_only():
+    """NaN in the strict lower triangles of G and M changes nothing: the
+    instance reads their upper triangles in place."""
+    _card()
+    args = _general("delta_per_problem", 65, 20, 12, 4, 2, 1)[:12]
+    gains, ok = rg.riccati_general_backward_cuda(*args)
+    lower = torch.ones(16, 16, dtype=torch.bool, device="cuda").tril(-1)
+    for i in (2, 3):
+        args[i] = args[i].masked_fill(lower, float("nan"))
+    g_nan, ok_nan = rg.riccati_general_backward_cuda(*args)
+    torch.cuda.synchronize()
+    assert bool(ok.all()) and torch.equal(ok_nan, ok)
+    assert torch.equal(g_nan, gains)
 
 
 @pytest.mark.parametrize("kind", ["delta0", "delta_per_problem",

@@ -19,6 +19,8 @@ import torch
 import pyneuralempc_tpu as J
 import pyneuralempc_tpu_torch as T
 
+import _torch_threads  # noqa: F401  (one torch thread)
+
 DU_TOL = 1e-4
 INF = float("inf")
 LV_X0S = np.asarray([[0.3, 0.2], [0.25, 0.1], [0.35, 0.3]], np.float32)

@@ -7,6 +7,8 @@ import pytest
 
 from pyneuralempc_tpu_torch.examples import fleet, lotka_volterra
 
+import _torch_threads  # noqa: F401  (one torch thread)
+
 
 def test_lotka_volterra_main(capsys):
     lotka_volterra.main(["--cpu", "--steps", "4"])

@@ -18,6 +18,8 @@ import pyneuralempc_tpu as J
 from pyneuralempc_tpu_torch.examples import fleet_eq as FE
 from pyneuralempc_tpu_torch.examples import quadrotor as TQ
 
+import _torch_threads  # noqa: F401  (one torch thread)
+
 ROOT = Path(__file__).resolve().parents[1]
 H, DT, B = 50, 0.02, 4
 DU_TOL = 1e-4

@@ -6,6 +6,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import _torch_threads  # noqa: F401  (one torch thread)
+
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "pyneuralempc_tpu")
 
@@ -83,3 +85,15 @@ def test_chip_smoke_refuses_without_a_card():
                          timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_every_port_test_file_sets_one_torch_thread():
+    """Each tests/test_torch_*.py imports tests/_torch_threads.py, which
+    sets one torch intra-op thread, so parallel test workers do not
+    oversubscribe the cores."""
+    files = sorted((ROOT / "tests").glob("test_torch_*.py"))
+    assert len(files) > 10
+    for f in files:
+        assert "_torch_threads" in _imports(f), f
+    import torch
+    assert torch.get_num_threads() == 1

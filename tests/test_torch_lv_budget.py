@@ -36,6 +36,7 @@ from pyneuralempc_tpu_torch.examples.lotka_volterra import (BENCH_BOX,
 
 from _torch_lv import (BENCH_CFG, BOX, REG, jax_params, lv_true_jax,
                        x0_batch)
+import _torch_threads  # noqa: F401  (one torch thread)
 
 B = 4
 DU_TOL = 1e-4

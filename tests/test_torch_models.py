@@ -15,6 +15,7 @@ from pyneuralempc_tpu_torch.ops.rollout import defects as t_defects
 from pyneuralempc_tpu_torch.ops.rollout import simulate as t_simulate
 
 from _torch_lv import glorot_params, jax_params, lv_true_jax, lv_true_torch
+import _torch_threads  # noqa: F401  (one torch thread)
 
 RTOL, ATOL = 1e-5, 1e-6
 

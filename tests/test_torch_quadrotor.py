@@ -23,6 +23,8 @@ import torch
 import pyneuralempc_tpu as J
 from pyneuralempc_tpu_torch.examples import quadrotor as TQ
 
+import _torch_threads  # noqa: F401  (one torch thread)
+
 ROOT = Path(__file__).resolve().parents[1]
 H, DT, B = 50, 0.02, 8
 F_TOL = 1e-5

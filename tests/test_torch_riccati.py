@@ -15,6 +15,7 @@ from pyneuralempc_tpu_torch.solve.riccati import (eligible,
                                                   make_riccati_direction)
 
 from _torch_lv import glorot_params, jax_mpc, jax_params, torch_mpc
+import _torch_threads  # noqa: F401  (one torch thread)
 
 H = 8
 BLOCK_ATOL = 1e-5

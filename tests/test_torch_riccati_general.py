@@ -8,6 +8,9 @@ against the JAX package's ``make_riccati_direction``.  The CUDA kernels
 themselves are held against the plain versions on a card by
 tests/test_torch_cuda.py and chip_smoke.py."""
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +28,8 @@ from pyneuralempc_tpu_torch.ops.cuda import riccati_kernel as rk
 from pyneuralempc_tpu_torch.ops.cuda.sweep_cases import (general_sweep_case,
                                                          sweep_case)
 from pyneuralempc_tpu_torch.solve.riccati import make_riccati_direction
+
+import _torch_threads  # noqa: F401  (one torch thread)
 
 ATOL = 2e-5     # tests/test_pallas_general.py's own tolerance (f32)
 KINDS = ["delta0", "delta_per_problem", "negative_curvature", "local_bump"]
@@ -225,14 +230,53 @@ def test_dispatch_and_refusals():
     assert rk.PLAIN_CALLS == n0 + 1
     for a, b in zip(out, rg.riccati_sweep_general_plain(*args)):
         assert torch.equal(a, b)
-    launches = (rg.BACKWARD_LAUNCHES, rg.FORWARD_LAUNCHES)
+    def counts():
+        return (rg.BACKWARD_LAUNCHES, rg.BACKWARD_INSTANCE_LAUNCHES,
+                rg.BACKWARD_RUNTIME_LAUNCHES, rg.FORWARD_LAUNCHES)
+
+    launches = counts()
     with pytest.raises(ValueError, match="CUDA device"):
         rg.riccati_sweep_general_streamed_cuda(*args)
+    with pytest.raises(ValueError, match="CUDA device"):
+        rg.riccati_general_backward_runtime_cuda(*args[:12])
     gains, _ = rg.riccati_general_backward_plain(*args[:12])
     with pytest.raises(ValueError, match="CUDA device"):
         rg.riccati_general_forward_cuda(args[0], args[1], args[6], args[12],
                                         gains)
-    assert (rg.BACKWARD_LAUNCHES, rg.FORWARD_LAUNCHES) == launches
+    assert counts() == launches
+
+
+SOURCE = (Path(__file__).resolve().parents[1] / "pyneuralempc_tpu_torch"
+          / "csrc" / rk.GENERAL_SOURCE)
+
+
+def test_backward_instances_match_the_c_entry_point():
+    """The backward entry's list of compile-time instances is exactly
+    _GENERAL_BACKWARD_INSTANCES: the EQ/border quadrotor fleet's stage."""
+    cases = re.findall(r"^\s*RICCATI_GENERAL_BACKWARD_CASE\((\d+), (\d+), "
+                       r"(\d+), (\d+)\)\s*$", SOURCE.read_text(), re.M)
+    assert {tuple(map(int, t)) for t in cases} == \
+        rk._GENERAL_BACKWARD_INSTANCES
+    assert len(cases) == len(rk._GENERAL_BACKWARD_INSTANCES)
+    assert rk._GENERAL_BACKWARD_INSTANCES == {(12, 4, 2, 1)}
+
+
+@pytest.mark.parametrize("shape", [(12, 4, 2, 0), (12, 4, 1, 4),
+                                   (12, 4, 1, 0), (12, 4, 3, 1),
+                                   (4, 2, 2, 1), (2, 1, 2, 0),
+                                   (32, 16, 65, 2)])
+def test_backward_dispatch_rule(shape):
+    """The instance at (12, 4, 2, 1), the run-time kernel at any other
+    shape; both stay on the streamed general path."""
+    assert (rk.general_backward_kernel(12, 4, 2, 1)
+            == "riccati_general_backward_fixed")
+    assert rk.kernel_plan(50, 12, 4, "cuda", R=2, r=1)["path"] == \
+        "cuda_streamed_general"
+    assert (rk.general_backward_kernel(*shape)
+            == "riccati_general_backward_kernel")
+    # the names the profiler matches on do not contain one another
+    assert ("riccati_general_backward_kernel"
+            not in "riccati_general_backward_fixed")
 
 
 # ---- one whole general-path Newton direction against the JAX package ----

@@ -21,6 +21,8 @@ from pyneuralempc_tpu_torch.ops.cuda import riccati_general as rg
 from pyneuralempc_tpu_torch.ops.cuda import riccati_kernel as rk
 from pyneuralempc_tpu_torch.ops.cuda.sweep_cases import general_sweep_case
 
+import _torch_threads  # noqa: F401  (one torch thread)
+
 ATOL = 2e-5     # tests/test_pallas_general.py's own tolerance (f32)
 SOURCE = (Path(rk.__file__).resolve().parents[2] / "csrc"
           / rk.GENERAL_FUSED_SOURCE)

@@ -19,6 +19,8 @@ from pyneuralempc_tpu.solve.riccati import riccati_sweep_ref
 from pyneuralempc_tpu_torch.ops.cuda import riccati_kernel as rk
 from pyneuralempc_tpu_torch.ops.cuda.sweep_cases import sweep_case, sweep_data
 
+import _torch_threads  # noqa: F401  (one torch thread)
+
 ATOL = 2e-5     # the JAX kernel test's own tolerance (f32)
 # one horizon for every case: interpret mode compiles once per shape
 B4H4 = dict(B=4, H=4)
@@ -188,7 +190,7 @@ def test_sweep_cases(kind):
 SPLIT_TOL = 2e-4    # tests/test_pallas_kernel.py's quadrotor-dims tolerance
 
 
-@pytest.mark.parametrize("nx,nu", [(12, 4), (4, 2)])
+@pytest.mark.parametrize("nx,nu", [(12, 4), (4, 2), (12, 10), (32, 16)])
 @pytest.mark.parametrize("kind", ["delta_per_problem", "negative_curvature",
                                   "local_bump"])
 def test_plain_halves_match_reference(kind, nx, nu):

@@ -24,6 +24,8 @@ import pyneuralempc_tpu_torch as T
 from pyneuralempc_tpu.api import simulate as jsim
 from pyneuralempc_tpu_torch.api import simulate as tsim
 
+import _torch_threads  # noqa: F401  (one torch thread)
+
 TOL = 1e-4
 H = 8
 # binds: the unconstrained plans drive u to its lower bound -1 (Σu = -8)
