@@ -8,8 +8,9 @@ Phases (each raises, and the script exits non-zero, on failure):
 1. Device: the card's name and power limit, torch and CUDA versions; TF32
    matmuls off.  No CUDA device -> exit 1 with no result.
 2. Build: nvcc compiles every kernel of the port from the checkout's
-   sources (pyneuralempc_tpu_torch/csrc/*.cu), one nvcc for each source,
-   all started together; ptxas registers and spills are logged.
+   sources (pyneuralempc_tpu_torch/csrc/*.cu and the header two of them
+   share, riccati_backward_fixed.cuh), one nvcc for each source, all
+   started together; ptxas registers and spills are logged.
 3. Fused kernel vs plain: the fused sweep (csrc/riccati_sweep.cu) against
    its plain PyTorch version at the LV path's shapes (B=4096, H=20, nx=2,
    nu=1) on four seeded cases, with its median device time (the kernel's
@@ -21,7 +22,13 @@ Phases (each raises, and the script exits non-zero, on failure):
    nx=12, nu=4) on the same four cases: the backward kernel's gains and ok
    flags against riccati_backward_plain, the forward kernel against
    riccati_forward_plain fed the same gains, the pair against the plain
-   sweep; then the pair against the fused kernel at (2, 1).  Times as in 3.
+   sweep; then the pair against the fused kernel at (2, 1).  At this shape
+   the backward entry launches its compile-time instance
+   (riccati_general_backward_fixed<12, 4, 1, 0>, the general sweep's
+   template from csrc/riccati_backward_fixed.cuh); its gains and ok flags
+   are also held against the run-time backward kernel
+   (riccati_backward_runtime_cuda) on the same inputs, and both designs
+   are timed.  Times as in 3.
 3c. General pair vs plain: the general backward and forward kernels
    (csrc/riccati_general.cu) at the EQ/border quadrotor path's shapes
    (B=4096, H=50, nx=12, nu=4, R=2 right-hand sides, r=1 stage equality
@@ -54,7 +61,8 @@ Phases (each raises, and the script exits non-zero, on failure):
    with a terminal term, box bounds) on B=4096 starts, bench.py's protocol:
    one cold solve, one untimed warm re-plan, then timed warm re-plans, each
    from the plan's first state.  Counters as in 4: the streamed pair must
-   have launched, the fused kernel and the plain sweep must not have.
+   have launched, every backward launch through the compile-time instance,
+   and the fused kernel and the plain sweep must not have.
 4c. EQ/border quadrotor path: the quadrotor with a zero-net-yaw-torque
    stage equality row and a horizon thrust-impulse budget row
    (pyneuralempc_tpu_torch/examples/fleet_eq.py) on B=4096 starts, 4b's
@@ -161,6 +169,7 @@ def f_true(x, u):
 
 def reset_counters(rk, rg):
     rk.LAUNCHES = rk.BACKWARD_LAUNCHES = rk.FORWARD_LAUNCHES = 0
+    rk.BACKWARD_INSTANCE_LAUNCHES = rk.BACKWARD_RUNTIME_LAUNCHES = 0
     rk.PLAIN_CALLS = 0
     rg.BACKWARD_LAUNCHES = rg.FORWARD_LAUNCHES = rg.FUSED_LAUNCHES = 0
     rg.BACKWARD_INSTANCE_LAUNCHES = rg.BACKWARD_RUNTIME_LAUNCHES = 0
@@ -168,6 +177,8 @@ def reset_counters(rk, rg):
 
 def counters(rk, rg):
     return {"fused": rk.LAUNCHES, "backward": rk.BACKWARD_LAUNCHES,
+            "backward_instance": rk.BACKWARD_INSTANCE_LAUNCHES,
+            "backward_runtime": rk.BACKWARD_RUNTIME_LAUNCHES,
             "forward": rk.FORWARD_LAUNCHES, "plain": rk.PLAIN_CALLS,
             "general_backward": rg.BACKWARD_LAUNCHES,
             "general_backward_instance": rg.BACKWARD_INSTANCE_LAUNCHES,
@@ -244,7 +255,8 @@ def cuda_median_ms(fn, runs=25, warmup=3):
 
 
 def kernel_device_ms(fn, kernel_name, runs=25):
-    """Median device time of the kernels named ``kernel_name`` over ``runs``
+    """Median device time of the kernels whose names hold ``kernel_name``
+    (spaces ignored, so a template's arguments can be matched) over ``runs``
     calls of ``fn``, read from a torch.profiler trace.  When the trace holds
     no such kernel, the median of ``runs`` back-to-back calls between one
     CUDA event pair (host work included where the host is the slower)."""
@@ -256,9 +268,10 @@ def kernel_device_ms(fn, kernel_name, runs=25):
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
+    want = kernel_name.replace(" ", "")
     times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA
-             and kernel_name in e.name]
+             and want in e.name.replace(" ", "")]
     if times:
         return statistics.median(times), f"profiler, {len(times)} kernels"
     start = torch.cuda.Event(enable_timing=True)
@@ -333,9 +346,12 @@ def phase_kernels(rk):
 
 def phase_streamed(rk):
     """The streamed pair against its plain halves at the quadrotor path's
-    shapes, on the four cases; then against the fused kernel at (2, 1)."""
+    shapes, on the four cases, the backward instance against the run-time
+    backward kernel too; then the pair against the fused kernel at (2,
+    1)."""
     shape = dict(Bn=B, Hn=QH, nx=QNX, nu=QNU)
     worst = {"backward": [0.0, 0.0], "forward": [0.0, 0.0]}
+    worst_rt = 0.0
 
     def gate(kind, what, abs_err, scaled):
         log(f"streamed {what} vs plain [{kind}]: max |diff| {abs_err:.3e}, "
@@ -355,6 +371,14 @@ def phase_streamed(rk):
         gate(kind, "backward (gains)", *e[:2])
         worst["backward"] = [max(a, b) for a, b in zip(worst["backward"],
                                                        e[:2])]
+        g_rt, ok_rt = rk.riccati_backward_runtime_cuda(*args)
+        torch.cuda.synchronize()
+        check_ok(kind, ok_rt, ok)
+        e = errors([gains], [g_rt], ok_ref)
+        gate(kind, "backward instance vs the run-time kernel (gains)",
+             *e[:2])
+        worst_rt = max(worst_rt, e[1])
+        del g_rt
         out = rk.riccati_forward_cuda(A, Bm, c, gains)
         torch.cuda.synchronize()
         same = rk.riccati_forward_plain(A, Bm, c, gains)
@@ -390,11 +414,29 @@ def phase_streamed(rk):
     gains, _ = rk.riccati_backward_cuda(*args)
     dims = (B, QH, QNX, QNU)
     label = f"B={B}, H={QH}, nx={QNX}, nu={QNU}"
+    instance = rk.backward_kernel(QNX, QNU)
+    if not instance.startswith("riccati_general_backward_fixed<"):
+        raise RuntimeError(f"the quadrotor stage takes {instance}, not the "
+                           "compile-time instance")
     bwd = kernel_entry(
         "riccati_backward", "riccati_streamed.cu", f"{PALLAS}:468",
-        lambda: rk.riccati_backward_cuda(*args), "riccati_backward_kernel",
+        lambda: rk.riccati_backward_cuda(*args), instance,
         lambda: rk.riccati_backward_plain(*args), rk.backward_bytes(*dims),
         rk.backward_flops(*dims), label, plain_runs=5)
+    # the other CUDA design of the same function, timed in the same run
+    rt_ms, rt_how = kernel_device_ms(
+        lambda: rk.riccati_backward_runtime_cuda(*args),
+        "riccati_backward_kernel")
+    rt_call_ms = cuda_median_ms(
+        lambda: rk.riccati_backward_runtime_cuda(*args))
+    log(f"riccati_backward: instance {bwd['ms'] * 1e3:.2f} us, run-time "
+        f"kernel {rt_ms * 1e3:.2f} us ({rt_how}; {rt_call_ms * 1e3:.1f} us "
+        f"per wrapper call) of device time at {label}: the instance takes "
+        f"{bwd['ms'] / rt_ms:.2%} of the run-time kernel's time; instance "
+        f"vs run-time gains max scaled diff {worst_rt:.3e}")
+    bwd.update(design=f"compile-time instance {instance}",
+               runtime_ms=rt_ms, runtime_call_ms=rt_call_ms,
+               max_scaled_err_vs_runtime=worst_rt)
     fwd = kernel_entry(
         "riccati_forward", "riccati_streamed.cu", f"{PALLAS}:488",
         lambda: rk.riccati_forward_cuda(A, Bm, c, gains),
@@ -511,6 +553,8 @@ def phase_general(rk, rg):
     if instance != "riccati_general_backward_fixed":
         raise RuntimeError(f"the EQ/border stage takes {instance}, not the "
                            "compile-time instance")
+    # the template's arguments tell this instance from the quadrotor's
+    instance += f"<{QNX}, {QNU}, {QR}, {QEQ}>"
     bwd = kernel_entry(
         "riccati_general_backward", "riccati_general.cu", f"{PALLAS}:991",
         lambda: rg.riccati_general_backward_cuda(*args[:12]), instance,
@@ -529,7 +573,7 @@ def phase_general(rk, rg):
         f"{label}: the instance takes {bwd['ms'] / rt_ms:.2%} of the "
         f"run-time kernel's time; instance vs run-time gains max scaled "
         f"diff {worst_rt:.3e}")
-    bwd.update(design="compile-time instance <12, 4, 2, 1>",
+    bwd.update(design=f"compile-time instance {instance}",
                runtime_ms=rt_ms, runtime_call_ms=rt_call_ms,
                max_scaled_err_vs_runtime=worst_rt)
     fwd = kernel_entry(
@@ -810,14 +854,17 @@ def phase_quadrotor(nempc, rk, rg, card, pair_ms):
         log(f"warm {step}: {times[-1] * 1e3:.1f} ms  sweeps "
             f"{launches[-1]}  " + telemetry("warm", res))
     n = counters(rk, rg)
-    log(f"quadrotor path: streamed backward launches {n['backward']}, "
-        f"forward {n['forward']}, fused kernel {n['fused']}, general "
+    log(f"quadrotor path: streamed backward launches {n['backward']} (the "
+        f"compile-time instance {n['backward_instance']}), forward "
+        f"{n['forward']}; fused kernel {n['fused']}, general "
         f"{n['general_backward']} / {n['general_forward']}, plain calls "
         f"{n['plain']}")
-    if (not only_launched(n, "backward", "forward")
-            or n["forward"] != n["backward"]):
+    if (not only_launched(n, "backward", "backward_instance", "forward")
+            or n["forward"] != n["backward"]
+            or n["backward_instance"] != n["backward"]):
         raise RuntimeError("the quadrotor path did not go through the "
-                           "streamed pair alone")
+                           "streamed pair alone, with the backward kernel's "
+                           "compile-time instance")
     if min(conv) < MIN_WARM_CONVERGED:
         raise RuntimeError(f"quadrotor convergence {conv} (cold, warm...) "
                            f"below {MIN_WARM_CONVERGED}/{B}")
@@ -825,7 +872,7 @@ def phase_quadrotor(nempc, rk, rg, card, pair_ms):
     log(f"converged: cold, then every warm step {conv}")
     report_split(nempc, mpc, carry, xs, res, times, launches[-1], pair_ms,
                  card)
-    return x0s, n["backward"], n["forward"]
+    return x0s, n["backward_instance"], n["forward"]
 
 
 def check_fleet_eq(tag, res, budget, yaw_residual):

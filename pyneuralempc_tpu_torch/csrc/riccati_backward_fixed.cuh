@@ -1,0 +1,616 @@
+// The compile-time streamed Riccati backward kernel for Hopper (sm_90a),
+// shared by csrc/riccati_streamed.cu (the plain sweep: R = 1 right-hand
+// side, r = 0 equality rows) and csrc/riccati_general.cu (R right-hand
+// sides, r stage equality rows).  Each source instantiates it for the
+// shapes listed at its C backward entry and keeps its own run-time kernel
+// for every other shape.
+//
+// riccati_general_backward_fixed<NX, NU, R, RE> computes what
+// riccati_general.cu's run-time riccati_general_backward_kernel computes,
+// for one (nx, nu, R, r) fixed at compile time; at R = 1, RE = 0 that is
+// riccati_streamed.cu's riccati_backward_kernel (the same inputs, mx and c
+// with one right-hand side, and the same gains layout [K | k | Pbar | pbar |
+// Mxu]; E, F, h and dc are then not read).  It replaces
+// pyneuralempc_tpu/ops/pallas/riccati_kernel.py's streamed backward calls,
+// :468 (`_backward_kernel` :191-302) at (12, 4, 1, 0) and :991
+// (`_bwd_general_body` :610-787) at (12, 4, 2, 1), with the local-delta
+// Cholesky retry of `_chol_solve_retry` :158-188.
+//
+// What bounds it on an H100: bytes, ~183 us at (12, 4, 1, 0) and ~202 us at
+// (12, 4, 2, 1) for B=4096, H=50 (the sources' own notes count them).
+// One warp per problem and the gains layout of riccati_general.cu.  The
+// design against the run-time kernels' ~20 dependent phases a stage:
+//  * every lane's entries of every product are fixed at compile time and
+//    the loops unroll; a lane keeps the operands it reuses (a row of Pbar,
+//    a column of B and of Mxu, a column of A, its substitution column) in
+//    registers across the products of a stage;
+//  * G and M stay upper triangles, packed row by row (ns(ns+1)/2 floats
+//    each), read in place with delta added on M's diagonal where it is
+//    read; there is no symmetrising pass;
+//  * the stage's right operands sit side by side, X = [A | c^T | B]
+//    (nx x (nx + R + nu)), so one product gives Y = Pbar X = [PA | Pc_p |
+//    PB + Mxu] and a second Z = B^T Y + Mxu^T X = [Qux | qu^T | Quu - Muu -
+//    Guu, before symmetrising]; the substitutions give W = [K | k^T |
+//    Quu^-1 E^T] and the Schur step Nu = [Knu | knu^T]; the last product
+//    is P_new and p together, X^T Y + Z^T W + F^T Nu (+ G);
+//  * Quu's factor and its retry (and S's) run on every lane from
+//    registers, so no lane waits on lane 0: five __syncwarp() a stage
+//    (four at r = 0);
+//  * the rows of X, Y, Z (and W, Nu) are padded to whole float4s and each
+//    lane's output columns of Y, Z and [P_new | p^T] are runs of float4
+//    columns, read with 16-byte shared-memory loads: about half the load
+//    instructions of one column a lane, which measured 17.6% and 17.8%
+//    faster at (12, 4, 1, 0) and (12, 4, 2, 1) on an H100 (509.56 against
+//    618.52 us and 600.30 against 730.09 us, one chip_smoke.py run each in
+//    one call), the sums unchanged term for term;
+//  * a stage is loaded with 4-byte cp.async copies (4 bytes because h's
+//    rows are 8-byte aligned only and the triangles' rows start anywhere;
+//    each lane issues ~17 a stage, little next to its stage math) into one
+//    of two stage buffers in turn, and waited on at once.  Keeping stage
+//    t-1's copies in flight during stage t measured slower on an H100
+//    (861.78 against 735.25 us at (12, 4, 2, 1) in one chip_smoke.py run):
+//    the 32 resident warps an SM already hide the loads' latency, and the
+//    in-flight form spilled 42 more bytes a thread.
+// Shared memory a warp (FixedLayout::kFloats): at (12, 4, 2, 1) two
+// 564-float stage buffers (562 floats used) and 580 floats of scratch,
+// 6,832 bytes; at (12, 4, 1, 0) two 528-float stage buffers and 552 floats
+// of scratch, 6,432 bytes.  Either way 8 blocks of 4 warps (B=4096 in one
+// wave on 132 SMs) fit in 228 KB with the 64-register cap.  ptxas: 64
+// registers and 96 bytes of spill stores and loads a thread at (12, 4, 2,
+// 1), 92 at (12, 4, 1, 0).
+
+#pragma once
+
+#include <cuda_pipeline.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+// Problems (warps) a block: what the plain run-time kernels always take and
+// the most the general ones take.
+constexpr int kMaxWarps = 4;
+constexpr int kMinBlocks = 8;        // resident blocks an SM (backward)
+constexpr int kDefaultSmem = 48 * 1024;
+
+// _LOCAL_DELTAS = (0, 1e-6, 1e-4): nudge-scale bumps on the diagonal.
+__device__ __forceinline__ float local_delta(int level) {
+  return level == 0 ? 0.0f : (level == 1 ? 1e-6f : 1e-4f);
+}
+
+template <int N>
+__host__ __device__ constexpr int tri(int i, int j) {  // i <= j
+  return i * N - (i * (i - 1)) / 2 + (j - i);
+}
+
+template <int N>
+__device__ __forceinline__ float sym_at(const float* t, int i, int j) {
+  return i <= j ? t[tri<N>(i, j)] : t[tri<N>(j, i)];
+}
+
+// One 16-byte shared-memory load or store of four floats (16-byte aligned).
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__host__ __device__ constexpr int up4(int n) { return (n + 3) & ~3; }
+
+template <int NX, int NU, int R, int RE>
+struct FixedLayout {
+  static constexpr int NS = NX + NU, NT = NS * (NS + 1) / 2;
+  static constexpr int NC = NX + R;        // value columns: P's and the p's
+  static constexpr int NW = NC + NU;       // X, Y, Z columns
+  static constexpr int NQ = NC + RE;       // substitution columns
+  // Row strides in whole float4s: X, Y and Z rows NWP floats apart, W rows
+  // NQP, Nu rows NCP; the pad columns only ever feed pad columns.
+  static constexpr int NWP = up4(NW), NQP = up4(NQ), NCP = up4(NC);
+  static constexpr int PS = NX + 1;        // P_new row stride (no conflicts)
+  // one stage buffer
+  static constexpr int oX = 0, oG = oX + NX * NWP, oM = oG + NT;
+  static constexpr int omx = oM + NT, omu = omx + R * NX;
+  static constexpr int oE = omu + R * NU, oF = oE + RE * NU;
+  static constexpr int oh = oF + RE * NX, kStage = oh + R * RE;
+  static constexpr int kStagePad = up4(kStage);
+  // scratch after the two stage buffers, each array 16-byte aligned
+  static constexpr int oPn = 2 * kStagePad, op = oPn + up4(NX * PS);
+  static constexpr int oY = op + up4(R * NX), oZ = oY + NX * NWP;
+  static constexpr int oW = oZ + NU * NWP, oNu = oW + NU * NQP;
+  static constexpr int kFloats = oNu + RE * NCP;
+  // gains
+  static constexpr int gK = 0, gk = NX * NU, gPb = gk + R * NU;
+  static constexpr int gpb = gPb + NX * NX, gMxu = gpb + R * NX;
+  static constexpr int gKnu = gMxu + NX * NU, gknu = gKnu + RE * NX;
+  static constexpr int NG = gknu + R * RE;
+  // lane maps (fixed at compile time), in float4 columns
+  static constexpr int YC = NWP / 4;       // of a Y (and a Z) row
+  static constexpr int Y0 = (YC + 1) / 2;  // of them, a row's first lane's
+  static constexpr int LZ = 32 / NU;       // lanes per Z row, one each
+  static constexpr int PC = NCP / 4;       // of a [P_new | p^T] row
+  static constexpr int P0 = (PC + 1) / 2;  // of them, a row's first lane's
+  static_assert(2 * NX <= 32 && NQ <= 32 && 32 % NU == 0 && RE <= NU &&
+                    YC <= LZ,
+                "lane maps need 2 nx <= 32, nx + R + r <= 32, nu | 32 and "
+                "nx + R + nu <= 4 * 32 / nu");
+};
+
+// Stage t's inputs into a stage buffer, one 4-byte cp.async each (not
+// waited on here), A, c and B side by side as X = [A | c^T | B].
+template <int NX, int NU, int R, int RE>
+__device__ __forceinline__ void fixed_load_stage(
+    float* __restrict__ buf, const float* __restrict__ A,
+    const float* __restrict__ Bm, const float* __restrict__ G,
+    const float* __restrict__ M, const float* __restrict__ mx,
+    const float* __restrict__ mu, const float* __restrict__ c,
+    const float* __restrict__ E, const float* __restrict__ F,
+    const float* __restrict__ h, size_t st, int lane) {
+  using L = FixedLayout<NX, NU, R, RE>;
+  constexpr int NS = L::NS, NWP = L::NWP;
+#pragma unroll
+  for (int q = 0; q < (NX * NX + 31) / 32; ++q) {    // A[k][j] -> X[k][j]
+    const int e = q * 32 + lane, k = e / NX, j = e - k * NX;
+    if (e < NX * NX)
+      __pipeline_memcpy_async(buf + L::oX + k * NWP + j,
+                              A + st * NX * NX + e, 4);
+  }
+#pragma unroll
+  for (int q = 0; q < (R * NX + 31) / 32; ++q) {     // c[ri][k] -> X[k][NX+ri]
+    const int e = q * 32 + lane, ri = e / NX, k = e - ri * NX;
+    if (e < R * NX)
+      __pipeline_memcpy_async(buf + L::oX + k * NWP + NX + ri,
+                              c + st * R * NX + e, 4);
+  }
+#pragma unroll
+  for (int q = 0; q < (NX * NU + 31) / 32; ++q) {    // B[k][al] -> X[k][NC+al]
+    const int e = q * 32 + lane, k = e / NU, al = e - k * NU;
+    if (e < NX * NU)
+      __pipeline_memcpy_async(buf + L::oX + k * NWP + L::NC + al,
+                              Bm + st * NX * NU + e, 4);
+  }
+#pragma unroll
+  for (int q = 0; q < (NS * NS + 31) / 32; ++q) {    // upper triangles
+    const int e = q * 32 + lane, i = e / NS, j = e - i * NS;
+    if (e < NS * NS && i <= j) {
+      __pipeline_memcpy_async(buf + L::oG + tri<NS>(i, j),
+                              G + st * NS * NS + e, 4);
+      __pipeline_memcpy_async(buf + L::oM + tri<NS>(i, j),
+                              M + st * NS * NS + e, 4);
+    }
+  }
+  constexpr int nrest = R * NX + R * NU + RE * NU + RE * NX + R * RE;
+#pragma unroll
+  for (int q = 0; q < (nrest + 31) / 32; ++q) {      // mx, mu, E, F, h
+    int e = q * 32 + lane;
+    if (e >= nrest) continue;
+    const float* src;
+    if (e < R * NX) {
+      src = mx + st * R * NX + e;
+    } else if ((e -= R * NX) < R * NU) {
+      src = mu + st * R * NU + e;
+    } else if ((e -= R * NU) < RE * NU) {
+      src = E + st * RE * NU + e;
+    } else if ((e -= RE * NU) < RE * NX) {
+      src = F + st * RE * NX + e;
+    } else {
+      e -= RE * NX;
+      src = h + st * R * RE + e;
+    }
+    __pipeline_memcpy_async(buf + L::omx + q * 32 + lane, src, 4);
+  }
+}
+
+// Cholesky of Q + d*I (N x N, lower triangle of Q read) in registers, as
+// chol_factor does it.
+template <int N>
+__device__ __forceinline__ bool chol_regs(const float (&Q)[N][N], float d,
+                                          float (&L)[N][N], float (&inv)[N]) {
+  bool ok = true;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float s = Q[i][i] + d;
+#pragma unroll
+    for (int q = 0; q < i; ++q) s -= L[i][q] * L[i][q];
+    const bool good = s > 1e-12f;
+    ok = ok && good;
+    const float li = sqrtf(good ? s : 1.0f);
+    L[i][i] = li;
+    inv[i] = 1.0f / li;
+#pragma unroll
+    for (int j = i + 1; j < N; ++j) {
+      float v = Q[j][i];
+#pragma unroll
+      for (int q = 0; q < i; ++q) v -= L[j][q] * L[i][q];
+      L[j][i] = v * inv[i];
+    }
+  }
+  return ok;
+}
+
+// chol_retry in registers: every lane holds the same Q, so the branches
+// are uniform across the warp.
+template <int N>
+__device__ __forceinline__ bool chol_retry_regs(const float (&Q)[N][N],
+                                                float (&L)[N][N],
+                                                float (&inv)[N]) {
+  bool ok = false;
+#pragma unroll
+  for (int level = 0; level < 3; ++level)
+    if (!ok) ok = chol_regs<N>(Q, local_delta(level), L, inv);
+  if (!ok) chol_regs<N>(Q, 0.0f, L, inv);
+  return ok;
+}
+
+template <int N>
+__device__ __forceinline__ void chol_solve_regs(const float (&L)[N][N],
+                                                const float (&inv)[N],
+                                                float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float v = x[i];
+#pragma unroll
+    for (int q = 0; q < i; ++q) v -= L[i][q] * x[q];
+    x[i] = v * inv[i];
+  }
+#pragma unroll
+  for (int i = N - 1; i >= 0; --i) {
+    float v = x[i];
+#pragma unroll
+    for (int q = i + 1; q < N; ++q) v -= L[q][i] * x[q];
+    x[i] = v * inv[i];
+  }
+}
+
+// At most 64 registers a thread, as the run-time kernels, so kMinBlocks
+// blocks of kMaxWarps warps fit an SM at once.
+template <int NX, int NU, int R, int RE>
+__global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks)
+riccati_general_backward_fixed(
+    const float* __restrict__ A, const float* __restrict__ Bm,
+    const float* __restrict__ G, const float* __restrict__ M,
+    const float* __restrict__ mx, const float* __restrict__ mu,
+    const float* __restrict__ c, const float* __restrict__ delta,
+    const float* __restrict__ dc, const float* __restrict__ E,
+    const float* __restrict__ F, const float* __restrict__ h,
+    float* __restrict__ gains, uint8_t* __restrict__ ok_out, int nbatch,
+    int H) {
+  using L = FixedLayout<NX, NU, R, RE>;
+  constexpr int NS = L::NS, NW = L::NW, NC = L::NC, NQ = L::NQ;
+  constexpr int NWP = L::NWP, NQP = L::NQP, NCP = L::NCP, PS = L::PS;
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= nbatch) return;  // the whole warp leaves; no block barrier used
+  float* s = smem + warp * L::kFloats;
+  float* sPn = s + L::oPn;  // P_new (NX, NX), rows PS apart; P = sym(P_new)
+  float* sp = s + L::op;    // p (R, NX)
+  float* sY = s + L::oY;    // Y = Pbar X + [0 | pbar^T | Mxu]  (NX, NWP)
+  float* sZ = s + L::oZ;    // Z = B^T Y + Mxu^T X + [Gux | mu | 0] (NU, NWP)
+  float* sW = s + L::oW;    // W = [K | k^T | Quu^-1 E^T]  (NU, NQP)
+  float* sNu = s + L::oNu;  // Nu = [Knu | knu^T]  (RE, NCP)
+
+  const float d = delta[b];
+  const float dcb = RE > 0 ? dc[b] : 0.0f;
+  // P = 0 and p = 0 after the last stage, and every pad column finite
+  for (int e = lane; e < L::kFloats; e += 32) s[e] = 0.0f;
+  __syncwarp();  // the zeros land before any lane's copies
+  bool ok = true;  // the same on every lane
+  const size_t b0 = static_cast<size_t>(b) * H;
+
+  for (int t = H - 1; t >= 0; --t) {
+    const size_t st = b0 + t;
+    // Two stage buffers in turn: the one written here was last read two
+    // stages ago, before the barriers of the stage between, so no barrier
+    // is needed before the copies.  The barrier after the wait makes every
+    // lane's copies (and the last stage's P_new and p) visible to all.
+    float* cur = s + (t & 1) * L::kStagePad;
+    fixed_load_stage<NX, NU, R, RE>(cur, A, Bm, G, M, mx, mu, c, E, F, h, st,
+                                    lane);
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncwarp();
+    const float* sX = cur + L::oX;  // [A | c^T | B]  (NX, NWP)
+    const float* sG = cur + L::oG;  // upper triangle
+    const float* sM = cur + L::oM;  // upper triangle, delta not added
+    const float* smx = cur + L::omx;
+    const float* smu = cur + L::omu;
+    const float* sE = cur + L::oE;
+    const float* sF = cur + L::oF;
+    const float* sh = cur + L::oh;
+    float* gn = gains + st * L::NG;
+
+    // ---- Y = Pbar [A | c^T | B] + [0 | pbar^T | Mxu]: two lanes a row,
+    //      each a run of float4 columns, the row of Pbar = sym(P_new) +
+    //      Mxx + delta I in registers ----
+    if (lane < 2 * NX) {
+      const bool first = lane < NX;
+      const int i = first ? lane : lane - NX;
+      const int ch0 = first ? 0 : L::Y0;
+      float row[NX];
+#pragma unroll
+      for (int k = 0; k < NX; ++k) {
+        const float m = sym_at<NS>(sM, i, k) + (i == k ? d : 0.0f);
+        row[k] = 0.5f * (sPn[i * PS + k] + sPn[k * PS + i]) + m;
+        if ((k < NX / 2) == first) gn[L::gPb + i * NX + k] = row[k];
+      }
+#pragma unroll
+      for (int o = 0; o < L::Y0; ++o) {
+        const int ch = ch0 + o;
+        if (ch >= L::YC) continue;
+        float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int k = 0; k < NX; ++k) {
+          const float4 x = ld4(sX + k * NWP + 4 * ch);
+          v[0] += row[k] * x.x;
+          v[1] += row[k] * x.y;
+          v[2] += row[k] * x.z;
+          v[3] += row[k] * x.w;
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int col = 4 * ch + q;
+          if (col >= NX && col < NC) {       // Pc_p = c Pbar^T + pbar
+            const int ri = col - NX;
+            const float pb = sp[ri * NX + i] + smx[ri * NX + i];
+            gn[L::gpb + ri * NX + i] = pb;
+            v[q] += pb;
+          } else if (col >= NC && col < NW) {  // PB + Mxu
+            const int al = col - NC;
+            const float mxu = sM[tri<NS>(i, NX + al)];
+            gn[L::gMxu + i * NU + al] = mxu;
+            v[q] += mxu;
+          }
+        }
+        st4(sY + i * NWP + 4 * ch, v);
+      }
+    }
+    __syncwarp();
+
+    // ---- Z = B^T Y + Mxu^T X + [Gux | mu | 0] = [Qux | qu^T | B^T PB +
+    //      B^T Mxu + Mxu^T B]: 32/NU lanes a row, one float4 column each,
+    //      B's and Mxu's column in registers ----
+    {
+      const int al = lane / L::LZ, m = lane - al * L::LZ;
+      if (m < L::YC) {
+        float bcol[NX], mcol[NX];
+#pragma unroll
+        for (int k = 0; k < NX; ++k) {
+          bcol[k] = sX[k * NWP + NC + al];
+          mcol[k] = sM[tri<NS>(k, NX + al)];
+        }
+        float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        float w[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int k = 0; k < NX; ++k) {
+          const float4 y = ld4(sY + k * NWP + 4 * m);
+          const float4 x = ld4(sX + k * NWP + 4 * m);
+          v[0] += bcol[k] * y.x;
+          v[1] += bcol[k] * y.y;
+          v[2] += bcol[k] * y.z;
+          v[3] += bcol[k] * y.w;
+          w[0] += mcol[k] * x.x;
+          w[1] += mcol[k] * x.y;
+          w[2] += mcol[k] * x.z;
+          w[3] += mcol[k] * x.w;
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int col = 4 * m + q;
+          v[q] += w[q];
+          if (col < NX)
+            v[q] += sG[tri<NS>(col, NX + al)];
+          else if (col < NC)
+            v[q] += smu[(col - NX) * NU + al];
+        }
+        st4(sZ + al * NWP + 4 * m, v);
+      }
+    }
+    __syncwarp();
+
+    // ---- Quu = sym(Z's last NU columns) + Muu + delta I + Guu, factored
+    //      with the local-delta retry on every lane; one substitution column
+    //      a lane: K = -Quu^-1 Qux, k = -Quu^-1 qu, Y = Quu^-1 E^T ----
+    float Lq[NU][NU], iq[NU], x[NU];
+    {
+      float Q[NU][NU];
+#pragma unroll
+      for (int a = 0; a < NU; ++a)
+#pragma unroll
+        for (int e = 0; e <= a; ++e) {
+          Q[a][e] = 0.5f * (sZ[a * NWP + NC + e] + sZ[e * NWP + NC + a])
+                    + (sM[tri<NS>(NX + e, NX + a)] + (a == e ? d : 0.0f))
+                    + sG[tri<NS>(NX + e, NX + a)];
+          Q[e][a] = Q[a][e];
+        }
+      ok = chol_retry_regs<NU>(Q, Lq, iq) && ok;
+    }
+#pragma unroll
+    for (int al = 0; al < NU; ++al) {
+      float v = 0.0f;
+      if (lane < NC)
+        v = -sZ[al * NWP + lane];
+      else if (lane < NQ)
+        v = sE[(lane - NC) * NU + al];
+      x[al] = v;
+    }
+    chol_solve_regs<NU>(Lq, iq, x);
+    if (lane < NQ) {
+#pragma unroll
+      for (int al = 0; al < NU; ++al) sW[al * NQP + lane] = x[al];
+    }
+    if constexpr (RE == 0) {
+      if (lane < NX) {
+#pragma unroll
+        for (int al = 0; al < NU; ++al) gn[L::gK + al * NX + lane] = x[al];
+      } else if (lane < NC) {
+#pragma unroll
+        for (int al = 0; al < NU; ++al)
+          gn[L::gk + (lane - NX) * NU + al] = x[al];
+      }
+    }
+    __syncwarp();
+
+    if constexpr (RE > 0) {
+      // ---- S = sym(E Y) + delta_c I, factored on every lane; one column a
+      //      lane: Knu = S^-1 (E K + F), knu = S^-1 (E k - h), then
+      //      K -= Y Knu, k -= Y knu ----
+      float Ls[RE][RE], is[RE];
+      {
+        float S[RE][RE];
+#pragma unroll
+        for (int i = 0; i < RE; ++i)
+#pragma unroll
+          for (int j = 0; j <= i; ++j) {
+            float v_ij = 0.0f, v_ji = 0.0f;
+#pragma unroll
+            for (int al = 0; al < NU; ++al) {
+              v_ij += sE[i * NU + al] * sW[al * NQP + NC + j];
+              v_ji += sE[j * NU + al] * sW[al * NQP + NC + i];
+            }
+            S[i][j] = 0.5f * (v_ij + v_ji) + (i == j ? dcb : 0.0f);
+            S[j][i] = S[i][j];
+          }
+        ok = chol_retry_regs<RE>(S, Ls, is) && ok;
+      }
+      if (lane < NC) {
+        float nu[RE];
+#pragma unroll
+        for (int q = 0; q < RE; ++q) {
+          float v = 0.0f;
+#pragma unroll
+          for (int al = 0; al < NU; ++al) v += sE[q * NU + al] * x[al];
+          nu[q] = v + (lane < NX ? sF[q * NX + lane]
+                                 : -sh[(lane - NX) * RE + q]);
+        }
+        chol_solve_regs<RE>(Ls, is, nu);
+#pragma unroll
+        for (int al = 0; al < NU; ++al) {
+          float v = 0.0f;
+#pragma unroll
+          for (int q = 0; q < RE; ++q) v += sW[al * NQP + NC + q] * nu[q];
+          x[al] -= v;
+          sW[al * NQP + lane] = x[al];
+        }
+#pragma unroll
+        for (int q = 0; q < RE; ++q) sNu[q * NCP + lane] = nu[q];
+        if (lane < NX) {
+#pragma unroll
+          for (int al = 0; al < NU; ++al) gn[L::gK + al * NX + lane] = x[al];
+#pragma unroll
+          for (int q = 0; q < RE; ++q) gn[L::gKnu + q * NX + lane] = nu[q];
+        } else {
+          const int ri = lane - NX;
+#pragma unroll
+          for (int al = 0; al < NU; ++al) gn[L::gk + ri * NU + al] = x[al];
+#pragma unroll
+          for (int q = 0; q < RE; ++q) gn[L::gknu + ri * RE + q] = nu[q];
+        }
+      }
+      __syncwarp();
+    }
+
+    // ---- [P_new | p^T] = A^T [PA | Pc_p^T] + Qux^T [K | k^T]
+    //      + F^T [Knu | knu^T] + [Gxx | 0]: two lanes a row, each a run of
+    //      float4 columns, A's, Qux's and F's column in registers; P_new is
+    //      symmetrised where the next stage reads it ----
+    if (lane < 2 * NX) {
+      const bool first = lane < NX;
+      const int i = first ? lane : lane - NX;
+      const int ch0 = first ? 0 : L::P0;
+      float acol[NX], zcol[NU], fcol[RE > 0 ? RE : 1];
+#pragma unroll
+      for (int k = 0; k < NX; ++k) acol[k] = sX[k * NWP + i];
+#pragma unroll
+      for (int al = 0; al < NU; ++al) zcol[al] = sZ[al * NWP + i];
+#pragma unroll
+      for (int q = 0; q < RE; ++q) fcol[q] = sF[q * NX + i];
+#pragma unroll
+      for (int o = 0; o < L::P0; ++o) {
+        const int ch = ch0 + o;
+        if (ch >= L::PC) continue;
+        float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        float w[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int k = 0; k < NX; ++k) {
+          const float4 y = ld4(sY + k * NWP + 4 * ch);
+          v[0] += acol[k] * y.x;
+          v[1] += acol[k] * y.y;
+          v[2] += acol[k] * y.z;
+          v[3] += acol[k] * y.w;
+        }
+#pragma unroll
+        for (int al = 0; al < NU; ++al) {
+          const float4 y = ld4(sW + al * NQP + 4 * ch);
+          w[0] += zcol[al] * y.x;
+          w[1] += zcol[al] * y.y;
+          w[2] += zcol[al] * y.z;
+          w[3] += zcol[al] * y.w;
+        }
+#pragma unroll
+        for (int q = 0; q < RE; ++q) {
+          const float4 y = ld4(sNu + q * NCP + 4 * ch);
+          z[0] += fcol[q] * y.x;
+          z[1] += fcol[q] * y.y;
+          z[2] += fcol[q] * y.z;
+          z[3] += fcol[q] * y.w;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 4 * ch + e;
+          if (col < NX)
+            sPn[i * PS + col] = (v[e] + sym_at<NS>(sG, i, col)) + w[e] + z[e];
+          else if (col < NC)
+            sp[(col - NX) * NX + i] = v[e] + w[e] + z[e];
+        }
+      }
+    }
+    // the next stage's first barrier orders these writes before its reads
+  }
+  if (lane == 0) ok_out[b] = ok ? 1 : 0;
+}
+
+// Dynamic shared memory above the default 48 KB must be asked for.
+template <typename Kernel>
+cudaError_t reserve_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= static_cast<size_t>(kDefaultSmem)) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+// The instance <NX, NU, R, RE>: kMaxWarps warps a block, the shared memory
+// carveout at its largest so kMinBlocks blocks fit an SM.
+template <int NX, int NU, int R, int RE>
+cudaError_t backward_fixed(
+    const void* A, const void* Bm, const void* G, const void* M,
+    const void* mx, const void* mu, const void* c, const void* delta,
+    const void* dc, const void* E, const void* F, const void* h, void* gains,
+    void* ok, int nbatch, int H, int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (nbatch <= 0 || H <= 0) return cudaErrorInvalidValue;
+  auto kernel = riccati_general_backward_fixed<NX, NU, R, RE>;
+  const size_t smem =
+      sizeof(float) * kMaxWarps * FixedLayout<NX, NU, R, RE>::kFloats;
+  err = reserve_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((nbatch + kMaxWarps - 1) / kMaxWarps);
+  kernel<<<grid, kMaxWarps * 32, smem, stream>>>(
+      static_cast<const float*>(A), static_cast<const float*>(Bm),
+      static_cast<const float*>(G), static_cast<const float*>(M),
+      static_cast<const float*>(mx), static_cast<const float*>(mu),
+      static_cast<const float*>(c), static_cast<const float*>(delta),
+      static_cast<const float*>(dc), static_cast<const float*>(E),
+      static_cast<const float*>(F), static_cast<const float*>(h),
+      static_cast<float*>(gains), static_cast<uint8_t*>(ok), nbatch, H);
+  return cudaGetLastError();
+}
+
+}  // namespace

@@ -39,9 +39,9 @@
 // backward kernel is capped at 64 registers so that all 4096 problems of
 // the EQ/border quadrotor fleet are resident at once.  The backward entry
 // launches a compile-time instance of the backward kernel at the fleet's
-// (12, 4, 2, 1) (riccati_general_backward_fixed, below the forward kernel),
-// which runs a stage in 5 phases, and this run-time kernel at any other
-// shape.
+// (12, 4, 2, 1) (riccati_general_backward_fixed, in
+// riccati_backward_fixed.cuh, which csrc/riccati_streamed.cu shares), which
+// runs a stage in 5 phases, and this run-time kernel at any other shape.
 //
 // Layouts (all float32, C-contiguous, batch first, per-rhs tensors
 // stage-major so a stage's R right-hand sides are contiguous):
@@ -53,23 +53,16 @@
 //   NG = NU*NX + R*NU + NX*NX + R*NX + NX*NU + r*NX + R*r
 //   ok (B,) as 0/1 bytes   dX, dLam (B,H,R,NX)  dU (B,H,R,NU)  dNu (B,H,R,r)
 
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "riccati_backward_fixed.cuh"
+
 namespace {
 
-constexpr int kMaxWarps = 4;         // problems (warps) per block, at most
-constexpr int kMinBlocks = 8;        // resident blocks an SM (backward)
 constexpr int kMaxNx = 32;
 constexpr int kMaxNu = 16;           // the reference kernel's own cap
 constexpr int kMaxR = 65;            // 1 + the 64 border rows
-constexpr int kDefaultSmem = 48 * 1024;
-
-// _LOCAL_DELTAS = (0, 1e-6, 1e-4): nudge-scale bumps on the diagonal.
-__device__ __forceinline__ float local_delta(int level) {
-  return level == 0 ? 0.0f : (level == 1 ? 1e-6f : 1e-4f);
-}
 
 __host__ __device__ __forceinline__ int gain_width(int nx, int nu, int R,
                                                    int r) {
@@ -574,479 +567,6 @@ riccati_general_forward_kernel(
   }
 }
 
-// ---- the compile-time instance of the backward kernel ----
-//
-// riccati_general_backward_fixed<NX, NU, R, RE> computes what
-// riccati_general_backward_kernel computes, for one (nx, nu, R, r) fixed at
-// compile time (the instances are listed at the C entry point).  One warp
-// per problem and the gains layout as above.  What differs:
-//  * every lane's entries of every product are fixed at compile time and
-//    the loops unroll; a lane keeps the operands it reuses (a row of Pbar,
-//    a column of B and of Mxu, a column of A, its substitution column) in
-//    registers across the products of a stage;
-//  * G and M stay upper triangles, packed row by row (ns(ns+1)/2 floats
-//    each), read in place with delta added on M's diagonal where it is
-//    read; there is no symmetrising pass;
-//  * the stage's right operands sit side by side, X = [A | c^T | B]
-//    (nx x (nx + R + nu)), so one product gives Y = Pbar X = [PA | Pc_p |
-//    PB + Mxu] and a second Z = B^T Y + Mxu^T X = [Qux | qu^T | Quu - Muu -
-//    Guu, before symmetrising]; the substitutions give W = [K | k^T |
-//    Quu^-1 E^T] and the Schur step Nu = [Knu | knu^T]; the last product
-//    is P_new and p together, X^T Y + Z^T W + F^T Nu (+ G);
-//  * Quu's factor and its retry (and S's) run on every lane from
-//    registers, so no lane waits on lane 0: five __syncwarp() a stage;
-//  * a stage is loaded with 4-byte cp.async copies (4 bytes because h's
-//    rows are 8-byte aligned only and the triangles' rows start anywhere;
-//    each lane issues ~17 a stage, little next to its stage math) into one
-//    of two stage buffers in turn, and waited on at once.  Keeping stage
-//    t-1's copies in flight during stage t measured slower on an H100
-//    (861.78 against 735.25 us in one chip_smoke.py run): the 32 resident
-//    warps an SM already hide the loads' latency, and the in-flight form
-//    spilled 42 more bytes a thread.
-// Shared memory a warp at (12, 4, 2, 1): two 540-float stage buffers (538
-// floats used) and 544 floats of scratch, 6,496 bytes, so 8 blocks of 4
-// warps (B=4096 in one wave on 132 SMs) fit in 228 KB with the 64-register
-// cap.  ptxas: 64 registers, 116 bytes of spill stores and loads a thread.
-
-template <int N>
-__host__ __device__ constexpr int tri(int i, int j) {  // i <= j
-  return i * N - (i * (i - 1)) / 2 + (j - i);
-}
-
-template <int N>
-__device__ __forceinline__ float sym_at(const float* t, int i, int j) {
-  return i <= j ? t[tri<N>(i, j)] : t[tri<N>(j, i)];
-}
-
-template <int NX, int NU, int R, int RE>
-struct FixedLayout {
-  static constexpr int NS = NX + NU, NT = NS * (NS + 1) / 2;
-  static constexpr int NC = NX + R;        // value columns: P's and the p's
-  static constexpr int NW = NC + NU;       // X, Y, Z columns
-  static constexpr int NQ = NC + RE;       // substitution columns
-  static constexpr int PS = NX + 1;        // P_new row stride (no conflicts)
-  // one stage buffer
-  static constexpr int oX = 0, oG = oX + NX * NW, oM = oG + NT;
-  static constexpr int omx = oM + NT, omu = omx + R * NX;
-  static constexpr int oE = omu + R * NU, oF = oE + RE * NU;
-  static constexpr int oh = oF + RE * NX, kStage = oh + R * RE;
-  static constexpr int kStagePad = (kStage + 3) & ~3;
-  // scratch after the two stage buffers
-  static constexpr int oPn = 2 * kStagePad, op = oPn + NX * PS;
-  static constexpr int oY = op + R * NX, oZ = oY + NX * NW;
-  static constexpr int oW = oZ + NU * NW, oNu = oW + NU * NQ;
-  static constexpr int kFloats = (oNu + RE * NC + 3) & ~3;
-  // gains
-  static constexpr int gK = 0, gk = NX * NU, gPb = gk + R * NU;
-  static constexpr int gpb = gPb + NX * NX, gMxu = gpb + R * NX;
-  static constexpr int gKnu = gMxu + NX * NU, gknu = gKnu + RE * NX;
-  static constexpr int NG = gknu + R * RE;
-  // lane maps (fixed at compile time)
-  static constexpr int H0 = (NW + 1) / 2;  // Y columns of a row's first lane
-  static constexpr int LZ = 32 / NU;       // lanes per Z row
-  static constexpr int ZR = (NW + LZ - 1) / LZ;
-  static constexpr int C0 = (NC + 1) / 2;  // P_new columns of a row's first lane
-  static_assert(2 * NX <= 32 && NQ <= 32 && 32 % NU == 0 && RE <= NU,
-                "lane maps need 2 nx <= 32, nx + R + r <= 32, nu | 32");
-};
-
-// Stage t's inputs into a stage buffer, one 4-byte cp.async each (not
-// waited on here), A, c and B side by side as X = [A | c^T | B].
-template <int NX, int NU, int R, int RE>
-__device__ __forceinline__ void fixed_load_stage(
-    float* __restrict__ buf, const float* __restrict__ A,
-    const float* __restrict__ Bm, const float* __restrict__ G,
-    const float* __restrict__ M, const float* __restrict__ mx,
-    const float* __restrict__ mu, const float* __restrict__ c,
-    const float* __restrict__ E, const float* __restrict__ F,
-    const float* __restrict__ h, size_t st, int lane) {
-  using L = FixedLayout<NX, NU, R, RE>;
-  constexpr int NS = L::NS, NW = L::NW;
-#pragma unroll
-  for (int q = 0; q < (NX * NX + 31) / 32; ++q) {    // A[k][j] -> X[k][j]
-    const int e = q * 32 + lane, k = e / NX, j = e - k * NX;
-    if (e < NX * NX)
-      __pipeline_memcpy_async(buf + L::oX + k * NW + j,
-                              A + st * NX * NX + e, 4);
-  }
-#pragma unroll
-  for (int q = 0; q < (R * NX + 31) / 32; ++q) {     // c[ri][k] -> X[k][NX+ri]
-    const int e = q * 32 + lane, ri = e / NX, k = e - ri * NX;
-    if (e < R * NX)
-      __pipeline_memcpy_async(buf + L::oX + k * NW + NX + ri,
-                              c + st * R * NX + e, 4);
-  }
-#pragma unroll
-  for (int q = 0; q < (NX * NU + 31) / 32; ++q) {    // B[k][al] -> X[k][NC+al]
-    const int e = q * 32 + lane, k = e / NU, al = e - k * NU;
-    if (e < NX * NU)
-      __pipeline_memcpy_async(buf + L::oX + k * NW + L::NC + al,
-                              Bm + st * NX * NU + e, 4);
-  }
-#pragma unroll
-  for (int q = 0; q < (NS * NS + 31) / 32; ++q) {    // upper triangles
-    const int e = q * 32 + lane, i = e / NS, j = e - i * NS;
-    if (e < NS * NS && i <= j) {
-      __pipeline_memcpy_async(buf + L::oG + tri<NS>(i, j),
-                              G + st * NS * NS + e, 4);
-      __pipeline_memcpy_async(buf + L::oM + tri<NS>(i, j),
-                              M + st * NS * NS + e, 4);
-    }
-  }
-  constexpr int nrest = R * NX + R * NU + RE * NU + RE * NX + R * RE;
-#pragma unroll
-  for (int q = 0; q < (nrest + 31) / 32; ++q) {      // mx, mu, E, F, h
-    int e = q * 32 + lane;
-    if (e >= nrest) continue;
-    const float* src;
-    if (e < R * NX) {
-      src = mx + st * R * NX + e;
-    } else if ((e -= R * NX) < R * NU) {
-      src = mu + st * R * NU + e;
-    } else if ((e -= R * NU) < RE * NU) {
-      src = E + st * RE * NU + e;
-    } else if ((e -= RE * NU) < RE * NX) {
-      src = F + st * RE * NX + e;
-    } else {
-      e -= RE * NX;
-      src = h + st * R * RE + e;
-    }
-    __pipeline_memcpy_async(buf + L::omx + q * 32 + lane, src, 4);
-  }
-}
-
-// Cholesky of Q + d*I (N x N, lower triangle of Q read) in registers, as
-// chol_factor does it.
-template <int N>
-__device__ __forceinline__ bool chol_regs(const float (&Q)[N][N], float d,
-                                          float (&L)[N][N], float (&inv)[N]) {
-  bool ok = true;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    float s = Q[i][i] + d;
-#pragma unroll
-    for (int q = 0; q < i; ++q) s -= L[i][q] * L[i][q];
-    const bool good = s > 1e-12f;
-    ok = ok && good;
-    const float li = sqrtf(good ? s : 1.0f);
-    L[i][i] = li;
-    inv[i] = 1.0f / li;
-#pragma unroll
-    for (int j = i + 1; j < N; ++j) {
-      float v = Q[j][i];
-#pragma unroll
-      for (int q = 0; q < i; ++q) v -= L[j][q] * L[i][q];
-      L[j][i] = v * inv[i];
-    }
-  }
-  return ok;
-}
-
-// chol_retry in registers: every lane holds the same Q, so the branches
-// are uniform across the warp.
-template <int N>
-__device__ __forceinline__ bool chol_retry_regs(const float (&Q)[N][N],
-                                                float (&L)[N][N],
-                                                float (&inv)[N]) {
-  bool ok = false;
-#pragma unroll
-  for (int level = 0; level < 3; ++level)
-    if (!ok) ok = chol_regs<N>(Q, local_delta(level), L, inv);
-  if (!ok) chol_regs<N>(Q, 0.0f, L, inv);
-  return ok;
-}
-
-template <int N>
-__device__ __forceinline__ void chol_solve_regs(const float (&L)[N][N],
-                                                const float (&inv)[N],
-                                                float (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    float v = x[i];
-#pragma unroll
-    for (int q = 0; q < i; ++q) v -= L[i][q] * x[q];
-    x[i] = v * inv[i];
-  }
-#pragma unroll
-  for (int i = N - 1; i >= 0; --i) {
-    float v = x[i];
-#pragma unroll
-    for (int q = i + 1; q < N; ++q) v -= L[q][i] * x[q];
-    x[i] = v * inv[i];
-  }
-}
-
-// At most 64 registers a thread, as the run-time kernel.
-template <int NX, int NU, int R, int RE>
-__global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks)
-riccati_general_backward_fixed(
-    const float* __restrict__ A, const float* __restrict__ Bm,
-    const float* __restrict__ G, const float* __restrict__ M,
-    const float* __restrict__ mx, const float* __restrict__ mu,
-    const float* __restrict__ c, const float* __restrict__ delta,
-    const float* __restrict__ dc, const float* __restrict__ E,
-    const float* __restrict__ F, const float* __restrict__ h,
-    float* __restrict__ gains, uint8_t* __restrict__ ok_out, int nbatch,
-    int H) {
-  using L = FixedLayout<NX, NU, R, RE>;
-  constexpr int NS = L::NS, NW = L::NW, NC = L::NC, NQ = L::NQ;
-  constexpr int PS = L::PS;
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (b >= nbatch) return;  // the whole warp leaves; no block barrier used
-  float* s = smem + warp * L::kFloats;
-  float* sPn = s + L::oPn;  // P_new (NX, NX), rows PS apart; P = sym(P_new)
-  float* sp = s + L::op;    // p (R, NX)
-  float* sY = s + L::oY;    // Y = Pbar X + [0 | pbar^T | Mxu]  (NX, NW)
-  float* sZ = s + L::oZ;    // Z = B^T Y + Mxu^T X + [Gux | mu | 0]  (NU, NW)
-  float* sW = s + L::oW;    // W = [K | k^T | Quu^-1 E^T]  (NU, NQ)
-  float* sNu = s + L::oNu;  // Nu = [Knu | knu^T]  (RE, NC)
-
-  const float d = delta[b];
-  const float dcb = RE > 0 ? dc[b] : 0.0f;
-  for (int e = lane; e < NX * PS; e += 32) sPn[e] = 0.0f;
-  for (int e = lane; e < R * NX; e += 32) sp[e] = 0.0f;
-  bool ok = true;  // the same on every lane
-  const size_t b0 = static_cast<size_t>(b) * H;
-
-  for (int t = H - 1; t >= 0; --t) {
-    const size_t st = b0 + t;
-    // Two stage buffers in turn: the one written here was last read two
-    // stages ago, before the barriers of the stage between, so no barrier
-    // is needed before the copies.  The barrier after the wait makes every
-    // lane's copies (and the last stage's P_new and p) visible to all.
-    float* cur = s + (t & 1) * L::kStagePad;
-    fixed_load_stage<NX, NU, R, RE>(cur, A, Bm, G, M, mx, mu, c, E, F, h, st,
-                                    lane);
-    __pipeline_commit();
-    __pipeline_wait_prior(0);
-    __syncwarp();
-    const float* sX = cur + L::oX;  // [A | c^T | B]  (NX, NW)
-    const float* sG = cur + L::oG;  // upper triangle
-    const float* sM = cur + L::oM;  // upper triangle, delta not added
-    const float* smx = cur + L::omx;
-    const float* smu = cur + L::omu;
-    const float* sE = cur + L::oE;
-    const float* sF = cur + L::oF;
-    const float* sh = cur + L::oh;
-    float* gn = gains + st * L::NG;
-
-    // ---- Y = Pbar [A | c^T | B] + [0 | pbar^T | Mxu]: two lanes a row,
-    //      the row of Pbar = sym(P_new) + Mxx + delta I in registers ----
-    if (lane < 2 * NX) {
-      const bool first = lane < NX;
-      const int i = first ? lane : lane - NX;
-      const int col0 = first ? 0 : L::H0;
-      float row[NX];
-#pragma unroll
-      for (int k = 0; k < NX; ++k) {
-        const float m = sym_at<NS>(sM, i, k) + (i == k ? d : 0.0f);
-        row[k] = 0.5f * (sPn[i * PS + k] + sPn[k * PS + i]) + m;
-        if ((k < NX / 2) == first) gn[L::gPb + i * NX + k] = row[k];
-      }
-#pragma unroll
-      for (int o = 0; o < L::H0; ++o) {
-        const int col = col0 + o;
-        if (col >= NW) continue;
-        float v = 0.0f;
-#pragma unroll
-        for (int k = 0; k < NX; ++k) v += row[k] * sX[k * NW + col];
-        if (col >= NX && col < NC) {         // Pc_p = c Pbar^T + pbar
-          const int ri = col - NX;
-          const float pb = sp[ri * NX + i] + smx[ri * NX + i];
-          gn[L::gpb + ri * NX + i] = pb;
-          v += pb;
-        } else if (col >= NC) {              // PB + Mxu
-          const int al = col - NC;
-          const float mxu = sM[tri<NS>(i, NX + al)];
-          gn[L::gMxu + i * NU + al] = mxu;
-          v += mxu;
-        }
-        sY[i * NW + col] = v;
-      }
-    }
-    __syncwarp();
-
-    // ---- Z = B^T Y + Mxu^T X + [Gux | mu | 0] = [Qux | qu^T | B^T PB +
-    //      B^T Mxu + Mxu^T B]: 32/NU lanes a row, B's and Mxu's column in
-    //      registers ----
-    {
-      const int al = lane / L::LZ, m = lane - al * L::LZ;
-      float bcol[NX], mcol[NX];
-#pragma unroll
-      for (int k = 0; k < NX; ++k) {
-        bcol[k] = sX[k * NW + NC + al];
-        mcol[k] = sM[tri<NS>(k, NX + al)];
-      }
-#pragma unroll
-      for (int rr = 0; rr < L::ZR; ++rr) {
-        const int col = m + rr * L::LZ;
-        if (col >= NW) continue;
-        float v = 0.0f, w = 0.0f;
-#pragma unroll
-        for (int k = 0; k < NX; ++k) {
-          v += bcol[k] * sY[k * NW + col];
-          w += mcol[k] * sX[k * NW + col];
-        }
-        float z = v + w;
-        if (col < NX)
-          z += sG[tri<NS>(col, NX + al)];
-        else if (col < NC)
-          z += smu[(col - NX) * NU + al];
-        sZ[al * NW + col] = z;
-      }
-    }
-    __syncwarp();
-
-    // ---- Quu = sym(Z's last NU columns) + Muu + delta I + Guu, factored
-    //      with the local-delta retry on every lane; one substitution column
-    //      a lane: K = -Quu^-1 Qux, k = -Quu^-1 qu, Y = Quu^-1 E^T ----
-    float Lq[NU][NU], iq[NU], x[NU];
-    {
-      float Q[NU][NU];
-#pragma unroll
-      for (int a = 0; a < NU; ++a)
-#pragma unroll
-        for (int e = 0; e <= a; ++e) {
-          Q[a][e] = 0.5f * (sZ[a * NW + NC + e] + sZ[e * NW + NC + a])
-                    + (sM[tri<NS>(NX + e, NX + a)] + (a == e ? d : 0.0f))
-                    + sG[tri<NS>(NX + e, NX + a)];
-          Q[e][a] = Q[a][e];
-        }
-      ok = chol_retry_regs<NU>(Q, Lq, iq) && ok;
-    }
-#pragma unroll
-    for (int al = 0; al < NU; ++al) {
-      float v = 0.0f;
-      if (lane < NC)
-        v = -sZ[al * NW + lane];
-      else if (lane < NQ)
-        v = sE[(lane - NC) * NU + al];
-      x[al] = v;
-    }
-    chol_solve_regs<NU>(Lq, iq, x);
-    if (lane < NQ) {
-#pragma unroll
-      for (int al = 0; al < NU; ++al) sW[al * NQ + lane] = x[al];
-    }
-    if constexpr (RE == 0) {
-      if (lane < NX) {
-#pragma unroll
-        for (int al = 0; al < NU; ++al) gn[L::gK + al * NX + lane] = x[al];
-      } else if (lane < NC) {
-#pragma unroll
-        for (int al = 0; al < NU; ++al)
-          gn[L::gk + (lane - NX) * NU + al] = x[al];
-      }
-    }
-    __syncwarp();
-
-    if constexpr (RE > 0) {
-      // ---- S = sym(E Y) + delta_c I, factored on every lane; one column a
-      //      lane: Knu = S^-1 (E K + F), knu = S^-1 (E k - h), then
-      //      K -= Y Knu, k -= Y knu ----
-      float Ls[RE][RE], is[RE];
-      {
-        float S[RE][RE];
-#pragma unroll
-        for (int i = 0; i < RE; ++i)
-#pragma unroll
-          for (int j = 0; j <= i; ++j) {
-            float v_ij = 0.0f, v_ji = 0.0f;
-#pragma unroll
-            for (int al = 0; al < NU; ++al) {
-              v_ij += sE[i * NU + al] * sW[al * NQ + NC + j];
-              v_ji += sE[j * NU + al] * sW[al * NQ + NC + i];
-            }
-            S[i][j] = 0.5f * (v_ij + v_ji) + (i == j ? dcb : 0.0f);
-            S[j][i] = S[i][j];
-          }
-        ok = chol_retry_regs<RE>(S, Ls, is) && ok;
-      }
-      if (lane < NC) {
-        float nu[RE];
-#pragma unroll
-        for (int q = 0; q < RE; ++q) {
-          float v = 0.0f;
-#pragma unroll
-          for (int al = 0; al < NU; ++al) v += sE[q * NU + al] * x[al];
-          nu[q] = v + (lane < NX ? sF[q * NX + lane]
-                                 : -sh[(lane - NX) * RE + q]);
-        }
-        chol_solve_regs<RE>(Ls, is, nu);
-#pragma unroll
-        for (int al = 0; al < NU; ++al) {
-          float v = 0.0f;
-#pragma unroll
-          for (int q = 0; q < RE; ++q) v += sW[al * NQ + NC + q] * nu[q];
-          x[al] -= v;
-          sW[al * NQ + lane] = x[al];
-        }
-#pragma unroll
-        for (int q = 0; q < RE; ++q) sNu[q * NC + lane] = nu[q];
-        if (lane < NX) {
-#pragma unroll
-          for (int al = 0; al < NU; ++al) gn[L::gK + al * NX + lane] = x[al];
-#pragma unroll
-          for (int q = 0; q < RE; ++q) gn[L::gKnu + q * NX + lane] = nu[q];
-        } else {
-          const int ri = lane - NX;
-#pragma unroll
-          for (int al = 0; al < NU; ++al) gn[L::gk + ri * NU + al] = x[al];
-#pragma unroll
-          for (int q = 0; q < RE; ++q) gn[L::gknu + ri * RE + q] = nu[q];
-        }
-      }
-      __syncwarp();
-    }
-
-    // ---- [P_new | p^T] = A^T [PA | Pc_p^T] + Qux^T [K | k^T]
-    //      + F^T [Knu | knu^T] + [Gxx | 0]: two lanes a row, A's, Qux's and
-    //      F's column in registers; P_new is symmetrised where the next
-    //      stage reads it ----
-    if (lane < 2 * NX) {
-      const bool first = lane < NX;
-      const int i = first ? lane : lane - NX;
-      const int col0 = first ? 0 : L::C0;
-      float acol[NX], zcol[NU], fcol[RE > 0 ? RE : 1];
-#pragma unroll
-      for (int k = 0; k < NX; ++k) acol[k] = sX[k * NW + i];
-#pragma unroll
-      for (int al = 0; al < NU; ++al) zcol[al] = sZ[al * NW + i];
-#pragma unroll
-      for (int q = 0; q < RE; ++q) fcol[q] = sF[q * NX + i];
-#pragma unroll
-      for (int o = 0; o < L::C0; ++o) {
-        const int col = col0 + o;
-        if (col >= NC) continue;
-        float v = 0.0f, w = 0.0f, z = 0.0f;
-#pragma unroll
-        for (int k = 0; k < NX; ++k) v += acol[k] * sY[k * NW + col];
-#pragma unroll
-        for (int al = 0; al < NU; ++al) w += zcol[al] * sW[al * NQ + col];
-#pragma unroll
-        for (int q = 0; q < RE; ++q) z += fcol[q] * sNu[q * NC + col];
-        if (col < NX)
-          sPn[i * PS + col] = (v + sym_at<NS>(sG, i, col)) + w + z;
-        else
-          sp[(col - NX) * NX + i] = v + w + z;
-      }
-    }
-    // the next stage's first barrier orders these writes before its reads
-  }
-  if (lane == 0) ok_out[b] = ok ? 1 : 0;
-}
-
-// Dynamic shared memory above the default 48 KB must be asked for.
-template <typename Kernel>
-cudaError_t reserve_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= static_cast<size_t>(kDefaultSmem)) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
 // Checks the dims and picks the warps a block: as many as fit the device's
 // opt-in shared memory a block, at most kMaxWarps.
 cudaError_t plan_launch(int nbatch, int H, int nx, int nu, int R, int r,
@@ -1091,38 +611,6 @@ cudaError_t backward_runtime(
       static_cast<const float*>(F), static_cast<const float*>(h),
       static_cast<float*>(gains), static_cast<uint8_t*>(ok), nbatch, H, nx,
       nu, R, r);
-  return cudaGetLastError();
-}
-
-// The instance <NX, NU, R, RE>: kMaxWarps warps a block, the shared memory
-// carveout at its largest so kMinBlocks blocks fit an SM.
-template <int NX, int NU, int R, int RE>
-cudaError_t backward_fixed(
-    const void* A, const void* Bm, const void* G, const void* M,
-    const void* mx, const void* mu, const void* c, const void* delta,
-    const void* dc, const void* E, const void* F, const void* h, void* gains,
-    void* ok, int nbatch, int H, int device, cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (nbatch <= 0 || H <= 0) return cudaErrorInvalidValue;
-  auto kernel = riccati_general_backward_fixed<NX, NU, R, RE>;
-  const size_t smem =
-      sizeof(float) * kMaxWarps * FixedLayout<NX, NU, R, RE>::kFloats;
-  err = reserve_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((nbatch + kMaxWarps - 1) / kMaxWarps);
-  kernel<<<grid, kMaxWarps * 32, smem, stream>>>(
-      static_cast<const float*>(A), static_cast<const float*>(Bm),
-      static_cast<const float*>(G), static_cast<const float*>(M),
-      static_cast<const float*>(mx), static_cast<const float*>(mu),
-      static_cast<const float*>(c), static_cast<const float*>(delta),
-      static_cast<const float*>(dc), static_cast<const float*>(E),
-      static_cast<const float*>(F), static_cast<const float*>(h),
-      static_cast<float*>(gains), static_cast<uint8_t*>(ok), nbatch, H);
   return cudaGetLastError();
 }
 

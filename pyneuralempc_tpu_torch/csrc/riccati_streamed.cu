@@ -35,7 +35,16 @@
 // memory here too.  Warps never share data, so no block-level barrier is
 // used.  The backward kernel is capped at 64 registers so that all 4096
 // problems of the quadrotor fleet are resident at once (8 blocks of 4
-// warps an SM).  Prefetching the next stage (cp.async or TMA) is later work.
+// warps an SM).
+//
+// The backward entry launches a compile-time instance of the backward
+// kernel at the quadrotor's (12, 4): riccati_general_backward_fixed<12, 4,
+// 1, 0>, the general sweep's template (riccati_backward_fixed.cuh, shared
+// with csrc/riccati_general.cu) at one right-hand side and no equality
+// rows, which computes this backward kernel's function with the stage's
+// widths fixed, operands reused from registers, G and M read as packed
+// triangles and four __syncwarp() phases a stage instead of ~20.  The
+// run-time kernel below takes every other (nx, nu).
 //
 // Layouts (all float32, C-contiguous, batch first):
 //   A (B,H,NX,NX)  Bm (B,H,NX,NU)  G, M (B,H,NS,NS) symmetric, of which only
@@ -48,18 +57,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "riccati_backward_fixed.cuh"
+
 namespace {
 
-constexpr int kWarps = 4;            // problems (warps) per block
-constexpr int kMinBlocks = 8;        // resident blocks an SM (backward)
 constexpr int kMaxNx = 32;           // forward kernel: one lane per row
 constexpr int kMaxNu = 16;           // the reference kernel's own cap
-constexpr int kDefaultSmem = 48 * 1024;
-
-// _LOCAL_DELTAS = (0, 1e-6, 1e-4): nudge-scale bumps on Quu's diagonal.
-__device__ __forceinline__ float local_delta(int level) {
-  return level == 0 ? 0.0f : (level == 1 ? 1e-6f : 1e-4f);
-}
 
 __host__ __device__ __forceinline__ int gain_width(int nx, int nu) {
   return nu * nx + nu + nx * nx + nx + nx * nu;
@@ -161,7 +164,7 @@ __device__ bool chol_factor(const float* __restrict__ Q, int nu, float d,
 // At most 64 registers a thread, so kMinBlocks blocks (32 problems) fit
 // on an SM at once and B=4096 problems run in one wave on 132 SMs; left
 // free, nvcc takes 96 and the launch runs in two.
-__global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
+__global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks)
 riccati_backward_kernel(const float* __restrict__ A,
                         const float* __restrict__ Bm,
                         const float* __restrict__ G,
@@ -175,7 +178,7 @@ riccati_backward_kernel(const float* __restrict__ A,
                         int nx, int nu) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarps + warp;
+  const int b = blockIdx.x * kMaxWarps + warp;
   if (b >= nbatch) return;  // the whole warp leaves; no block barrier used
   const int ns = nx + nu, nxx = nx * nx, nxu = nx * nu;
   const int ng = gain_width(nx, nu);
@@ -362,7 +365,7 @@ riccati_backward_kernel(const float* __restrict__ A,
   if (lane == 0) ok_out[b] = ok ? 1 : 0;
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kMaxWarps * 32)
 riccati_forward_kernel(const float* __restrict__ A,
                        const float* __restrict__ Bm,
                        const float* __restrict__ c,
@@ -372,7 +375,7 @@ riccati_forward_kernel(const float* __restrict__ A,
                        int nu) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarps + warp;
+  const int b = blockIdx.x * kMaxWarps + warp;
   if (b >= nbatch) return;
   const int nxx = nx * nx, nxu = nx * nu, ng = gain_width(nx, nu);
 
@@ -432,15 +435,6 @@ riccati_forward_kernel(const float* __restrict__ A,
   }
 }
 
-// Dynamic shared memory above the default 48 KB must be asked for.
-template <typename Kernel>
-cudaError_t reserve_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= static_cast<size_t>(kDefaultSmem)) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
 cudaError_t check_args(int nbatch, int H, int nx, int nu, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -450,11 +444,42 @@ cudaError_t check_args(int nbatch, int H, int nx, int nu, int device) {
   return cudaSuccess;
 }
 
+// The run-time backward kernel at any (nx, nu) in range.
+cudaError_t backward_runtime(const void* A, const void* Bm, const void* G,
+                             const void* M, const void* mx, const void* mu,
+                             const void* c, const void* delta, void* gains,
+                             void* ok, int nbatch, int H, int nx, int nu,
+                             int device, cudaStream_t stream) {
+  cudaError_t err = check_args(nbatch, H, nx, nu, device);
+  if (err != cudaSuccess) return err;
+  const size_t smem = sizeof(float) * kMaxWarps * backward_floats(nx, nu);
+  err = reserve_smem(riccati_backward_kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((nbatch + kMaxWarps - 1) / kMaxWarps);
+  riccati_backward_kernel<<<grid, kMaxWarps * 32, smem, stream>>>(
+      static_cast<const float*>(A), static_cast<const float*>(Bm),
+      static_cast<const float*>(G), static_cast<const float*>(M),
+      static_cast<const float*>(mx), static_cast<const float*>(mu),
+      static_cast<const float*>(c), static_cast<const float*>(delta),
+      static_cast<float*>(gains), static_cast<uint8_t*>(ok), nbatch, H, nx,
+      nu);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes).  Each launches on `stream` of
 // `device` and returns the launch's cudaError_t (0 on success); dims
 // outside 1 <= nx <= 32, 1 <= nu <= 16 return cudaErrorInvalidValue.
+//
+// riccati_backward_f32 launches the compile-time instance
+// riccati_general_backward_fixed<NX, NU, 1, 0> for the (nx, nu) below and
+// the run-time kernel for any other; this list and `_BACKWARD_INSTANCES` in
+// ops/cuda/riccati_kernel.py must agree.  At one right-hand side mx and c
+// are laid out as the general sweep's, and with no equality rows the
+// instance reads no E, F, h or dc (delta stands in for dc).
+// riccati_backward_runtime_f32 launches the run-time kernel at any shape,
+// so that the two designs can be held against each other.
 extern "C" int riccati_backward_f32(const void* A, const void* Bm,
                                     const void* G, const void* M,
                                     const void* mx, const void* mu,
@@ -462,21 +487,27 @@ extern "C" int riccati_backward_f32(const void* A, const void* Bm,
                                     void* gains, void* ok, int nbatch, int H,
                                     int nx, int nu, int device,
                                     void* stream) {
-  cudaError_t err = check_args(nbatch, H, nx, nu, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = sizeof(float) * kWarps * backward_floats(nx, nu);
-  err = reserve_smem(riccati_backward_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((nbatch + kWarps - 1) / kWarps);
-  riccati_backward_kernel<<<grid, kWarps * 32, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(A), static_cast<const float*>(Bm),
-      static_cast<const float*>(G), static_cast<const float*>(M),
-      static_cast<const float*>(mx), static_cast<const float*>(mu),
-      static_cast<const float*>(c), static_cast<const float*>(delta),
-      static_cast<float*>(gains), static_cast<uint8_t*>(ok), nbatch, H, nx,
-      nu);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RICCATI_BACKWARD_CASE(NX_, NU_)                                     \
+  if (nx == NX_ && nu == NU_)                                               \
+    return static_cast<int>(backward_fixed<NX_, NU_, 1, 0>(                 \
+        A, Bm, G, M, mx, mu, c, delta, delta, nullptr, nullptr, nullptr,    \
+        gains, ok, nbatch, H, device, s));
+  RICCATI_BACKWARD_CASE(12, 4)
+#undef RICCATI_BACKWARD_CASE
+  return static_cast<int>(backward_runtime(A, Bm, G, M, mx, mu, c, delta,
+                                           gains, ok, nbatch, H, nx, nu,
+                                           device, s));
+}
+
+extern "C" int riccati_backward_runtime_f32(
+    const void* A, const void* Bm, const void* G, const void* M,
+    const void* mx, const void* mu, const void* c, const void* delta,
+    void* gains, void* ok, int nbatch, int H, int nx, int nu, int device,
+    void* stream) {
+  return static_cast<int>(backward_runtime(
+      A, Bm, G, M, mx, mu, c, delta, gains, ok, nbatch, H, nx, nu, device,
+      static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int riccati_forward_f32(const void* A, const void* Bm,
@@ -486,11 +517,11 @@ extern "C" int riccati_forward_f32(const void* A, const void* Bm,
                                    void* stream) {
   cudaError_t err = check_args(nbatch, H, nx, nu, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = sizeof(float) * kWarps * forward_floats(nx, nu);
+  const size_t smem = sizeof(float) * kMaxWarps * forward_floats(nx, nu);
   err = reserve_smem(riccati_forward_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((nbatch + kWarps - 1) / kWarps);
-  riccati_forward_kernel<<<grid, kWarps * 32, smem,
+  const dim3 grid((nbatch + kMaxWarps - 1) / kMaxWarps);
+  riccati_forward_kernel<<<grid, kMaxWarps * 32, smem,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(A), static_cast<const float*>(Bm),
       static_cast<const float*>(c), static_cast<const float*>(gains),

@@ -3,10 +3,11 @@
 Each source under ``pyneuralempc_tpu_torch/csrc/`` is compiled by ``nvcc``
 for Hopper (``sm_90a``) into a shared library with a plain C interface, in
 ``pyneuralempc_tpu_torch/_build/``.  The library's file name carries a hash
-of the source and the flags, so an edited source builds anew and an
-unchanged one loads from the build directory.  :func:`build_all` starts one
-``nvcc`` for each source at once.  Nothing here runs at import
-time: the CPU tests import this module on machines without ``nvcc``.
+of the source, the flags and the headers beside the sources (``*.cuh``), so
+an edited source or header builds anew and an unchanged one loads from the
+build directory.  :func:`build_all` starts one ``nvcc`` for each source at
+once.  Nothing here runs at import time: the CPU tests import this module
+on machines without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -52,11 +53,14 @@ def find_nvcc() -> str:
 
 
 def library_path(source: Path, flags: Sequence[str] = NVCC_FLAGS) -> Path:
-    """Where ``source`` builds to: its stem plus a hash of its bytes and
-    the flags."""
+    """Where ``source`` builds to: its stem plus a hash of its bytes, the
+    flags, and the names and bytes of every header in ``CSRC_DIR`` (a
+    source may include any of them)."""
     h = hashlib.sha256(Path(source).read_bytes()
-                       + "\0".join(flags).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{Path(source).stem}_{h}.so"
+                       + "\0".join(flags).encode())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(b"\0" + header.name.encode() + b"\0" + header.read_bytes())
+    return BUILD_DIR / f"lib{Path(source).stem}_{h.hexdigest()[:16]}.so"
 
 
 def nvcc_command(nvcc: str, source: Path, out: Path,

@@ -11,7 +11,11 @@ the backward kernel (:468) and the forward kernel (:488).
   ``_INSTANCES`` (the LV fleet's (2, 1)).
 * ``csrc/riccati_streamed.cu`` — the streamed pair, one warp per problem,
   any nx <= 32 and nu <= 16 at run time: the backward kernel writes each
-  stage's gains to device memory, the forward kernel reads them back.
+  stage's gains to device memory, the forward kernel reads them back.  The
+  backward entry launches a compile-time instance of the general sweep's
+  backward template (``csrc/riccati_backward_fixed.cuh``) at one right-hand
+  side and no equality rows for the (nx, nu) in ``_BACKWARD_INSTANCES``
+  (the quadrotor's (12, 4)), and the run-time kernel for every other.
 
 Beside them:
 
@@ -24,13 +28,19 @@ Beside them:
   :func:`riccati_forward_cuda`, :func:`riccati_sweep_streamed_cuda` — check
   their inputs, allocate outputs and scratch, launch on PyTorch's current
   stream.
+* :func:`riccati_backward_runtime_cuda` — the run-time backward kernel at
+  any shape, the instance's too, so that ``chip_smoke.py`` and the card
+  tests can hold the two designs against each other.  The solver never
+  calls it.
 * :func:`riccati_sweep` — the dispatch the solver calls, on
   :func:`kernel_plan`.  It never drops a CUDA tensor to a plain version.
 
 ``LAUNCHES`` counts fused launches, ``BACKWARD_LAUNCHES`` and
-``FORWARD_LAUNCHES`` the streamed pair's, and ``PLAIN_CALLS`` calls of a
-plain version (a whole plain sweep counts once), so a run can show which
-path it took.
+``FORWARD_LAUNCHES`` the streamed pair's (``BACKWARD_INSTANCE_LAUNCHES`` the
+backward launches that took the compile-time instance,
+``BACKWARD_RUNTIME_LAUNCHES`` those of :func:`riccati_backward_runtime_cuda`),
+and ``PLAIN_CALLS`` calls of a plain version (a whole plain sweep counts
+once), so a run can show which path it took.
 
 All functions take batch-first tensors: A (B,H,nx,nx), B (B,H,nx,nu),
 G and M (B,H,ns,ns) symmetric, mx (B,H,nx), mu (B,H,nu), c (B,H,nx),
@@ -53,6 +63,11 @@ _LOCAL_DELTAS = (0.0, 1e-6, 1e-4)
 
 # (nx, nu) pairs that csrc/riccati_sweep.cu instantiates.
 _INSTANCES = frozenset({(2, 1)})
+# (nx, nu) pairs for which csrc/riccati_streamed.cu's backward entry launches
+# the compile-time instance riccati_general_backward_fixed<nx, nu, 1, 0>
+# (its C entry point's list): the quadrotor fleet's stage.  Every other
+# shape takes the run-time backward kernel.
+_BACKWARD_INSTANCES = frozenset({(12, 4)})
 # Stage widths csrc/riccati_streamed.cu takes: one lane per state row in
 # the forward kernel; nu <= 16 is the reference kernel's own cap.
 STREAMED_MAX_NX = 32
@@ -74,6 +89,8 @@ _GENERAL_BACKWARD_INSTANCES = frozenset({(12, 4, 2, 1)})
 
 LAUNCHES = 0            # fused kernel launches by riccati_sweep_cuda
 BACKWARD_LAUNCHES = 0   # streamed backward launches by riccati_backward_cuda
+BACKWARD_INSTANCE_LAUNCHES = 0   # of them, the compile-time instance's
+BACKWARD_RUNTIME_LAUNCHES = 0    # riccati_backward_runtime_cuda's
 FORWARD_LAUNCHES = 0    # streamed forward launches by riccati_forward_cuda
 PLAIN_CALLS = 0         # calls of a plain version
 
@@ -98,6 +115,15 @@ def _streamed_fits(nx: int, nu: int) -> bool:
 def _general_fits(nx: int, nu: int, R: int, r: int) -> bool:
     return (_streamed_fits(nx, nu) and 1 <= R <= GENERAL_MAX_R
             and 0 <= r <= nu)
+
+
+def backward_kernel(nx: int, nu: int) -> str:
+    """The kernel that csrc/riccati_streamed.cu's backward entry launches at
+    this shape, as a profiler names it: the compile-time instance, with its
+    template arguments, or the run-time kernel."""
+    if (nx, nu) in _BACKWARD_INSTANCES:
+        return f"riccati_general_backward_fixed<{nx}, {nu}, 1, 0>"
+    return "riccati_backward_kernel"
 
 
 def general_backward_kernel(nx: int, nu: int, R: int, r: int) -> str:
@@ -469,14 +495,10 @@ def _require_streamed(nx, nu):
             f"{STREAMED_MAX_NU}, not nx={nx}, nu={nu}")
 
 
-def riccati_backward_cuda(A, B, G, M, mx, mu, c, delta):
-    """Launch the streamed backward kernel of ``csrc/riccati_streamed.cu``
-    on CUDA tensors (no fallback).  Returns ``(gains, ok)`` as
-    :func:`riccati_backward_plain` does."""
-    global BACKWARD_LAUNCHES
+def _backward_launch(entry, A, B, G, M, mx, mu, c, delta):
     Bn, H, nx, nu = _check_sweep_inputs(A, B, G, M, mx, mu, c, delta)
     _require_streamed(nx, nu)
-    fn = _entry(STREAMED_SOURCE, "riccati_backward_f32", 10)
+    fn = _entry(STREAMED_SOURCE, entry, 10)
     dev = c.device
     gains = torch.empty((Bn, H, gain_width(nx, nu)), dtype=torch.float32,
                         device=dev)
@@ -485,8 +507,32 @@ def riccati_backward_cuda(A, B, G, M, mx, mu, c, delta):
              mx.data_ptr(), mu.data_ptr(), c.data_ptr(), delta.data_ptr(),
              gains.data_ptr(), ok.data_ptr(), Bn, H, nx, nu, dev.index or 0,
              _stream(dev))
-    _raise_on(err, "riccati_backward", Bn, H, nx, nu)
+    _raise_on(err, entry, Bn, H, nx, nu)
+    return gains, ok, (nx, nu)
+
+
+def riccati_backward_cuda(A, B, G, M, mx, mu, c, delta):
+    """Launch the streamed backward kernel of ``csrc/riccati_streamed.cu``
+    on CUDA tensors (no fallback): the compile-time instance at the shapes
+    of ``_BACKWARD_INSTANCES``, the run-time kernel at any other.  Returns
+    ``(gains, ok)`` as :func:`riccati_backward_plain` does."""
+    global BACKWARD_LAUNCHES, BACKWARD_INSTANCE_LAUNCHES
+    gains, ok, shape = _backward_launch("riccati_backward_f32", A, B, G, M,
+                                        mx, mu, c, delta)
     BACKWARD_LAUNCHES += 1
+    if shape in _BACKWARD_INSTANCES:
+        BACKWARD_INSTANCE_LAUNCHES += 1
+    return gains, ok
+
+
+def riccati_backward_runtime_cuda(A, B, G, M, mx, mu, c, delta):
+    """:func:`riccati_backward_cuda` with the run-time backward kernel at
+    every shape.  Not on the solver's path: it lets one run hold the
+    instance against the run-time kernel and time both."""
+    global BACKWARD_RUNTIME_LAUNCHES
+    gains, ok, _ = _backward_launch("riccati_backward_runtime_f32", A, B, G,
+                                    M, mx, mu, c, delta)
+    BACKWARD_RUNTIME_LAUNCHES += 1
     return gains, ok
 
 

@@ -8,7 +8,7 @@ setup(
                  "compiled to XLA"),
     packages=find_packages(exclude=("tests",)),
     # the PyTorch port builds its CUDA kernels from these sources at first use
-    package_data={"pyneuralempc_tpu_torch": ["csrc/*.cu"]},
+    package_data={"pyneuralempc_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy"],
     extras_require={"test": ["pytest", "scipy", "optax"],

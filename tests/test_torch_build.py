@@ -38,13 +38,44 @@ def test_find_nvcc_reports_a_missing_toolkit(tmp_path, monkeypatch):
     assert build.find_nvcc() == str(fake)
 
 
+def test_library_path_follows_the_headers(tmp_path, monkeypatch):
+    """A source may include any header beside it, so an edited, added or
+    removed header gives every source a new library path."""
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    src = tmp_path / "k.cu"
+    src.write_text('#include "h.cuh"\n')
+    header = tmp_path / "h.cuh"
+    header.write_text("// a\n")
+    p1 = build.library_path(src)
+    assert build.library_path(src) == p1                 # stable
+    header.write_text("// b\n")
+    p2 = build.library_path(src)
+    assert p2 != p1                                      # edited header
+    (tmp_path / "g.cuh").write_text("// g\n")
+    p3 = build.library_path(src)
+    assert p3 not in (p1, p2)                            # added header
+    (tmp_path / "g.cuh").unlink()
+    assert build.library_path(src) == p2                 # removed again
+    (tmp_path / "notes.txt").write_text("x")
+    assert build.library_path(src) == p2                 # not a header
+
+
 def test_sources_ship_in_the_package():
     assert (build.CSRC_DIR / "riccati_sweep.cu").is_file()
     text = (build.CSRC_DIR / "riccati_sweep.cu").read_text()
     assert 'extern "C" int riccati_sweep_f32' in text
     text = (build.CSRC_DIR / "riccati_streamed.cu").read_text()
     assert 'extern "C" int riccati_backward_f32' in text
+    assert 'extern "C" int riccati_backward_runtime_f32' in text
     assert 'extern "C" int riccati_forward_f32' in text
+    # the backward template both streamed sources instantiate
+    header = build.CSRC_DIR / "riccati_backward_fixed.cuh"
+    assert "riccati_general_backward_fixed(" in header.read_text()
+    for source in ("riccati_streamed.cu", "riccati_general.cu"):
+        text = (build.CSRC_DIR / source).read_text()
+        assert '#include "riccati_backward_fixed.cuh"' in text
+    setup = (build.PACKAGE_DIR.parent / "setup.py").read_text()
+    assert '"csrc/*.cu", "csrc/*.cuh"' in setup
 
 
 def _fake_nvcc(tmp_path, rc=0):

@@ -1,6 +1,6 @@
 """Tests of the port that need an NVIDIA card: the CUDA sweeps (the fused
-kernel, the streamed backward/forward pair, the general pair, with the
-general backward kernel's compile-time instance, and the fused general
+kernel, the streamed backward/forward pair and the general pair, each with
+its backward kernel's compile-time instance, and the fused general
 kernel) against their plain versions and each other, the wrappers'
 checks and dispatch, and the LV, quadrotor, EQ/border quadrotor and
 budgeted LV paths on the card against the CPU.  They skip without a CUDA
@@ -17,7 +17,8 @@ import torch
 import pyneuralempc_tpu_torch as nempc
 from pyneuralempc_tpu_torch.ops.cuda import riccati_general as rg
 from pyneuralempc_tpu_torch.ops.cuda import riccati_kernel as rk
-from pyneuralempc_tpu_torch.ops.cuda.sweep_cases import general_sweep_case
+from pyneuralempc_tpu_torch.ops.cuda.sweep_cases import (general_sweep_case,
+                                                         sweep_case)
 
 import _torch_threads  # noqa: F401  (one torch thread)
 
@@ -123,6 +124,55 @@ def test_streamed_pair_matches_fused_kernel():
     assert torch.equal(fused[3], pair[3])
     for o, r in zip(pair[:3], fused[:3]):
         assert _scaled_err(o, r) <= SCALED_ATOL
+
+
+@pytest.mark.parametrize("kind", ["delta0", "delta_per_problem",
+                                  "negative_curvature", "local_bump"])
+def test_backward_instance_matches_plain_and_runtime(kind):
+    """At the quadrotor's stage (12, 4) the streamed backward entry launches
+    the compile-time instance riccati_general_backward_fixed<12, 4, 1, 0>:
+    its gains and ok flags against riccati_backward_plain and against the
+    run-time kernel on the same inputs.  At (4, 2) the entry takes the
+    run-time kernel."""
+    _card()
+    args = [torch.as_tensor(a, device="cuda") for a in sweep_case(
+        kind, B=257, H=50, nx=12, nu=4, seed=11)]
+    def counts():
+        return (rk.BACKWARD_LAUNCHES, rk.BACKWARD_INSTANCE_LAUNCHES,
+                rk.BACKWARD_RUNTIME_LAUNCHES)
+
+    n0 = counts()
+    gains, ok = rk.riccati_backward_cuda(*args)
+    g_rt, ok_rt = rk.riccati_backward_runtime_cuda(*args)
+    torch.cuda.synchronize()
+    assert counts() == (n0[0] + 1, n0[1] + 1, n0[2] + 1)
+    g_ref, ok_ref = rk.riccati_backward_plain(*args)
+    want = (torch.arange(257, device="cuda") % 2 == 0
+            if kind == "negative_curvature"
+            else torch.ones(257, dtype=torch.bool, device="cuda"))
+    assert torch.equal(ok_ref, want)
+    assert torch.equal(ok, ok_ref) and torch.equal(ok_rt, ok_ref)
+    assert _scaled_err(gains, g_ref, ok_ref) <= STREAMED_ATOL
+    assert _scaled_err(gains, g_rt, ok_ref) <= STREAMED_ATOL
+    n1 = counts()
+    rk.riccati_backward_cuda(*_sweep_inputs(8, 3, nx=4, nu=2))
+    assert counts() == (n1[0] + 1, n1[1], n1[2])
+
+
+def test_backward_instance_reads_upper_triangles_only():
+    """NaN in the strict lower triangles of G and M changes no gain: the
+    instance reads their upper triangles in place."""
+    _card()
+    args = [torch.as_tensor(a, device="cuda") for a in sweep_case(
+        "delta_per_problem", B=65, H=20, nx=12, nu=4)]
+    gains, ok = rk.riccati_backward_cuda(*args)
+    lower = torch.ones(16, 16, dtype=torch.bool, device="cuda").tril(-1)
+    for i in (2, 3):
+        args[i] = args[i].masked_fill(lower, float("nan"))
+    g_nan, ok_nan = rk.riccati_backward_cuda(*args)
+    torch.cuda.synchronize()
+    assert bool(ok.all()) and torch.equal(ok_nan, ok)
+    assert torch.equal(g_nan, gains)
 
 
 def test_dispatch_and_checks_on_card():

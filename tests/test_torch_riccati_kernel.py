@@ -8,6 +8,9 @@ counts behind each kernel's bound.  The CUDA kernels themselves are held
 against the plain versions on a card by tests/test_torch_cuda.py and
 chip_smoke.py."""
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -251,3 +254,82 @@ def test_plain_counters():
     with pytest.raises(ValueError, match="CUDA device"):
         rk.riccati_forward_cuda(t[0], t[1], t[6], gains)
     assert (rk.BACKWARD_LAUNCHES, rk.FORWARD_LAUNCHES) == launches
+
+
+# ---- the streamed backward kernel's compile-time instance ----
+
+STREAMED_SOURCE = (Path(__file__).resolve().parents[1]
+                   / "pyneuralempc_tpu_torch" / "csrc" / rk.STREAMED_SOURCE)
+
+
+def test_plain_backward_instances_match_the_c_entry_point():
+    """The streamed backward entry's list of compile-time instances is
+    exactly _BACKWARD_INSTANCES: the quadrotor fleet's stage."""
+    cases = re.findall(r"^\s*RICCATI_BACKWARD_CASE\((\d+), (\d+)\)\s*$",
+                       STREAMED_SOURCE.read_text(), re.M)
+    assert {tuple(map(int, t)) for t in cases} == rk._BACKWARD_INSTANCES
+    assert len(cases) == len(rk._BACKWARD_INSTANCES)
+    assert rk._BACKWARD_INSTANCES == {(12, 4)}
+
+
+@pytest.mark.parametrize("nx,nu", [(12, 4), (4, 1), (4, 2), (12, 10),
+                                   (32, 16)])
+def test_backward_kernel_rule(nx, nu):
+    """The instance (the general template at one right-hand side and no
+    equality rows) at (12, 4), the run-time kernel at any other shape; both
+    stay on the streamed path."""
+    assert rk.kernel_plan(50, nx, nu, "cuda")["path"] == "cuda_streamed"
+    name = rk.backward_kernel(nx, nu)
+    if (nx, nu) == (12, 4):
+        assert name == "riccati_general_backward_fixed<12, 4, 1, 0>"
+    else:
+        assert name == "riccati_backward_kernel"
+    # the profiler names of the three backward designs hold none of the
+    # others: the two instances differ in their template arguments
+    names = (rk.backward_kernel(12, 4), "riccati_backward_kernel",
+             "riccati_general_backward_fixed<12, 4, 2, 1>",
+             "riccati_general_backward_kernel")
+    for a in names:
+        for b in names:
+            assert a == b or a.replace(" ", "") not in b.replace(" ", "")
+
+
+@pytest.mark.parametrize("kind", ["delta0", "delta_per_problem",
+                                  "negative_curvature", "local_bump"])
+def test_plain_backward_is_the_general_backward_at_one_rhs(kind):
+    """The identity the instance stands on: at the quadrotor's (12, 4) and
+    H=50, riccati_backward_plain gives the gains and ok flags that
+    riccati_general_backward_plain gives at R=1, r=0 on the same case (one
+    layout, 256 floats a stage), to 1e-6 scaled."""
+    from pyneuralempc_tpu_torch.ops.cuda import riccati_general as rg
+    from pyneuralempc_tpu_torch.ops.cuda.sweep_cases import \
+        general_sweep_case
+    nx, nu = 12, 4
+    plain = _torch(sweep_case(kind, B=4, H=50, nx=nx, nu=nu, seed=9))
+    general = _torch(general_sweep_case(kind, B=4, H=50, nx=nx, nu=nu, R=1,
+                                        r=0, seed=9))
+    for i in (4, 5, 6):              # mx, mu, c: one right-hand side
+        assert torch.equal(general[i][:, :, 0], plain[i])
+    gains, ok = rk.riccati_backward_plain(*plain)
+    g_gen, ok_gen = rg.riccati_general_backward_plain(*general[:12])
+    assert gains.shape == g_gen.shape == (4, 50, 256)
+    assert torch.equal(ok, ok_gen)
+    want = [True, False, True, False] if kind == "negative_curvature" else [
+        True] * 4
+    assert ok.tolist() == want
+    err = (gains - g_gen).abs() / gains.abs().clamp(min=1.0)
+    assert float(err[ok].max()) <= 1e-6
+
+
+def test_backward_runtime_wrapper_refuses_cpu_tensors():
+    """The run-time backward wrapper launches only on CUDA tensors, and a
+    refused call moves no counter."""
+    t = _torch(sweep_case("delta0", B=2, H=2, nx=12, nu=4))
+    counts = (rk.BACKWARD_LAUNCHES, rk.BACKWARD_INSTANCE_LAUNCHES,
+              rk.BACKWARD_RUNTIME_LAUNCHES, rk.PLAIN_CALLS)
+    with pytest.raises(ValueError, match="CUDA device"):
+        rk.riccati_backward_runtime_cuda(*t)
+    with pytest.raises(ValueError, match="CUDA device"):
+        rk.riccati_backward_cuda(*t)
+    assert (rk.BACKWARD_LAUNCHES, rk.BACKWARD_INSTANCE_LAUNCHES,
+            rk.BACKWARD_RUNTIME_LAUNCHES, rk.PLAIN_CALLS) == counts
