@@ -8,9 +8,11 @@ Phases (each raises, and the script exits non-zero, on failure):
 1. Device: the card's name and power limit, torch and CUDA versions; TF32
    matmuls off.  No CUDA device -> exit 1 with no result.
 2. Build: nvcc compiles every kernel of the port from the checkout's
-   sources (pyneuralempc_tpu_torch/csrc/*.cu and the header two of them
-   share, riccati_backward_fixed.cuh), one nvcc for each source, all
-   started together; ptxas registers and spills are logged.
+   sources (pyneuralempc_tpu_torch/csrc/*.cu and their headers: the
+   backward template two of them share, riccati_backward_fixed.cuh, and
+   the bulk-copy primitives of the fused general source, bulk_copy.cuh),
+   one nvcc for each source, all started together; ptxas registers and
+   spills are logged.
 3. Fused kernel vs plain: the fused sweep (csrc/riccati_sweep.cu) against
    its plain PyTorch version at the LV path's shapes (B=4096, H=20, nx=2,
    nu=1) on four seeded cases, with its median device time (the kernel's
@@ -43,14 +45,22 @@ Phases (each raises, and the script exits non-zero, on failure):
    case (R=1, r=nu, H=10), and the pair at R=1, r=0 against the plain
    streamed pair: these shapes take the run-time backward kernel, so they
    keep covering it.  Times as in 3.
-3d. Fused general kernel vs plain: csrc/riccati_general_fused.cu at the
+3d. Fused general kernels vs plain: csrc/riccati_general_fused.cu at the
    budgeted LV path's shapes (B=4096, H=20, nx=2, nu=1) at (R, r) = (2, 0),
-   (2, 1) and (3, 0) on the four cases (local_bump only at r=0: it
-   decouples a control from the equality rows, which needs r < nu) and at
-   (1, 1) with H=10: ok flags, every output and the gains scratch against
-   riccati_sweep_general_plain / riccati_general_backward_plain, and the
-   largest difference from the streamed general pair on the same inputs.
-   Times as in 3, and the streamed general pair timed at the same shape.
+   (2, 1), (3, 0) and (3, 1) on the four cases (local_bump only at r=0: it
+   decouples a control from the equality rows, which needs r < nu), at
+   (1, 1) with H=10, and at (2, 0) with H=50 (24 problems a block, the
+   last block ragged): the staged kernel (the solver's) against
+   riccati_sweep_general_plain / riccati_general_backward_plain (ok flags,
+   every output, the gains it writes when asked), against the direct
+   kernel (the first design) and against the streamed general pair on the
+   same inputs.  Times as in 3 for the staged kernel; then both kernels'
+   device times in turns (direct, staged, staged, direct), as the path
+   finds the inputs (warm in L2) and with a 256 MB write before each
+   launch (L2 flushed); the staged kernel's phases (prologue, backward,
+   forward, epilogue) from its per-block clock stamps, warm and flushed;
+   the staged block's problems and shared memory, and ptxas's report of
+   both kernels; the streamed general pair timed at the same shape.
 4. LV path: trains the 2x32 tanh MLP surrogate of the Lotka-Volterra
    system on the card, builds NMPC as bench.py does, solves B=4096 cold and
    then warm re-plans, the plant advanced by the true ODE through the port's
@@ -77,11 +87,12 @@ Phases (each raises, and the script exits non-zero, on failure):
    row, R=2, r=0), on B=4096: one cold solve and 8 timed warm re-plans as
    in phase 4, then one closed_loop_batch run (api/simulate.py, steps=16,
    replan_every=2: a cold solve and 8 warm re-plans) against the true ODE.
-   Counters: the fused general kernel must have launched and nothing else
-   in either run; every plan converged (up to 4 of 4096) on every solve;
-   the floor held on every converged plan and binding on 5-95% of the
-   converged cold plans.  Closed loop: solves/s, the largest state-box
-   violation on the true plant, the mean feed cost.
+   Counters: the fused general kernel must have launched, every launch
+   through its staged kernel, and nothing else in either run; every plan
+   converged (up to 4 of 4096) on every solve; the floor held on every
+   converged plan and binding on 5-95% of the converged cold plans.
+   Closed loop: solves/s, the largest state-box violation on the true
+   plant, the mean feed cost.
 5. Card vs CPU: 16 LV problems, 16 quadrotor problems, 16 EQ/border
    quadrotor problems and 16 budgeted LV problems solved on the card and on
    the CPU, and the budgeted fleet's closed loop (B=16, steps=4) on both.
@@ -136,7 +147,9 @@ BUDGET_SLACK = 1e-3
 # the budgeted LV path: R right-hand sides (1 + the feed floor row), r = 0;
 # the kernel's other instantiated shapes checked beside it
 LR, LEQ = 2, 0
-FUSED_GENERAL_SHAPES = ((2, 0), (2, 1), (3, 0))
+FUSED_GENERAL_SHAPES = ((2, 0), (2, 1), (3, 0), (3, 1))
+FUSED_RAGGED_H = 50           # 24 problems a staged block at (2, 1, 2, 0)
+FLUSH_BYTES = 256 * 2 ** 20   # written between launches: 5x the 50 MB L2
 CL_STEPS, CL_REPLAN = 16, 2   # the reference example's cadence
 # the floor binds on this share of the converged cold plans (at least, at
 # most)
@@ -173,6 +186,7 @@ def reset_counters(rk, rg):
     rk.PLAIN_CALLS = 0
     rg.BACKWARD_LAUNCHES = rg.FORWARD_LAUNCHES = rg.FUSED_LAUNCHES = 0
     rg.BACKWARD_INSTANCE_LAUNCHES = rg.BACKWARD_RUNTIME_LAUNCHES = 0
+    rg.FUSED_STAGED_LAUNCHES = rg.FUSED_DIRECT_LAUNCHES = 0
 
 
 def counters(rk, rg):
@@ -184,7 +198,9 @@ def counters(rk, rg):
             "general_backward_instance": rg.BACKWARD_INSTANCE_LAUNCHES,
             "general_backward_runtime": rg.BACKWARD_RUNTIME_LAUNCHES,
             "general_forward": rg.FORWARD_LAUNCHES,
-            "fused_general": rg.FUSED_LAUNCHES}
+            "fused_general": rg.FUSED_LAUNCHES,
+            "fused_general_staged": rg.FUSED_STAGED_LAUNCHES,
+            "fused_general_direct": rg.FUSED_DIRECT_LAUNCHES}
 
 
 def only_launched(n, *names):
@@ -601,54 +617,179 @@ def lv_general_case(kind, seed, R, r, Hn=H):
     return [torch.as_tensor(a, device="cuda") for a in case]
 
 
-def phase_fused_general(rk, rg):
-    """The fused general kernel against the plain general sweep (outputs,
-    ok flags, gains scratch) at the budgeted LV path's stage, and against
-    the streamed general pair on the same inputs; then its times and the
-    pair's at the path's shape (R=2, r=0)."""
-    worst, worst_pair = [0.0, 0.0], 0.0
+def ptxas_report(log, kernel, template_args):
+    """ptxas -v's lines for one instance of ``kernel`` in a build log: its
+    registers, spills, stack and barriers (dynamic shared memory is set at
+    launch and not in the report)."""
+    # the instance's mangled name: kernel I Li<arg>E ... E
+    mangled = f"{kernel}I{''.join(f'Li{a}E' for a in template_args)}E"
+    out, inside = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            inside = mangled in line
+            continue
+        if inside and ("Used" in line or "spill" in line or "stack" in line):
+            out.append(" ".join(line.replace("ptxas info    :", "").split()))
+    return "; ".join(out) or "not in the build log (built earlier)"
+
+
+PHASES = ("prologue", "backward", "forward", "epilogue")
+
+
+def phase_split(rg, args, wrap, runs=10):
+    """The staged kernel's phases from its stamps (per block: SM cycles and
+    device ns at its start and after each phase), medians over the blocks
+    and then over ``runs`` launches; with the span from the first block's
+    start to the last block's end, and the spread of the blocks' starts."""
+    per_run = []
+    for _ in range(runs):
+        stamps = wrap(lambda: rg.fused_phase_stamps(*args))()
+        torch.cuda.synchronize()
+        st = stamps.cpu().double()
+        per_run.append(
+            [float((st[:, k + 1, 1] - st[:, k, 1]).median()) / 1e3
+             for k in range(4)]
+            + [float((st[:, k + 1, 0] - st[:, k, 0]).median())
+               for k in range(4)]
+            + [float(st[:, 4, 1].max() - st[:, 0, 1].min()) / 1e3,
+               float(st[:, 0, 1].max() - st[:, 0, 1].min()) / 1e3])
+    med = [statistics.median(col) for col in zip(*per_run)]
+    return {"us": dict(zip(PHASES, med[:4])),
+            "cycles": dict(zip(PHASES, med[4:8])),
+            "span_us": med[8], "start_spread_us": med[9]}
+
+
+def phase_fused_general(rk, rg, build_log):
+    """The staged fused general kernel against the plain general sweep
+    (outputs, ok flags, gains), the direct kernel and the streamed general
+    pair on the same inputs at the budgeted LV path's stage; then both
+    fused kernels' times, warm and L2-flushed, and the pair's at the
+    path's shape (R=2, r=0)."""
+    worst, worst_direct, worst_pair = [0.0, 0.0], 0.0, 0.0
     checks = [(kind, seed, R, r, H) for R, r in FUSED_GENERAL_SHAPES
               for kind, seed in CASES.items()
               if kind != "local_bump" or r == 0]
     checks += [(kind, seed, 1, 1, PURE_EQ_H) for kind, seed in CASES.items()
                if kind != "local_bump"]
+    checks += [(kind, seed, LR, LEQ, FUSED_RAGGED_H)
+               for kind, seed in CASES.items()]
     for kind, seed, R, r, Hn in checks:
-        label = f"R={R}, r={r}, H={Hn}"
+        P = rk.staged_block_problems(Hn, 2, 1, R, r)
+        label = f"R={R}, r={r}, H={Hn}, {P} problems a block"
         args = lv_general_case(kind, seed, R, r, Hn)
+        n0 = rg.FUSED_STAGED_LAUNCHES
         *out, gains = rg.riccati_sweep_general_fused_cuda(*args,
                                                           return_gains=True)
         torch.cuda.synchronize()
+        if rg.FUSED_STAGED_LAUNCHES != n0 + 1:
+            raise RuntimeError(f"{label}: the staged kernel did not launch")
         ref = rg.riccati_sweep_general_plain(*args)
         g_ref, ok_ref = rg.riccati_general_backward_plain(*args[:12])
         check_ok(kind, out[4], ref[4])
         e = errors(out[:4] + [gains], list(ref[:4]) + [g_ref], ref[4])
+        *direct, d_gains = rg.riccati_sweep_general_fused_direct_cuda(
+            *args, return_gains=True)
         pair = rg.riccati_sweep_general_streamed_cuda(*args)
         torch.cuda.synchronize()
+        check_ok(kind, direct[4], out[4])
         check_ok(kind, pair[4], out[4])
+        e_direct = errors(out[:4] + [gains], direct[:4] + [d_gains], out[4])
         e_pair = errors(pair[:4], out[:4], out[4])
-        log(f"fused general vs plain [{kind}, {label}]: ok "
+        log(f"fused general staged vs plain [{kind}, {label}]: ok "
             f"{int(ref[4].sum())}/{B} (equal), max |diff| {e[0]:.3e}, max "
             f"|diff|/max(1,|plain|) {e[1]:.3e} (outputs and gains; limit "
-            f"{STREAMED_TOL}); vs the general pair {e_pair[1]:.3e}")
-        if not (e[1] <= STREAMED_TOL and e_pair[1] <= STREAMED_TOL):
-            raise RuntimeError(f"{kind}, {label}: fused general kernel "
-                               f"differs from plain by {e[1]:.3e}, from the "
+            f"{STREAMED_TOL}); vs the direct kernel {e_direct[1]:.3e}, vs "
+            f"the general pair {e_pair[1]:.3e}")
+        if not (e[1] <= STREAMED_TOL and e_direct[1] <= STREAMED_TOL
+                and e_pair[1] <= STREAMED_TOL):
+            raise RuntimeError(f"{kind}, {label}: the staged kernel differs "
+                               f"from plain by {e[1]:.3e}, from the direct "
+                               f"kernel by {e_direct[1]:.3e}, from the "
                                f"general pair by {e_pair[1]:.3e}")
         worst = [max(a, b) for a, b in zip(worst, e[:2])]
+        worst_direct = max(worst_direct, e_direct[1])
         worst_pair = max(worst_pair, e_pair[1])
-        del args, out, gains, ref, g_ref, pair
+        del args, out, gains, ref, g_ref, direct, d_gains, pair
 
     args = lv_general_case("delta0", 0, LR, LEQ)
     dims = (B, H, 2, 1, LR, LEQ)
     label = f"B={B}, H={H}, nx=2, nu=1, R={LR}, r={LEQ}"
+    plan = rk.kernel_plan(H, 2, 1, "cuda", R=LR, r=LEQ)
+    if plan["kernel"] != rk.STAGED_KERNEL:
+        raise RuntimeError(f"the budgeted LV shape plans {plan['kernel']}")
+    P = plan["block_problems"]
+    smem = rk.staged_smem_bytes(P, H, 2, 1, LR, LEQ)
+    staged = lambda: rg.riccati_sweep_general_fused_cuda(*args)  # noqa: E731
+    direct = lambda: rg.riccati_sweep_general_fused_direct_cuda(  # noqa: E731
+        *args)
     entry = kernel_entry(
         "riccati_general_fused", "riccati_general_fused.cu", f"{PALLAS}:953",
-        lambda: rg.riccati_sweep_general_fused_cuda(*args),
-        "riccati_general_fused_kernel",
+        staged, rk.STAGED_KERNEL,
         lambda: rg.riccati_sweep_general_plain(*args),
         rg.general_fused_bytes(*dims), rg.general_fused_flops(*dims), label)
+    # the two designs in turns, as the path finds the inputs (warm in L2)
+    # and with L2 flushed before each launch
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
+
+    def flushed(fn):
+        def run():
+            flush.zero_()
+            return fn()
+        return run
+
+    turns = {}
+    for cache, wrap in (("warm", lambda fn: fn), ("flushed", flushed)):
+        for who in ("direct", "staged", "staged", "direct"):
+            fn, name = ((direct, rk.DIRECT_KERNEL) if who == "direct"
+                        else (staged, rk.STAGED_KERNEL))
+            ms, how = kernel_device_ms(wrap(fn), name)
+            turns.setdefault((cache, who), []).append(ms)
+            log(f"  turn [{cache}] {who}: {ms * 1e3:.2f} us ({how})")
+    split = {cache: phase_split(rg, args, wrap)
+             for cache, wrap in (("warm", lambda fn: fn),
+                                 ("flushed", flushed))}
+    del flush
+    for cache, sp in split.items():
+        log(f"staged kernel phases [{cache}] (per block, medians; stamps "
+            "from %globaltimer and clock64): "
+            + ", ".join(f"{k} {sp['us'][k]:.2f} us ({sp['cycles'][k]:.0f} "
+                        "cycles)" for k in PHASES)
+            + f"; backward {sp['cycles']['backward'] / H:.0f} and forward "
+              f"{sp['cycles']['forward'] / H:.0f} cycles a stage; first "
+              f"start to last end {sp['span_us']:.2f} us, blocks start "
+              f"within {sp['start_spread_us']:.2f} us")
+    direct_call_ms = cuda_median_ms(direct)
+    mean = {k: statistics.mean(v) for k, v in turns.items()}
+    staged_ptxas = ptxas_report(build_log, rk.STAGED_KERNEL, (2, 1, LR, LEQ))
+    direct_ptxas = ptxas_report(build_log, rk.DIRECT_KERNEL, (2, 1, LR, LEQ))
+    log(f"riccati_general_fused at {label}: staged kernel "
+        f"{mean['warm', 'staged'] * 1e3:.2f} us warm / "
+        f"{mean['flushed', 'staged'] * 1e3:.2f} us L2 flushed, direct "
+        f"kernel {mean['warm', 'direct'] * 1e3:.2f} us / "
+        f"{mean['flushed', 'direct'] * 1e3:.2f} us (device time, means of "
+        f"two turns each): the staged kernel takes "
+        f"{mean['warm', 'staged'] / mean['warm', 'direct']:.2%} of the "
+        f"direct kernel's time warm; wrapper calls "
+        f"{entry['call_ms'] * 1e3:.1f} us staged, "
+        f"{direct_call_ms * 1e3:.1f} us direct")
+    log(f"staged block: {P} problems, {smem} bytes of dynamic shared memory,"
+        f" {(B + P - 1) // P} blocks; ptxas staged <2, 1, {LR}, {LEQ}>: "
+        f"{staged_ptxas}; direct: {direct_ptxas}")
     entry.update(max_abs_err=worst[0], max_scaled_err=worst[1],
-                 max_scaled_err_vs_pair=worst_pair)
+                 max_scaled_err_vs_direct=worst_direct,
+                 max_scaled_err_vs_pair=worst_pair,
+                 design=f"staged ({rk.STAGED_KERNEL}, {P} problems a block, "
+                        f"{smem} B of shared memory)",
+                 staged_turns_ms=turns["warm", "staged"],
+                 staged_flushed_turns_ms=turns["flushed", "staged"],
+                 direct_turns_ms=turns["warm", "direct"],
+                 direct_flushed_turns_ms=turns["flushed", "direct"],
+                 direct_ms=mean["warm", "direct"],
+                 direct_call_ms=direct_call_ms,
+                 flushed_ms=mean["flushed", "staged"],
+                 direct_flushed_ms=mean["flushed", "direct"],
+                 ptxas_staged=staged_ptxas, ptxas_direct=direct_ptxas,
+                 phase_split=split)
     # the comparison the Pallas design made between its two branches
     gains, _ = rg.riccati_general_backward_cuda(*args[:12])
     A, Bm, c, Jx = args[0], args[1], args[6], args[12]
@@ -663,7 +804,7 @@ def phase_fused_general(rk, rg):
     entry["pair_ms"] = bwd_ms + fwd_ms
     log(f"streamed general pair at {label}: backward {bwd_ms * 1e3:.2f} us "
         f"({how_b}) + forward {fwd_ms * 1e3:.2f} us ({how_f}) of device "
-        f"time; {pair_ms * 1e3:.1f} us per wrapper call; the fused kernel "
+        f"time; {pair_ms * 1e3:.1f} us per wrapper call; the staged kernel "
         f"takes {entry['ms'] / (bwd_ms + fwd_ms):.2%} of the pair's device "
         "time")
     return entry
@@ -1024,13 +1165,16 @@ def phase_budget(nempc, rk, rg, card, params, x0s, fused_ms):
             f"{launches[-1]}  " + telemetry("warm", res))
         check_floor(f"warm {step}", res, U_FLOOR)
     n = counters(rk, rg)
-    log(f"budgeted LV path: fused general launches {n['fused_general']}; "
-        f"fused {n['fused']}, streamed {n['backward']} / {n['forward']}, "
-        f"general pair {n['general_backward']} / {n['general_forward']}, "
-        f"plain calls {n['plain']}")
-    if not only_launched(n, "fused_general"):
+    log(f"budgeted LV path: fused general launches {n['fused_general']} "
+        f"(staged {n['fused_general_staged']}, direct "
+        f"{n['fused_general_direct']}); fused {n['fused']}, streamed "
+        f"{n['backward']} / {n['forward']}, general pair "
+        f"{n['general_backward']} / {n['general_forward']}, plain calls "
+        f"{n['plain']}")
+    if (not only_launched(n, "fused_general", "fused_general_staged")
+            or n["fused_general_staged"] != n["fused_general"]):
         raise RuntimeError("the budgeted LV path did not go through the "
-                           "fused general kernel alone")
+                           "staged fused general kernel alone")
     if min(conv) < MIN_WARM_CONVERGED:
         raise RuntimeError(f"budgeted LV convergence {conv} (cold, warm...) "
                            f"below {MIN_WARM_CONVERGED}/{B}")
@@ -1060,16 +1204,19 @@ def phase_budget(nempc, rk, rg, card, params, x0s, fused_ms):
         f"{n_solves * B / dt:,.0f} solves/s; converged per solve {conv_cl}; "
         f"max state-box violation on the true plant {float(viol.max()):.3e};"
         f" mean feed cost {float(feed):.4f} (raw units, 1.1 a unit fed); "
-        f"fused general launches {n_cl['fused_general']}")
-    if not only_launched(n_cl, "fused_general"):
-        raise RuntimeError("the closed loop did not go through the fused "
-                           "general kernel alone")
+        f"fused general launches {n_cl['fused_general']} (staged "
+        f"{n_cl['fused_general_staged']}, direct "
+        f"{n_cl['fused_general_direct']})")
+    if (not only_launched(n_cl, "fused_general", "fused_general_staged")
+            or n_cl["fused_general_staged"] != n_cl["fused_general"]):
+        raise RuntimeError("the closed loop did not go through the staged "
+                           "fused general kernel alone")
     if min(conv_cl) < MIN_WARM_CONVERGED:
         raise RuntimeError(f"closed-loop convergence {conv_cl} below "
                            f"{MIN_WARM_CONVERGED}/{B}")
     if not bool(torch.isfinite(out.x).all()):
         raise RuntimeError("non-finite closed-loop trajectory")
-    return n["fused_general"]
+    return n["fused_general_staged"], n_cl["fused_general_staged"]
 
 
 # ---- phase 5: card vs CPU ----
@@ -1223,8 +1370,8 @@ def main():
     t0 = time.perf_counter()
     sources = (rk.SOURCE, rk.STREAMED_SOURCE, rk.GENERAL_SOURCE,
                rk.GENERAL_FUSED_SOURCE)
-    for src, r in zip(sources,
-                      build.build_all([build.CSRC_DIR / s for s in sources])):
+    built = build.build_all([build.CSRC_DIR / s for s in sources])
+    for src, r in zip(sources, built):
         log(f"built {src} -> {r.path.name} in {r.seconds:.1f} s")
         for line in r.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -1235,7 +1382,7 @@ def main():
     fused = phase_kernels(rk)
     bwd, fwd, pair_ms = phase_streamed(rk)
     gbwd, gfwd, gpair_ms = phase_general(rk, rg)
-    gfused = phase_fused_general(rk, rg)
+    gfused = phase_fused_general(rk, rg, built[-1].log)
 
     # phases 4, 4b, 4c, 4d, 6: main paths and their numbers
     params, x0s, fused["launches"] = phase_main_path(nempc, rk, rg, card)
@@ -1243,8 +1390,8 @@ def main():
         nempc, rk, rg, card, pair_ms)
     eq_x0s, gbwd["launches"], gfwd["launches"] = phase_fleet_eq(
         nempc, rk, rg, card, gpair_ms)
-    gfused["launches"] = phase_budget(nempc, rk, rg, card, params, x0s,
-                                      gfused["call_ms"])
+    gfused["launches"], gfused["closed_loop_launches"] = phase_budget(
+        nempc, rk, rg, card, params, x0s, gfused["call_ms"])
 
     # phase 5: card vs CPU
     phase_card_vs_cpu(nempc, params, x0s, q_x0s, eq_x0s)

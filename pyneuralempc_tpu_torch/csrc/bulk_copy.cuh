@@ -1,0 +1,86 @@
+// Hopper's asynchronous copies into shared memory (sm_90a), each inline-PTX
+// primitive in one small __device__ function: the 1-D bulk copy (the Tensor
+// Memory Accelerator's copy of a contiguous range) that completes on an
+// mbarrier, the mbarrier's init, arrival and wait, and the 4-byte cp.async
+// copy for ranges the bulk copy does not take; and the clocks a kernel's
+// phases are stamped with.  Keeping them here, and nothing else, lets a
+// host-side emulation of a kernel replace this header with plain copies
+// and host clocks.
+
+#pragma once
+
+#include <cuda_pipeline.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Initialise the mbarrier `bar` (8 bytes of shared memory) for one arrival
+// and make the initialisation visible to the copy engine.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               :: "r"(smem_u32(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The barrier's one arrival, announcing `bytes` of copies that complete on
+// it.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Spin until the barrier's phase `parity` (0 for its first) has completed:
+// the arrival made and every announced byte landed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  }
+}
+
+// One bulk copy of `bytes` from global to shared memory, completing on
+// `bar`.  Both addresses 16-byte aligned, `bytes` a multiple of 16.
+__device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src,
+                                              uint32_t bytes,
+                                              uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+         "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// One float from global to shared memory by cp.async; it has landed after
+// the calling thread's next copy4_wait_all().
+__device__ __forceinline__ void copy4_async(float* dst, const float* src) {
+  __pipeline_memcpy_async(dst, src, 4);
+}
+
+__device__ __forceinline__ void copy4_wait_all() {
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+}
+
+// The SM's cycle counter and the device's nanosecond clock (%globaltimer,
+// one clock for every SM), for stamping a kernel's phases.
+__device__ __forceinline__ void read_clocks(long long* cycles,
+                                            long long* ns) {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t) :: "memory");
+  *cycles = clock64();
+  *ns = static_cast<long long>(t);
+}
+
+}  // namespace

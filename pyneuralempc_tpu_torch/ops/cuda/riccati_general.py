@@ -18,7 +18,11 @@ Replaces ``pyneuralempc_tpu/ops/pallas/riccati_kernel.py``
   program: ``csrc/riccati_general_fused.cu``, one thread per problem,
   backward then forward in one launch, instantiated for the (nx, nu, R, r)
   of ``riccati_kernel._GENERAL_INSTANCES`` (the LV stage (2, 1) with
-  R <= 3, r <= 1);
+  R <= 3, r <= 1).  Its staged kernel brings each block's inputs into
+  shared memory with bulk copies and keeps the gains there; its direct
+  kernel (the first design) reads every stage from device memory and
+  takes the horizons at which not one problem fits in shared memory
+  (``riccati_kernel.staged_block_problems``);
 * its streamed pair, the backward kernel (:991) and the forward kernel
   (:1024): ``csrc/riccati_general.cu``, one warp per problem, any
   nx <= 32, nu <= 16, R <= 65, r <= nu at run time; every other general
@@ -39,18 +43,22 @@ Beside them:
 * :func:`riccati_sweep_general_fused_cuda`,
   :func:`riccati_general_backward_cuda`, :func:`riccati_general_forward_cuda`,
   :func:`riccati_sweep_general_streamed_cuda` — check their inputs,
-  allocate outputs (and the fused kernel's gains scratch), launch on
-  PyTorch's current stream.
+  allocate outputs (and a gains buffer where a kernel needs one or the
+  caller asks for it), launch on PyTorch's current stream.
 * :func:`riccati_general_backward_runtime_cuda` — the run-time backward
-  kernel at any shape, the instance's shape too, so that ``chip_smoke.py``
-  and the card tests can hold the two designs against each other.  The
-  solver never calls it.
+  kernel at any shape, the instance's shape too, and
+  :func:`riccati_sweep_general_fused_direct_cuda` — the fused direct
+  kernel at any horizon, so that ``chip_smoke.py`` and the card tests can
+  hold the two designs of each against each other.  The solver never
+  calls them.
 * :func:`riccati_sweep_general` — the dispatch the solver calls, on
   :func:`~.riccati_kernel.kernel_plan`.  It never drops a CUDA tensor to a
   plain version, and a kernel that fails to launch raises.
 
-``FUSED_LAUNCHES`` counts the fused kernel's launches, ``BACKWARD_LAUNCHES``
-and ``FORWARD_LAUNCHES`` the pair's; ``BACKWARD_INSTANCE_LAUNCHES`` counts
+``FUSED_LAUNCHES`` counts the fused kernels' launches, of which
+``FUSED_STAGED_LAUNCHES`` took the staged kernel and
+``FUSED_DIRECT_LAUNCHES`` the direct one; ``BACKWARD_LAUNCHES`` and
+``FORWARD_LAUNCHES`` count the pair's; ``BACKWARD_INSTANCE_LAUNCHES`` counts
 the backward launches that took the compile-time instance and
 ``BACKWARD_RUNTIME_LAUNCHES`` those of
 :func:`riccati_general_backward_runtime_cuda`.
@@ -60,7 +68,7 @@ are contiguous: A (B,H,nx,nx), B (B,H,nx,nu), G and M (B,H,ns,ns)
 symmetric, mx and c (B,H,R,nx), mu (B,H,R,nu), delta and delta_c (B,),
 E (B,H,r,nu), F and Jx (B,H,r,nx), h (B,H,R,r).  A sweep returns dX and
 dLam (B,H,R,nx), dU (B,H,R,nu), dNu (B,H,R,r) and ok (B,).  The gains
-between the halves (the fused kernel's scratch too) are
+between the halves (the fused kernels' too, when asked for) are
 (B,H,gain_width(nx, nu, R, r)), each stage laid out
 ``[K (nu,nx) | k (R,nu) | Pbar (nx,nx) | pbar (R,nx) | Mxu (nx,nu) |
 Knu (r,nx) | knu (R,r)]``, all row-major.
@@ -72,16 +80,18 @@ import torch
 
 from . import riccati_kernel as _rk
 from .riccati_kernel import (GENERAL_FUSED_SOURCE, GENERAL_MAX_R,
-                             GENERAL_SOURCE, STREAMED_MAX_NU, STREAMED_MAX_NX,
-                             _GENERAL_BACKWARD_INSTANCES, _GENERAL_INSTANCES,
-                             _check, _chol_local_retry, _entry,
-                             _general_fits, _stream, backward_bytes,
+                             GENERAL_SOURCE, STREAMED_MAX_NU,
+                             STREAMED_MAX_NX, _GENERAL_BACKWARD_INSTANCES,
+                             _GENERAL_INSTANCES, _check, _chol_local_retry,
+                             _entry, _general_fits, _stream, backward_bytes,
                              backward_flops, forward_bytes, forward_flops,
-                             gain_width, kernel_plan, sweep_bytes,
-                             sweep_flops)
+                             gain_width, kernel_plan, staged_block_problems,
+                             sweep_bytes, sweep_flops)
 
 __all__ = ["riccati_general_backward_plain", "riccati_general_forward_plain",
            "riccati_sweep_general_plain", "riccati_sweep_general_fused_cuda",
+           "riccati_sweep_general_fused_direct_cuda", "staged_block_problems",
+           "fused_phase_stamps",
            "riccati_general_backward_cuda",
            "riccati_general_backward_runtime_cuda",
            "riccati_general_forward_cuda",
@@ -91,6 +101,8 @@ __all__ = ["riccati_general_backward_plain", "riccati_general_forward_plain",
            "general_forward_bytes", "general_forward_flops"]
 
 FUSED_LAUNCHES = 0      # fused general launches
+FUSED_STAGED_LAUNCHES = 0   # of them, the staged kernel's
+FUSED_DIRECT_LAUNCHES = 0   # of them, the direct kernel's
 BACKWARD_LAUNCHES = 0   # general backward launches
 BACKWARD_INSTANCE_LAUNCHES = 0   # of them, the compile-time instance's
 BACKWARD_RUNTIME_LAUNCHES = 0    # riccati_general_backward_runtime_cuda's
@@ -372,19 +384,16 @@ def _require_fused(Bn, H, nx, nu, R, r):
         raise ValueError("the CUDA sweeps need B >= 1 and H >= 1")
 
 
-def riccati_sweep_general_fused_cuda(A, B, G, M, mx, mu, c, delta, delta_c,
-                                     E, F, h, Jx, return_gains=False):
-    """Launch the fused ``csrc/riccati_general_fused.cu`` on CUDA tensors (no
-    fallback).  Returns ``(dX, dU, dLam, dNu, ok)`` as
-    :func:`riccati_sweep_general_plain` does, and the gains scratch after
-    them when ``return_gains`` (the layout of
-    :func:`riccati_general_backward_plain`'s gains).
+def _aligned_mask(tensors):
+    """Bit i set where ``tensors[i]`` starts on a 16-byte boundary: the
+    ranges of such an input may take bulk copies into shared memory (the
+    staged kernel copies the others 4 bytes at a time)."""
+    return sum(1 << i for i, t in enumerate(tensors) if t.data_ptr() % 16 == 0)
 
-    Raises on an (nx, nu, R, r) the source does not instantiate, and on a
-    tensor that is not float32, not contiguous, not on one CUDA device or
-    of the wrong shape.
-    """
-    global FUSED_LAUNCHES
+
+def _fused_launch(direct, args, return_gains, stamps=None):
+    global FUSED_LAUNCHES, FUSED_STAGED_LAUNCHES, FUSED_DIRECT_LAUNCHES
+    A, B, G, M, mx, mu, c, delta, delta_c, E, F, h, Jx = args
     Bn, H, R, nx, nu, r = _dims(c, E)
     _require_fused(Bn, H, nx, nu, R, r)
     ns = nx + nu
@@ -396,25 +405,86 @@ def riccati_sweep_general_fused_cuda(A, B, G, M, mx, mu, c, delta, delta_c,
         "delta_c": (delta_c, (Bn,)), "E": (E, (Bn, H, r, nu)),
         "F": (F, (Bn, H, r, nx)), "h": (h, (Bn, H, R, r)),
         "Jx": (Jx, (Bn, H, r, nx))})
-    fn = _entry(GENERAL_FUSED_SOURCE, "riccati_general_fused_f32", 19, 7)
+    staged = not direct and staged_block_problems(H, nx, nu, R, r) > 0
     dev = c.device
     dX = torch.empty((Bn, H, R, nx), dtype=torch.float32, device=dev)
     dU = torch.empty((Bn, H, R, nu), dtype=torch.float32, device=dev)
     dLam = torch.empty((Bn, H, R, nx), dtype=torch.float32, device=dev)
     dNu = torch.empty((Bn, H, R, r), dtype=torch.float32, device=dev)
     ok = torch.empty((Bn,), dtype=torch.bool, device=dev)
-    gains = torch.empty((Bn, H, gain_width(nx, nu, R, r)),
-                        dtype=torch.float32, device=dev)
-    err = fn(A.data_ptr(), B.data_ptr(), G.data_ptr(), M.data_ptr(),
-             mx.data_ptr(), mu.data_ptr(), c.data_ptr(), delta.data_ptr(),
-             delta_c.data_ptr(), E.data_ptr(), F.data_ptr(), h.data_ptr(),
-             Jx.data_ptr(), dX.data_ptr(), dU.data_ptr(), dLam.data_ptr(),
-             dNu.data_ptr(), ok.data_ptr(), gains.data_ptr(), Bn, H, nx, nu,
-             R, r, dev.index or 0, _stream(dev))
-    _raise_on(err, "riccati_general_fused", Bn, H, nx, nu, R, r)
+    gains = (torch.empty((Bn, H, gain_width(nx, nu, R, r)),
+                         dtype=torch.float32, device=dev)
+             if return_gains or not staged else None)
+    ptrs = [t.data_ptr() for t in args] + [
+        dX.data_ptr(), dU.data_ptr(), dLam.data_ptr(), dNu.data_ptr(),
+        ok.data_ptr(), None if gains is None else gains.data_ptr()]
+    dims = [Bn, H, nx, nu, R, r]
+    if direct:
+        entry = "riccati_general_fused_direct_f32"
+        err = _entry(GENERAL_FUSED_SOURCE, entry, 19, 7)(
+            *ptrs, *dims, dev.index or 0, _stream(dev))
+    else:
+        entry = "riccati_general_fused_f32"
+        err = _entry(GENERAL_FUSED_SOURCE, entry, 20, 8)(
+            *ptrs, None if stamps is None else stamps.data_ptr(), *dims,
+            _aligned_mask(args), dev.index or 0, _stream(dev))
+    _raise_on(err, entry, Bn, H, nx, nu, R, r)
     FUSED_LAUNCHES += 1
+    if staged:
+        FUSED_STAGED_LAUNCHES += 1
+    else:
+        FUSED_DIRECT_LAUNCHES += 1
     out = (dX, dU, dLam, dNu, ok)
     return out + (gains,) if return_gains else out
+
+
+def riccati_sweep_general_fused_cuda(A, B, G, M, mx, mu, c, delta, delta_c,
+                                     E, F, h, Jx, return_gains=False):
+    """Launch the fused ``csrc/riccati_general_fused.cu`` on CUDA tensors (no
+    fallback): its staged kernel where a block holds at least one problem
+    at this horizon (``kernel_plan``'s ``"kernel"``), its direct kernel
+    where none fits.  Returns ``(dX, dU, dLam, dNu, ok)`` as
+    :func:`riccati_sweep_general_plain` does, and the gains after them when
+    ``return_gains`` (the layout of :func:`riccati_general_backward_plain`'s
+    gains); the staged kernel keeps its gains in shared memory and writes
+    that buffer only then.  Inputs that do not start on a 16-byte boundary
+    are copied 4 bytes at a time, never refused.
+
+    Raises on an (nx, nu, R, r) the source does not instantiate, and on a
+    tensor that is not float32, not contiguous, not on one CUDA device or
+    of the wrong shape.
+    """
+    return _fused_launch(False, (A, B, G, M, mx, mu, c, delta, delta_c, E,
+                                 F, h, Jx), return_gains)
+
+
+def fused_phase_stamps(A, B, G, M, mx, mu, c, delta, delta_c, E, F, h, Jx):
+    """Launch the staged kernel with its phase stamps on: for each block,
+    (SM cycles, device ns) at its start and after its prologue, backward
+    pass, forward pass and epilogue, as an int64 tensor (blocks, 5, 2).
+    Not on the solver's path: ``chip_smoke.py`` splits the kernel's time
+    with it.  Raises where the shape takes the direct kernel."""
+    Bn, H, R, nx, nu, r = _dims(c, E)
+    P = staged_block_problems(H, nx, nu, R, r)
+    if P == 0:
+        raise ValueError(f"H={H} takes the direct kernel, which has no "
+                         "phase stamps")
+    stamps = torch.zeros(((Bn + P - 1) // P, 5, 2), dtype=torch.int64,
+                         device=c.device)
+    _fused_launch(False, (A, B, G, M, mx, mu, c, delta, delta_c, E, F, h, Jx),
+                  False, stamps)
+    return stamps
+
+
+def riccati_sweep_general_fused_direct_cuda(A, B, G, M, mx, mu, c, delta,
+                                            delta_c, E, F, h, Jx,
+                                            return_gains=False):
+    """:func:`riccati_sweep_general_fused_cuda` with the direct kernel (the
+    first design: every stage from device memory, the gains in a device
+    scratch) at every horizon.  Not on the solver's path: it lets one run
+    hold the two designs against each other and time both."""
+    return _fused_launch(True, (A, B, G, M, mx, mu, c, delta, delta_c, E,
+                                F, h, Jx), return_gains)
 
 
 def riccati_sweep_general(A, B, G, M, mx, mu, c, delta, delta_c, E, F, h,

@@ -86,6 +86,15 @@ _GENERAL_INSTANCES = frozenset((2, 1, R, r) for R in (1, 2, 3)
 # EQ/border quadrotor fleet's stage.  Every other shape takes the run-time
 # backward kernel.
 _GENERAL_BACKWARD_INSTANCES = frozenset({(12, 4, 2, 1)})
+# csrc/riccati_general_fused.cu's two kernels.  The staged kernel's block
+# of STAGED_MAX_PROBLEMS threads holds up to that many problems' inputs,
+# gains and outputs in at most STAGED_MAX_SMEM bytes of dynamic shared
+# memory (the most a block may opt into on an H100); the direct kernel
+# takes a horizon at which not one problem fits.
+STAGED_KERNEL = "riccati_general_fused_staged_kernel"
+DIRECT_KERNEL = "riccati_general_fused_kernel"
+STAGED_MAX_PROBLEMS = 32
+STAGED_MAX_SMEM = 232_448
 
 LAUNCHES = 0            # fused kernel launches by riccati_sweep_cuda
 BACKWARD_LAUNCHES = 0   # streamed backward launches by riccati_backward_cuda
@@ -106,6 +115,41 @@ def gain_width(nx: int, nu: int, R: int = 1, r: int = 0) -> int:
     knu; k, pbar and knu are per right-hand side)."""
     return (nu * nx + R * nu + nx * nx + R * nx + nx * nu
             + r * nx + R * r)
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def staged_smem_bytes(P: int, H: int, nx: int, nu: int, R: int,
+                      r: int) -> int:
+    """Dynamic shared memory of a staged block of P problems at horizon H
+    (``staged_layout`` in csrc/riccati_general_fused.cu): 16 bytes for the
+    mbarrier, then the block's slab of every input, each from a 16-byte
+    boundary, in the order A, B, c, Jx, δ, δ_c, G, M, mx, mu, E, F, h (G, M
+    as stored, ns² floats a stage), then the gains.  The outputs take the
+    room of G onward after the backward pass."""
+    ns = nx + nu
+    per_problem = (H * nx * nx, H * nx * nu, H * R * nx, H * r * nx, 1,
+                   1 if r else 0, H * ns * ns, H * ns * ns, H * R * nx,
+                   H * R * nu, H * r * nu, H * r * nx, H * R * r)
+    o = 4
+    for w in per_problem:
+        o = _round4(o + P * w)
+    return 4 * _round4(o + P * H * gain_width(nx, nu, R, r))
+
+
+def staged_block_problems(H: int, nx: int, nu: int, R: int, r: int) -> int:
+    """Problems a block of the staged kernel takes at horizon H
+    (``staged_problems`` in csrc/riccati_general_fused.cu): at most
+    STAGED_MAX_PROBLEMS, as many as fit in STAGED_MAX_SMEM bytes; 0 when
+    not one problem fits."""
+    if H > STAGED_MAX_SMEM // 4:
+        return 0
+    for P in range(STAGED_MAX_PROBLEMS, 0, -1):
+        if staged_smem_bytes(P, H, nx, nu, R, r) <= STAGED_MAX_SMEM:
+            return P
+    return 0
 
 
 def _streamed_fits(nx: int, nu: int) -> bool:
@@ -144,7 +188,11 @@ def kernel_plan(H: int, nx: int, nu: int, device, R: int = 1,
     general sweep's number of right-hand sides (1 + trajectory-level border
     rows) and r its stage equality rows; (R, r) = (1, 0) is the plain sweep.
     A general shape that csrc/riccati_general_fused.cu instantiates takes
-    the fused general kernel before the streamed general pair is asked.
+    the fused general kernel before the streamed general pair is asked; its
+    plan also names the kernel (``"kernel"``: STAGED_KERNEL, or
+    DIRECT_KERNEL at a horizon where not one problem fits in a staged
+    block) and the staged block's problems (``"block_problems"``, 0 for the
+    direct kernel).
     """
     kind = torch.device(device).type
     if kind == "cpu":
@@ -152,9 +200,14 @@ def kernel_plan(H: int, nx: int, nu: int, device, R: int = 1,
                 "reason": "CPU tensors take the plain PyTorch sweep"}
     if (R, r) != (1, 0):
         if kind == "cuda" and H >= 1 and (nx, nu, R, r) in _GENERAL_INSTANCES:
+            P = staged_block_problems(H, nx, nu, R, r)
+            how = (f"{P} problems a block in shared memory" if P else
+                   f"not one problem's {H} stages fit in shared memory")
             return {"path": "cuda_fused_general",
+                    "kernel": STAGED_KERNEL if P else DIRECT_KERNEL,
+                    "block_problems": P,
                     "reason": f"csrc/{GENERAL_FUSED_SOURCE} instantiates "
-                              f"<{nx}, {nu}, {R}, {r}>"}
+                              f"<{nx}, {nu}, {R}, {r}>; {how}"}
         if kind == "cuda" and H >= 1 and _general_fits(nx, nu, R, r):
             return {"path": "cuda_streamed_general",
                     "reason": f"csrc/{GENERAL_SOURCE} takes nx={nx}, "

@@ -1,11 +1,11 @@
 """Tests of the port that need an NVIDIA card: the CUDA sweeps (the fused
 kernel, the streamed backward/forward pair and the general pair, each with
 its backward kernel's compile-time instance, and the fused general
-kernel) against their plain versions and each other, the wrappers'
-checks and dispatch, and the LV, quadrotor, EQ/border quadrotor and
-budgeted LV paths on the card against the CPU.  They skip without a CUDA
-device.  This file imports no JAX, so on the card it runs without the JAX
-package's test configuration:
+kernels, staged and direct) against their plain versions and each other,
+the wrappers' checks and dispatch, and the LV, quadrotor, EQ/border
+quadrotor and budgeted LV paths on the card against the CPU.  They skip
+without a CUDA device.  This file imports no JAX, so on the card it runs
+without the JAX package's test configuration:
 
     python -m pytest --noconftest -o addopts="" tests/test_torch_cuda.py -q
 """
@@ -509,6 +509,115 @@ def test_fused_general_dispatch_and_refusals_on_card():
             rg.FORWARD_LAUNCHES) == counts
 
 
+# ---- the staged fused general kernel against the plain version and the
+#      direct (first) kernel ----
+
+STAGED_CASES = [(kind, R, r) for _, _, R, r in sorted(rk._GENERAL_INSTANCES)
+                for kind in KINDS if kind != "local_bump" or r == 0]
+
+
+def _same_bits(a, b):
+    """Equal element for element, NaN where the other is NaN (a problem
+    whose factorisation failed may carry NaN through its stages)."""
+    torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+def _staged_vs_plain_and_direct(args):
+    """The staged kernel (with and without its gains written) against
+    riccati_sweep_general_plain and riccati_general_backward_plain, and
+    against the direct kernel on the same inputs; the launch counters."""
+    counts = (rg.FUSED_LAUNCHES, rg.FUSED_STAGED_LAUNCHES,
+              rg.FUSED_DIRECT_LAUNCHES)
+    *out, gains = rg.riccati_sweep_general_fused_cuda(*args,
+                                                      return_gains=True)
+    bare = rg.riccati_sweep_general_fused_cuda(*args)
+    *direct, d_gains = rg.riccati_sweep_general_fused_direct_cuda(
+        *args, return_gains=True)
+    torch.cuda.synchronize()
+    assert (rg.FUSED_LAUNCHES, rg.FUSED_STAGED_LAUNCHES,
+            rg.FUSED_DIRECT_LAUNCHES) == (counts[0] + 3, counts[1] + 2,
+                                          counts[2] + 1)
+    ref = rg.riccati_sweep_general_plain(*args)
+    g_ref, _ = rg.riccati_general_backward_plain(*args[:12])
+    ok = ref[4]
+    assert torch.equal(out[4], ok) and torch.equal(direct[4], ok)
+    for o, b, d, q in zip(out[:4], bare[:4], direct[:4], ref[:4]):
+        _same_bits(o, b)               # the gains' store changes no sum
+        if q.numel():
+            assert _scaled_err(o, q, ok) <= STREAMED_ATOL
+            assert _scaled_err(o, d, ok) <= STREAMED_ATOL
+    assert _scaled_err(gains, g_ref, ok) <= STREAMED_ATOL
+    assert _scaled_err(gains, d_gains, ok) <= STREAMED_ATOL
+    return out
+
+
+@pytest.mark.parametrize("kind,R,r", STAGED_CASES)
+def test_fused_staged_matches_plain_and_direct(kind, R, r):
+    """Every instance at H=20 (32 problems a block, the last block holding
+    9): the staged kernel against the plain version and the direct
+    kernel."""
+    _card()
+    B, H = 1001, 20
+    plan = rk.kernel_plan(H, 2, 1, "cuda", R=R, r=r)
+    assert plan["kernel"] == rk.STAGED_KERNEL and plan["block_problems"] == 32
+    _staged_vs_plain_and_direct(_general(kind, B, H, 2, 1, R, r, seed=R + r))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_fused_staged_ragged_blocks_at_h50(kind):
+    """At H=50 a block holds 24 problems; B=257 leaves 17 in the last."""
+    _card()
+    assert rk.staged_block_problems(50, 2, 1, 2, 0) == 24
+    _staged_vs_plain_and_direct(_general(kind, 257, 50, 2, 1, 2, 0, seed=7))
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("R,r", [(2, 0), (3, 1)])
+def test_fused_staged_misaligned_inputs(R, r):
+    """Inputs 4 bytes off a 16-byte boundary take 4-byte copies: the same
+    outputs as the aligned inputs, bit for bit, and the plain version's."""
+    _card()
+    args = _general("delta_per_problem", 257, 20, 2, 1, R, r, seed=11)
+    mis = [_misaligned(a) for a in args]
+    mask = rg._aligned_mask(mis)
+    for i, a in enumerate(mis):
+        if a.numel():       # (E, F, h, Jx are empty at r=0, never read)
+            assert a.data_ptr() % 16 == 4 and not (mask >> i) & 1
+    out = _staged_vs_plain_and_direct(mis)
+    aligned = rg.riccati_sweep_general_fused_cuda(*args)
+    torch.cuda.synchronize()
+    for o, a in zip(out, aligned):
+        _same_bits(o, a)
+
+
+def test_fused_general_takes_the_direct_kernel_past_shared_memory():
+    """At a horizon where not one problem fits in a staged block the
+    wrapper launches the direct kernel, and it matches the plain version."""
+    _card()
+    H = 1300
+    assert rk.staged_block_problems(H, 2, 1, 2, 0) == 0
+    assert rk.kernel_plan(H, 2, 1, "cuda", R=2, r=0)["kernel"] == \
+        rk.DIRECT_KERNEL
+    args = _general("delta_per_problem", 5, H, 2, 1, 2, 0, seed=3)
+    counts = (rg.FUSED_STAGED_LAUNCHES, rg.FUSED_DIRECT_LAUNCHES)
+    out = rg.riccati_sweep_general_fused_cuda(*args)
+    torch.cuda.synchronize()
+    assert (rg.FUSED_STAGED_LAUNCHES, rg.FUSED_DIRECT_LAUNCHES) == (
+        counts[0], counts[1] + 1)
+    ref = rg.riccati_sweep_general_plain(*args)
+    assert torch.equal(out[4], ref[4]) and bool(ref[4].all())
+    for o, q in zip(out[:4], ref[:4]):
+        if q.numel():
+            assert _scaled_err(o, q) <= STREAMED_ATOL
+
+
 def test_budget_fleet_on_card_matches_cpu():
     """The budgeted LV fleet (true ODE, H=20) on the card goes through the
     fused general kernel only and agrees with the CPU port: equal masks,
@@ -528,10 +637,14 @@ def test_budget_fleet_on_card_matches_cpu():
         mpc = make_budget_mpc(nempc.torch_dynamics(normalized_lv(), 2, 1),
                               device=dev)
         counts = (rk.LAUNCHES, rk.BACKWARD_LAUNCHES, rk.PLAIN_CALLS,
-                  rg.BACKWARD_LAUNCHES, rg.FUSED_LAUNCHES)
+                  rg.BACKWARD_LAUNCHES, rg.FUSED_LAUNCHES,
+                  rg.FUSED_STAGED_LAUNCHES, rg.FUSED_DIRECT_LAUNCHES)
         _, res[dev] = mpc.next_batch(torch.tensor(x0s, device=dev))
         if dev == "cuda":
             assert rg.FUSED_LAUNCHES > counts[4]
+            assert (rg.FUSED_STAGED_LAUNCHES - counts[5]
+                    == rg.FUSED_LAUNCHES - counts[4])
+            assert rg.FUSED_DIRECT_LAUNCHES == counts[6]
             assert (rk.LAUNCHES, rk.BACKWARD_LAUNCHES, rk.PLAIN_CALLS,
                     rg.BACKWARD_LAUNCHES) == counts[:4]
         else:

@@ -139,3 +139,141 @@ def test_wrapper_refusals_and_dispatch_on_cpu():
     with pytest.raises(NotImplementedError, match="instantiates"):
         rg.riccati_sweep_general_fused_cuda(*other)
     assert rg.FUSED_LAUNCHES == n0
+
+
+# ---- the staged kernel's block (csrc/riccati_general_fused.cu
+#      staged_layout / staged_problems) and the direct kernel ----
+
+@pytest.mark.parametrize("H,R,r,P,nbytes", [
+    # (2, 1, 2, 0) at H=20, 32 problems: 16 B of mbarrier, then the slabs
+    # A 2560 floats, B 1280, c 2560, δ 32, G 5760, M 5760, mx 2560, mu 1280
+    # (each a multiple of 4 floats), the gains 32·20·14 = 8960:
+    # 4 + 30,752 = 30,756 floats = 123,024 B
+    (20, 2, 0, 32, 123_024),
+    # at H=50 a problem takes 50·48 + 1 = 2401 floats; 24 problems take
+    # 4 + 24·2401 = 57,628 floats = 230,512 B, 25 would take 240,116 B
+    # > 232,448
+    (50, 2, 0, 24, 230_512),
+    # (2, 1, 3, 1) at H=20: 47 input floats a stage, 22 gains, δ and δ_c:
+    # 4 + 32·(20·69 + 2) = 44,228 floats = 176,912 B
+    (20, 3, 1, 32, 176_912),
+    # one problem at H=1200: 4 + 1200·48 + 1 floats and 3 of padding (the
+    # δ slab's end rounded up) = 57,608 floats = 230,432 B
+    (1200, 2, 0, 1, 230_432),
+    # at H=1300 one problem alone needs 1300·48 floats > 232,448 / 4
+    (1300, 2, 0, 0, None),
+])
+def test_staged_block_problems_hand_worked(H, R, r, P, nbytes):
+    assert rk.staged_block_problems(H, 2, 1, R, r) == P
+    assert rg.staged_block_problems is rk.staged_block_problems
+    if P:
+        assert rk.staged_smem_bytes(P, H, 2, 1, R, r) == nbytes
+        assert rk.staged_smem_bytes(P, H, 2, 1, R, r) <= rk.STAGED_MAX_SMEM
+        if P < rk.STAGED_MAX_PROBLEMS:
+            assert (rk.staged_smem_bytes(P + 1, H, 2, 1, R, r)
+                    > rk.STAGED_MAX_SMEM)
+    else:
+        assert rk.staged_smem_bytes(1, H, 2, 1, R, r) > rk.STAGED_MAX_SMEM
+
+
+def test_staged_block_problems_fall_with_the_horizon():
+    """Every instance: 32 problems a block up to a horizon, fewer beyond,
+    never more as H grows, and 0 (the direct kernel) past ~840-1210
+    stages."""
+    for _, _, R, r in rk._GENERAL_INSTANCES:
+        Ps = [rk.staged_block_problems(H, 2, 1, R, r)
+              for H in range(1, 1400, 7)]
+        assert Ps[0] == 32 and Ps[-1] == 0
+        assert all(a >= b for a, b in zip(Ps, Ps[1:]))
+        assert rk.staged_block_problems(20, 2, 1, R, r) == 32
+        assert rk.staged_block_problems(10 ** 6, 2, 1, R, r) == 0
+
+
+def test_kernel_plan_names_staged_or_direct():
+    """The fused general plan names its kernel: the staged one while a
+    block holds at least one problem, the direct one beyond."""
+    for _, _, R, r in rk._GENERAL_INSTANCES:
+        for H in (1, 20, 50, 500, 5000):
+            p = rk.kernel_plan(H, 2, 1, "cuda", R=R, r=r)
+            P = rk.staged_block_problems(H, 2, 1, R, r)
+            assert p["path"] == "cuda_fused_general"
+            assert p["block_problems"] == P
+            assert p["kernel"] == (rk.STAGED_KERNEL if P else
+                                   rk.DIRECT_KERNEL)
+    p = rk.kernel_plan(20, 2, 1, "cuda", R=2, r=0)
+    assert p["kernel"] == "riccati_general_fused_staged_kernel"
+    assert p["block_problems"] == 32 and "32 problems a block" in p["reason"]
+    p = rk.kernel_plan(1300, 2, 1, "cuda", R=2, r=0)
+    assert p["kernel"] == "riccati_general_fused_kernel"
+    assert p["block_problems"] == 0
+
+
+def test_direct_entry_lists_the_instances():
+    """The direct entry's switch instantiates exactly _GENERAL_INSTANCES,
+    as the staged entry's does."""
+    text = SOURCE.read_text()
+    cases = re.findall(r"^\s*RICCATI_GENERAL_FUSED_DIRECT_CASE\((\d+), "
+                       r"(\d+), (\d+), (\d+)\)\s*$", text, re.M)
+    assert {tuple(map(int, t)) for t in cases} == rk._GENERAL_INSTANCES
+    assert len(cases) == len(rk._GENERAL_INSTANCES)
+    assert 'extern "C" int riccati_general_fused_f32(' in text
+    assert 'extern "C" int riccati_general_fused_direct_f32(' in text
+
+
+def test_kernel_names_and_constants_in_the_source():
+    """chip_smoke.py matches profiler events by kernel name: both kernels
+    are defined under their names, neither name holds the other; the
+    source's block limits are the wrapper's; the bulk-copy primitives come
+    from their own header."""
+    text = SOURCE.read_text()
+    for name in (rk.STAGED_KERNEL, rk.DIRECT_KERNEL):
+        assert re.search(rf"^{name}\(", text, re.M), name
+    assert rk.STAGED_KERNEL not in rk.DIRECT_KERNEL
+    assert rk.DIRECT_KERNEL not in rk.STAGED_KERNEL
+    assert f"constexpr int kMaxSmem = {rk.STAGED_MAX_SMEM};" in text
+    assert f"constexpr int kThreads = {rk.STAGED_MAX_PROBLEMS};" in text
+    assert '#include "bulk_copy.cuh"' in text
+    header = (SOURCE.parent / "bulk_copy.cuh").read_text()
+    for fn in ("mbar_init", "mbar_arrive_expect_tx", "mbar_wait",
+               "bulk_copy_g2s", "copy4_async", "copy4_wait_all"):
+        assert re.search(rf"void {fn}\(", header), fn
+
+
+def test_aligned_mask():
+    """Bit i of the copy-width mask is set where input i starts on a
+    16-byte boundary; a contiguous view 4 bytes further is not."""
+    args = [torch.as_tensor(a) for a in general_sweep_case(
+        "delta0", B=3, H=2, nx=2, nu=1, R=2, r=1)]
+    assert all(a.data_ptr() % 16 == 0 for a in args)
+    assert rg._aligned_mask(args) == (1 << 13) - 1
+    buf = torch.empty(args[2].numel() + 1)
+    moved = buf[1:].view(args[2].shape)
+    assert moved.is_contiguous() and moved.data_ptr() % 16 == 4
+    assert rg._aligned_mask(args[:2] + [moved] + args[3:]) == (
+        (1 << 13) - 1 - (1 << 2))
+
+
+def test_direct_wrapper_refuses_cpu_tensors():
+    """The direct kernel's wrapper, like the solver's, refuses CPU tensors
+    and shapes it does not instantiate, and a refused call moves no
+    counter."""
+    args = [torch.as_tensor(a) for a in general_sweep_case(
+        "delta0", B=3, H=2, nx=2, nu=1, R=2, r=0)]
+    counts = (rg.FUSED_LAUNCHES, rg.FUSED_STAGED_LAUNCHES,
+              rg.FUSED_DIRECT_LAUNCHES, rk.PLAIN_CALLS)
+    with pytest.raises(ValueError, match="CUDA device"):
+        rg.riccati_sweep_general_fused_direct_cuda(*args)
+    with pytest.raises(ValueError, match="CUDA device"):
+        rg.riccati_sweep_general_fused_cuda(*args, return_gains=True)
+    with pytest.raises(ValueError, match="CUDA device"):
+        rg.fused_phase_stamps(*args)
+    long = [torch.as_tensor(a) for a in general_sweep_case(
+        "delta0", B=1, H=1300, nx=2, nu=1, R=2, r=0)]
+    with pytest.raises(ValueError, match="direct kernel"):
+        rg.fused_phase_stamps(*long)
+    other = [torch.as_tensor(a) for a in general_sweep_case(
+        "delta0", B=3, H=2, nx=4, nu=2, R=2, r=1)]
+    with pytest.raises(NotImplementedError, match="instantiates"):
+        rg.riccati_sweep_general_fused_direct_cuda(*other)
+    assert (rg.FUSED_LAUNCHES, rg.FUSED_STAGED_LAUNCHES,
+            rg.FUSED_DIRECT_LAUNCHES, rk.PLAIN_CALLS) == counts

@@ -108,6 +108,23 @@ def test_kernel_plan_is_pinned():
     assert "nx=12, nu=17" in rk.kernel_plan(50, 12, 17, "cuda")["reason"]
 
 
+def test_kernel_plan_names_the_fused_general_kernel():
+    """Only the fused general plan names a kernel of its source and the
+    problems of its staged block; the plain sweep's plans do not change."""
+    for shape in ((20, 2, 1), (50, 12, 4)):
+        assert set(rk.kernel_plan(*shape, "cuda")) == {"path", "reason"}
+    assert set(rk.kernel_plan(50, 12, 4, "cuda", R=2, r=1)) == {"path",
+                                                                "reason"}
+    staged = rk.kernel_plan(20, 2, 1, "cuda", R=2, r=0)
+    assert (staged["kernel"], staged["block_problems"]) == (
+        rk.STAGED_KERNEL, rk.staged_block_problems(20, 2, 1, 2, 0)) == (
+        "riccati_general_fused_staged_kernel", 32)
+    direct = rk.kernel_plan(5000, 2, 1, "cuda", R=3, r=1)
+    assert (direct["kernel"], direct["block_problems"]) == (
+        "riccati_general_fused_kernel", 0)
+    assert rk.kernel_plan(5000, 2, 1, "cpu", R=3, r=1)["path"] == "plain"
+
+
 def test_dispatch_sends_cpu_tensors_to_plain():
     args = _torch(sweep_data())
     plain0, launches0 = rk.PLAIN_CALLS, rk.LAUNCHES
