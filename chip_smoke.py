@@ -13,12 +13,17 @@ Phases (each raises, and the script exits non-zero, on failure):
    the bulk-copy primitives of the fused general source, bulk_copy.cuh),
    one nvcc for each source, all started together; ptxas registers and
    spills are logged.
-3. Fused kernel vs plain: the fused sweep (csrc/riccati_sweep.cu) against
-   its plain PyTorch version at the LV path's shapes (B=4096, H=20, nx=2,
-   nu=1) on four seeded cases, with its median device time (the kernel's
-   own events in a torch.profiler trace), its time per wrapper call (CUDA
+3. Fused kernel vs plain: the fused sweep (riccati_sweep_cuda: the staged
+   kernel of csrc/riccati_general_fused.cu at <2, 1, 1, 0>) against its
+   plain PyTorch version and against the first design
+   (csrc/riccati_sweep.cu, riccati_sweep_direct_cuda) at the LV path's
+   shapes (B=4096, H=20, nx=2, nu=1) on four seeded cases, with its median
+   device time (the kernel's own events in a torch.profiler trace; a name
+   the trace does not hold raises), its time per wrapper call (CUDA
    events, host work included), the plain version's time and the least
-   time the card could take (bound).
+   time the card could take (bound); then both designs' device times in
+   turns (riccati_sweep.cu, staged, staged, riccati_sweep.cu), warm and
+   with L2 flushed, and ptxas's report of both.
 3b. Streamed pair vs plain: the backward and forward kernels
    (csrc/riccati_streamed.cu) at the quadrotor path's shapes (B=4096, H=50,
    nx=12, nu=4) on the same four cases: the backward kernel's gains and ok
@@ -41,10 +46,18 @@ Phases (each raises, and the script exits non-zero, on failure):
    instance (riccati_general_backward_fixed<12, 4, 2, 1>); its gains and
    ok flags are also held against the run-time backward kernel
    (riccati_general_backward_runtime_cuda) on the same inputs, and both
-   designs are timed.  Then one border-only case (R=2, r=0), one pure-EQ
-   case (R=1, r=nu, H=10), and the pair at R=1, r=0 against the plain
-   streamed pair: these shapes take the run-time backward kernel, so they
-   keep covering it.  Times as in 3.
+   designs are timed.  The forward entry launches its compile-time
+   instance too (riccati_general_forward_fixed<12, 4, 2, 1>, a ring of
+   stage slots a warp): on the four cases at H=50 and at H=7, and on
+   inputs 4 bytes off a 16-byte boundary, it is held against the plain
+   forward and the run-time forward kernel
+   (riccati_general_forward_runtime_cuda) fed the same gains; the run-time
+   kernel and the instance are timed in turns, warm and with L2 flushed,
+   each timed instance launch's outputs held to the checked ones bit for
+   bit, with ptxas's report of each.  Then one border-only case (R=2, r=0), one
+   pure-EQ case (R=1, r=nu, H=10), and the pair at R=1, r=0 against the
+   plain streamed pair: these shapes take the run-time kernels, so they
+   keep covering them.  Times as in 3.
 3d. Fused general kernels vs plain: csrc/riccati_general_fused.cu at the
    budgeted LV path's shapes (B=4096, H=20, nx=2, nu=1) at (R, r) = (2, 0),
    (2, 1), (3, 0) and (3, 1) on the four cases (local_bump only at r=0: it
@@ -65,8 +78,8 @@ Phases (each raises, and the script exits non-zero, on failure):
    system on the card, builds NMPC as bench.py does, solves B=4096 cold and
    then warm re-plans, the plant advanced by the true ODE through the port's
    RK4.  Launch counters are zeroed just before and read just after: the
-   fused kernel must have launched, the streamed pair and the plain sweep
-   must not have.
+   fused kernel must have launched, every launch through the staged
+   kernel, and the streamed pair and the plain sweep must not have.
 4b. Quadrotor path: NMPC of the quadrotor (true ODE, H=50, RK4, StageCost
    with a terminal term, box bounds) on B=4096 starts, bench.py's protocol:
    one cold solve, one untimed warm re-plan, then timed warm re-plans, each
@@ -77,10 +90,10 @@ Phases (each raises, and the script exits non-zero, on failure):
    stage equality row and a horizon thrust-impulse budget row
    (pyneuralempc_tpu_torch/examples/fleet_eq.py) on B=4096 starts, 4b's
    protocol.  Counters: the general pair must have launched, every
-   backward launch through the compile-time instance, and every other
-   kernel and plain version must not have.  Every plan converged (up to 4
-   of 4096) keeps |u0 - u1 + u2 - u3| <= 1e-4 and its thrust impulse
-   within the budget.
+   backward and every forward launch through its compile-time instance,
+   and every other kernel and plain version must not have.  Every plan
+   converged (up to 4 of 4096) keeps |u0 - u1 + u2 - u3| <= 1e-4 and its
+   thrust impulse within the budget.
 4d. Budgeted LV path: the LV MLP fleet (phase 4's trained surrogate) with a
    minimum feed delivery over the horizon, Σu ≥ U_FLOOR
    (pyneuralempc_tpu_torch/examples/lotka_volterra.py: one trajectory-level
@@ -142,6 +155,7 @@ Q_WARM_STEPS = 4
 # stage equality rows
 QR, QEQ = 2, 1
 PURE_EQ_H = 10                # the r = nu kernel check's horizon
+FWD_ODD_H = 7                 # an odd horizon for the forward instance
 EQ_RESIDUAL = 1e-4            # the solver's tol
 BUDGET_SLACK = 1e-3
 # the budgeted LV path: R right-hand sides (1 + the feed floor row), r = 0;
@@ -182,15 +196,19 @@ def f_true(x, u):
 
 def reset_counters(rk, rg):
     rk.LAUNCHES = rk.BACKWARD_LAUNCHES = rk.FORWARD_LAUNCHES = 0
+    rk.STAGED_LAUNCHES = rk.DIRECT_LAUNCHES = 0
     rk.BACKWARD_INSTANCE_LAUNCHES = rk.BACKWARD_RUNTIME_LAUNCHES = 0
     rk.PLAIN_CALLS = 0
     rg.BACKWARD_LAUNCHES = rg.FORWARD_LAUNCHES = rg.FUSED_LAUNCHES = 0
     rg.BACKWARD_INSTANCE_LAUNCHES = rg.BACKWARD_RUNTIME_LAUNCHES = 0
+    rg.FORWARD_INSTANCE_LAUNCHES = rg.FORWARD_RUNTIME_LAUNCHES = 0
     rg.FUSED_STAGED_LAUNCHES = rg.FUSED_DIRECT_LAUNCHES = 0
 
 
 def counters(rk, rg):
-    return {"fused": rk.LAUNCHES, "backward": rk.BACKWARD_LAUNCHES,
+    return {"fused": rk.LAUNCHES, "fused_staged": rk.STAGED_LAUNCHES,
+            "fused_direct": rk.DIRECT_LAUNCHES,
+            "backward": rk.BACKWARD_LAUNCHES,
             "backward_instance": rk.BACKWARD_INSTANCE_LAUNCHES,
             "backward_runtime": rk.BACKWARD_RUNTIME_LAUNCHES,
             "forward": rk.FORWARD_LAUNCHES, "plain": rk.PLAIN_CALLS,
@@ -198,6 +216,8 @@ def counters(rk, rg):
             "general_backward_instance": rg.BACKWARD_INSTANCE_LAUNCHES,
             "general_backward_runtime": rg.BACKWARD_RUNTIME_LAUNCHES,
             "general_forward": rg.FORWARD_LAUNCHES,
+            "general_forward_instance": rg.FORWARD_INSTANCE_LAUNCHES,
+            "general_forward_runtime": rg.FORWARD_RUNTIME_LAUNCHES,
             "fused_general": rg.FUSED_LAUNCHES,
             "fused_general_staged": rg.FUSED_STAGED_LAUNCHES,
             "fused_general_direct": rg.FUSED_DIRECT_LAUNCHES}
@@ -270,12 +290,14 @@ def cuda_median_ms(fn, runs=25, warmup=3):
     return statistics.median(times)
 
 
-def kernel_device_ms(fn, kernel_name, runs=25):
+def kernel_device_ms(fn, kernel_name, runs=25, strict=False, bound_ms=None):
     """Median device time of the kernels whose names hold ``kernel_name``
     (spaces ignored, so a template's arguments can be matched) over ``runs``
     calls of ``fn``, read from a torch.profiler trace.  When the trace holds
-    no such kernel, the median of ``runs`` back-to-back calls between one
-    CUDA event pair (host work included where the host is the slower)."""
+    no such kernel: with ``strict``, raise (a misnamed kernel must not pass
+    as a timing); else the median of ``runs`` back-to-back calls between
+    one CUDA event pair (host work included where the host is the
+    slower).  A median below ``bound_ms`` lists every event's time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -289,7 +311,27 @@ def kernel_device_ms(fn, kernel_name, runs=25):
              if e.device_type == torch.autograd.DeviceType.CUDA
              and want in e.name.replace(" ", "")]
     if times:
-        return statistics.median(times), f"profiler, {len(times)} kernels"
+        ms = statistics.median(times)
+        how = (f"profiler, {len(times)} kernels, {min(times) * 1e3:.2f}-"
+               f"{max(times) * 1e3:.2f} us")
+        if bound_ms is not None and ms < bound_ms:
+            how += (f"; BELOW the bound {bound_ms * 1e3:.2f} us, every "
+                    f"event's time (us): "
+                    + ", ".join(f"{t * 1e3:.2f}" for t in times))
+        return ms, how
+    if strict:
+        raise RuntimeError(f"the profiler trace holds no kernel named "
+                           f"{kernel_name!r}")
+    return (back_to_back_ms(fn, runs),
+            f"events over {runs} back-to-back calls")
+
+
+def back_to_back_ms(fn, runs=25):
+    """Time of ``runs`` back-to-back calls of ``fn`` between one CUDA event
+    pair, over ``runs``: the device time a call where the device is the
+    slower, host work included where the host is."""
+    fn()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -297,15 +339,14 @@ def kernel_device_ms(fn, kernel_name, runs=25):
         fn()
     stop.record()
     stop.synchronize()
-    return (start.elapsed_time(stop) / runs,
-            f"events over {runs} back-to-back calls")
+    return start.elapsed_time(stop) / runs
 
 
 def kernel_entry(name, source, site, call, kernel_name, plain, nbytes,
-                 flops, shape, plain_runs=20):
+                 flops, shape, plain_runs=20, strict=False):
     """Time one kernel (device time, wrapper call, plain version) and give
     its entry of the kernels line, launches still 0."""
-    ms, how = kernel_device_ms(call, kernel_name)
+    ms, how = kernel_device_ms(call, kernel_name, strict=strict)
     call_ms = cuda_median_ms(call)
     plain_ms = cuda_median_ms(plain, runs=plain_runs, warmup=1)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -324,39 +365,143 @@ def kernel_entry(name, source, site, call, kernel_name, plain, nbytes,
             "library_ms": None}
 
 
-def phase_kernels(rk):
-    worst_abs, worst_scaled = 0.0, 0.0
+def l2_flusher():
+    """A wrapper that writes FLUSH_BYTES (5x the L2) before each call."""
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
+
+    def flushed(fn):
+        def run():
+            flush.zero_()
+            return fn()
+        return run
+    return flushed
+
+
+def design_turns(designs, order, strict=True, bound_ms=None,
+                 after_turn=None):
+    """Device times of CUDA designs of one function in turns (``order``,
+    e.g. old, new, new, old), as the path finds the inputs (warm in L2) and
+    with L2 flushed before each launch.  ``designs`` maps a label to (call,
+    kernel name); returns {(cache, label): [ms, ...]} and logs each turn
+    (every event's time where its median is below ``bound_ms``).
+    ``after_turn(cache, label)``, where given, runs after each turn."""
+    flushed = l2_flusher()
+    turns = {}
+    for cache, wrap in (("warm", lambda fn: fn), ("flushed", flushed)):
+        for who in order:
+            fn, name = designs[who]
+            ms, how = kernel_device_ms(wrap(fn), name, strict=strict,
+                                       bound_ms=bound_ms)
+            turns.setdefault((cache, who), []).append(ms)
+            if cache == "warm":   # the same launches between CUDA events
+                how += (f"; {back_to_back_ms(fn) * 1e3:.2f} us a call "
+                        "back to back between CUDA events")
+            log(f"  turn [{cache}] {who}: {ms * 1e3:.2f} us ({how})")
+            if after_turn is not None:
+                after_turn(cache, who)
+    return turns
+
+
+def phase_kernels(rk, build_logs):
+    """The fused plain sweep (riccati_sweep_cuda: the staged kernel of
+    csrc/riccati_general_fused.cu at <2, 1, 1, 0>) against its plain
+    version and against csrc/riccati_sweep.cu (riccati_sweep_direct_cuda)
+    on the four cases at the LV path's shapes; then both designs timed in
+    turns, warm and with L2 flushed."""
+    worst_abs, worst_scaled, worst_direct = 0.0, 0.0, 0.0
+    plan = rk.kernel_plan(H, 2, 1, "cuda")
+    if plan["kernel"] != rk.STAGED_KERNEL:
+        raise RuntimeError(f"the LV shape plans {plan['kernel']}")
     for kind, seed in CASES.items():
         args = sweep_case(kind, seed)
+        n0 = (rk.STAGED_LAUNCHES, rk.DIRECT_LAUNCHES)
         out = rk.riccati_sweep_cuda(*args)
+        direct = rk.riccati_sweep_direct_cuda(*args)
         torch.cuda.synchronize()
+        if (rk.STAGED_LAUNCHES, rk.DIRECT_LAUNCHES) != (n0[0] + 1, n0[1] + 1):
+            raise RuntimeError(f"{kind}: the staged and direct kernels did "
+                               "not launch once each")
         ref = rk.riccati_sweep_plain(*args)
         torch.cuda.synchronize()
         check_ok(kind, out[3], ref[3])
+        check_ok(kind, direct[3], ref[3])
         ok = ref[3]
         abs_err, scaled, mags = errors(out[:3], ref[:3], ok)
-        for label, o, r, mag in zip(("dX", "dU", "dLam"), out, ref, mags):
-            err = float((o - r).abs()[ok].max())
-            if not err <= SWEEP_TOL * mag:
-                raise RuntimeError(f"{kind}: kernel {label} differs from the "
-                                   f"plain sweep by {err:.3e} > "
-                                   f"{SWEEP_TOL} * {mag:.3g}")
-        log(f"kernel vs plain [{kind}]: ok {int(ok.sum())}/{B} (equal), "
-            f"max |diff| {abs_err:.3e} (each output within {SWEEP_TOL} x "
-            f"max(1, max|plain|)), max |diff|/max(1,|plain|) {scaled:.3e}")
-        if not scaled <= SWEEP_TOL:
-            raise RuntimeError(f"{kind}: kernel differs from the plain "
-                               f"sweep by {scaled:.3e} > {SWEEP_TOL}")
+        d_abs, d_scaled, _ = errors(direct[:3], ref[:3], ok)
+        for who, got in (("staged", out), ("riccati_sweep.cu", direct)):
+            for label, o, r, mag in zip(("dX", "dU", "dLam"), got, ref,
+                                        mags):
+                err = float((o - r).abs()[ok].max())
+                if not err <= SWEEP_TOL * mag:
+                    raise RuntimeError(f"{kind}: {who} {label} differs from "
+                                       f"the plain sweep by {err:.3e} > "
+                                       f"{SWEEP_TOL} * {mag:.3g}")
+        e_direct = errors(out[:3], direct[:3], ok)[1]
+        log(f"kernel vs plain [{kind}]: ok {int(ok.sum())}/{B} (equal; "
+            f"riccati_sweep.cu's too), max |diff| {abs_err:.3e} (each output "
+            f"within {SWEEP_TOL} x max(1, max|plain|)), max "
+            f"|diff|/max(1,|plain|) {scaled:.3e}; riccati_sweep.cu vs plain "
+            f"{d_abs:.3e} / {d_scaled:.3e}; staged vs riccati_sweep.cu "
+            f"{e_direct:.3e}")
+        if not (scaled <= SWEEP_TOL and d_scaled <= SWEEP_TOL
+                and e_direct <= SWEEP_TOL):
+            raise RuntimeError(f"{kind}: the staged kernel differs from the "
+                               f"plain sweep by {scaled:.3e}, "
+                               f"riccati_sweep.cu from it by {d_scaled:.3e}, "
+                               f"the two kernels by {e_direct:.3e} > "
+                               f"{SWEEP_TOL}")
         worst_abs = max(worst_abs, abs_err)
         worst_scaled = max(worst_scaled, scaled)
+        worst_direct = max(worst_direct, e_direct)
 
     args = sweep_case("delta0", 0)
+    staged_name = f"{rk.STAGED_KERNEL}<2, 1, 1, 0>"
+    staged = lambda: rk.riccati_sweep_cuda(*args)  # noqa: E731
+    direct = lambda: rk.riccati_sweep_direct_cuda(*args)  # noqa: E731
     entry = kernel_entry(
-        "riccati_sweep", "riccati_sweep.cu", f"{PALLAS}:445",
-        lambda: rk.riccati_sweep_cuda(*args), "riccati_sweep_kernel",
-        lambda: rk.riccati_sweep_plain(*args), rk.sweep_bytes(B, H, 2, 1),
-        rk.sweep_flops(B, H, 2, 1), f"B={B}, H={H}, nx=2, nu=1")
-    entry.update(max_abs_err=worst_abs, max_scaled_err=worst_scaled)
+        "riccati_sweep", "riccati_general_fused.cu", f"{PALLAS}:445",
+        staged, staged_name, lambda: rk.riccati_sweep_plain(*args),
+        rk.sweep_bytes(B, H, 2, 1), rk.sweep_flops(B, H, 2, 1),
+        f"B={B}, H={H}, nx=2, nu=1", strict=True)
+    turns = design_turns({"riccati_sweep.cu": (direct, rk.SWEEP_KERNEL),
+                          "staged": (staged, staged_name)},
+                         ("riccati_sweep.cu", "staged", "staged",
+                          "riccati_sweep.cu"))
+    mean = {k: statistics.mean(v) for k, v in turns.items()}
+    direct_call_ms = cuda_median_ms(direct)
+    P = plan["block_problems"]
+    smem = rk.staged_smem_bytes(P, H, 2, 1, 1, 0)
+    staged_ptxas = ptxas_report(build_logs[rk.GENERAL_FUSED_SOURCE],
+                                rk.STAGED_KERNEL, (2, 1, 1, 0))
+    direct_ptxas = ptxas_report(build_logs[rk.SOURCE], rk.SWEEP_KERNEL,
+                                (2, 1))
+    log(f"riccati_sweep at B={B}, H={H}, nx=2, nu=1: staged <2, 1, 1, 0> "
+        f"{mean['warm', 'staged'] * 1e3:.2f} us warm / "
+        f"{mean['flushed', 'staged'] * 1e3:.2f} us L2 flushed, "
+        f"riccati_sweep.cu {mean['warm', 'riccati_sweep.cu'] * 1e3:.2f} us / "
+        f"{mean['flushed', 'riccati_sweep.cu'] * 1e3:.2f} us (device time, "
+        f"means of two turns each): the staged kernel takes "
+        f"{mean['warm', 'staged'] / mean['warm', 'riccati_sweep.cu']:.2%} of "
+        f"riccati_sweep.cu's time warm; wrapper calls "
+        f"{entry['call_ms'] * 1e3:.1f} us staged, {direct_call_ms * 1e3:.1f} "
+        f"us riccati_sweep.cu")
+    log(f"staged block <2, 1, 1, 0>: {P} problems, {smem} bytes of dynamic "
+        f"shared memory, {(B + P - 1) // P} blocks; ptxas staged "
+        f"<2, 1, 1, 0>: {staged_ptxas}; riccati_sweep.cu <2, 1>: "
+        f"{direct_ptxas}")
+    entry.update(max_abs_err=worst_abs, max_scaled_err=worst_scaled,
+                 max_scaled_err_vs_direct=worst_direct,
+                 design=f"staged ({staged_name}, {P} problems a block, "
+                        f"{smem} B of shared memory)",
+                 staged_turns_ms=turns["warm", "staged"],
+                 staged_flushed_turns_ms=turns["flushed", "staged"],
+                 direct_turns_ms=turns["warm", "riccati_sweep.cu"],
+                 direct_flushed_turns_ms=turns["flushed", "riccati_sweep.cu"],
+                 direct_ms=mean["warm", "riccati_sweep.cu"],
+                 direct_call_ms=direct_call_ms,
+                 flushed_ms=mean["flushed", "staged"],
+                 direct_flushed_ms=mean["flushed", "riccati_sweep.cu"],
+                 ptxas_staged=staged_ptxas, ptxas_direct=direct_ptxas)
     return entry
 
 
@@ -477,12 +622,36 @@ def general_case(kind, seed, R=QR, r=QEQ, Hn=QH):
     return [torch.as_tensor(a, device="cuda") for a in case]
 
 
-def phase_general(rk, rg):
+def misaligned(t):
+    """A contiguous copy of ``t`` 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def forward_vs_plain_and_runtime(rg, kind, A, Bm, c, Jx, gains, ok, gate):
+    """The general forward entry (the instance at the EQ/border stage)
+    against the plain forward and the run-time forward kernel fed the same
+    gains: (max |diff|, max scaled diff) against plain, and the scaled diff
+    against the run-time kernel."""
+    out = rg.riccati_general_forward_cuda(A, Bm, c, Jx, gains)
+    rt = rg.riccati_general_forward_runtime_cuda(A, Bm, c, Jx, gains)
+    torch.cuda.synchronize()
+    same = rg.riccati_general_forward_plain(A, Bm, c, Jx, gains)
+    e = errors(out, same, ok)
+    gate(kind, "forward (dX, dU, dLam, dNu; same gains)", *e[:2])
+    e_rt = errors(out, rt, ok)
+    gate(kind, "forward instance vs the run-time kernel", *e_rt[:2])
+    return e[0], e[1], e_rt[1]
+
+
+def phase_general(rk, rg, build_log):
     """The general pair against its plain halves at the EQ/border quadrotor
     path's shapes on the four cases; then a border-only and a pure-EQ case,
     and the pair at R=1, r=0 against the plain streamed pair."""
     worst = {"backward": [0.0, 0.0], "forward": [0.0, 0.0]}
-    worst_rt = 0.0
+    worst_rt, worst_fwd_rt = 0.0, 0.0
 
     def gate(kind, what, abs_err, scaled):
         log(f"general {what} vs plain [{kind}]: max |diff| {abs_err:.3e}, "
@@ -519,17 +688,44 @@ def phase_general(rk, rg):
              *e[:2])
         worst_rt = max(worst_rt, e[1])
         del g_rt
-        out = rg.riccati_general_forward_cuda(A, Bm, c, Jx, gains)
-        torch.cuda.synchronize()
-        same = rg.riccati_general_forward_plain(A, Bm, c, Jx, gains)
-        e = errors(out, same, ok_ref)
-        gate(kind, "forward (dX, dU, dLam, dNu; same gains)", *e[:2])
+        e = forward_vs_plain_and_runtime(rg, kind, A, Bm, c, Jx, gains,
+                                         ok_ref, gate)
         worst["forward"] = [max(a, b) for a, b in zip(worst["forward"],
                                                       e[:2])]
+        worst_fwd_rt = max(worst_fwd_rt, e[2])
         pair_vs_plain(kind, args, f"R={QR}, r={QEQ}")
         log(f"  [{kind}] ok {int(ok.sum())}/{B} (equal to plain, as "
             "expected)")
-        del args, gains, g_ref, out, same
+        del args, gains, g_ref
+    # the forward instance at an odd horizon (the gains of every other stage
+    # start 8 bytes off a 16-byte boundary) and on inputs 4 bytes off one
+    for kind, seed in CASES.items():
+        args = general_case(kind, seed, Hn=FWD_ODD_H)
+        gains, ok_ref = rg.riccati_general_backward_plain(*args[:12])
+        e = forward_vs_plain_and_runtime(
+            rg, f"{kind}, H={FWD_ODD_H}", args[0], args[1], args[6], args[12],
+            gains, ok_ref, gate)
+        worst["forward"] = [max(a, b) for a, b in zip(worst["forward"],
+                                                      e[:2])]
+        worst_fwd_rt = max(worst_fwd_rt, e[2])
+        del args, gains
+    args = general_case("delta_per_problem", 1)
+    gains, ok_ref = rg.riccati_general_backward_plain(*args[:12])
+    ins = [args[0], args[1], args[6], args[12], gains]
+    mis = [misaligned(a) for a in ins]
+    moved = rg.riccati_general_forward_cuda(*mis)
+    aligned = rg.riccati_general_forward_cuda(*ins)
+    torch.cuda.synchronize()
+    same_bits = all(torch.equal(m, a) for m, a in zip(moved, aligned))
+    e = errors(moved, rg.riccati_general_forward_plain(*ins), ok_ref)
+    gate("delta_per_problem", "forward instance, inputs 4 bytes off 16",
+         *e[:2])
+    log(f"  forward instance on inputs 4 bytes off a 16-byte boundary: the "
+        f"aligned inputs' outputs bit for bit: {same_bits}")
+    if not same_bits:
+        raise RuntimeError("the forward instance's outputs move with the "
+                           "inputs' alignment")
+    del args, gains, ins, mis, moved, aligned
 
     pair_vs_plain("delta_per_problem",
                   general_case("delta_per_problem", 1, R=2, r=0),
@@ -562,7 +758,7 @@ def phase_general(rk, rg):
 
     args = general_case("delta0", 0)
     A, Bm, c, Jx = args[0], args[1], args[6], args[12]
-    gains, _ = rg.riccati_general_backward_cuda(*args[:12])
+    gains, ok = rg.riccati_general_backward_cuda(*args[:12])
     dims = (B, QH, QNX, QNU, QR, QEQ)
     label = f"B={B}, H={QH}, nx={QNX}, nu={QNU}, R={QR}, r={QEQ}"
     instance = rk.general_backward_kernel(QNX, QNU, QR, QEQ)
@@ -592,13 +788,74 @@ def phase_general(rk, rg):
     bwd.update(design=f"compile-time instance {instance}",
                runtime_ms=rt_ms, runtime_call_ms=rt_call_ms,
                max_scaled_err_vs_runtime=worst_rt)
+    fwd_instance = rk.general_forward_kernel(QNX, QNU, QR, QEQ)
+    if not fwd_instance.startswith("riccati_general_forward_fixed<"):
+        raise RuntimeError(f"the EQ/border stage's forward takes "
+                           f"{fwd_instance}, not the compile-time instance")
+    # the timed launches' outputs: the last one of each turn must be the
+    # checked outputs bit for bit (the instance sums in a fixed order)
+    timed = {}
+
+    def inst():
+        timed["out"] = rg.riccati_general_forward_cuda(A, Bm, c, Jx, gains)
+        return timed["out"]
+
+    checked = inst()
+    torch.cuda.synchronize()
+    gate("delta0", "forward instance, timed inputs",
+         *errors(checked, rg.riccati_general_forward_plain(A, Bm, c, Jx,
+                                                           gains), ok)[:2])
+
+    def same_as_checked(cache, who):
+        if who != "instance":
+            return
+        torch.cuda.synchronize()
+        if not all(torch.equal(t, q) for t, q in zip(timed["out"], checked)):
+            raise RuntimeError(f"a timed launch of the forward instance "
+                               f"[{cache}] differs from its checked outputs")
+
+    runtime = lambda: rg.riccati_general_forward_runtime_cuda(  # noqa: E731
+        A, Bm, c, Jx, gains)
     fwd = kernel_entry(
         "riccati_general_forward", "riccati_general.cu", f"{PALLAS}:1024",
-        lambda: rg.riccati_general_forward_cuda(A, Bm, c, Jx, gains),
-        "riccati_general_forward_kernel",
+        inst, fwd_instance,
         lambda: rg.riccati_general_forward_plain(A, Bm, c, Jx, gains),
         rg.general_forward_bytes(*dims), rg.general_forward_flops(*dims),
-        label, plain_runs=5)
+        label, plain_runs=5, strict=True)
+    same_as_checked("entry", "instance")
+    # the run-time kernel and the instance in turns, warm and flushed
+    turns = design_turns(
+        {"run-time": (runtime, "riccati_general_forward_kernel"),
+         "instance": (inst, fwd_instance)},
+        ("run-time", "instance", "instance", "run-time"),
+        bound_ms=fwd["bound_ms"], after_turn=same_as_checked)
+    mean = {k: statistics.mean(v) for k, v in turns.items()}
+    rt_call_ms = cuda_median_ms(runtime)
+    ptxas = ptxas_report(build_log, "riccati_general_forward_fixed",
+                         (QNX, QNU, QR, QEQ))
+    rt_ptxas = ptxas_report(build_log, "riccati_general_forward_kernel", ())
+    log(f"riccati_general_forward at {label}: "
+        + ", ".join(f"{who} {mean['warm', who] * 1e3:.2f} us warm / "
+                    f"{mean['flushed', who] * 1e3:.2f} us L2 flushed"
+                    for who in ("run-time", "instance"))
+        + f" (device time, means of two turns each): the instance takes "
+          f"{mean['warm', 'instance'] / mean['warm', 'run-time']:.2%} of the "
+          f"run-time kernel's time warm; wrapper calls "
+          f"{fwd['call_ms'] * 1e3:.1f} us instance, {rt_call_ms * 1e3:.1f} "
+          f"us run-time; instance vs run-time outputs max scaled diff "
+          f"{worst_fwd_rt:.3e}; every timed instance launch checked gave "
+          f"the checked outputs bit for bit")
+    log(f"ptxas forward instance (ring of {rk.FORWARD_RING} stage slots, "
+        f"{rk.forward_ring_bytes(QNX, QNU, QR, QEQ)} B of shared memory a "
+        f"block): {ptxas}; run-time kernel: {rt_ptxas}")
+    fwd.update(design=f"compile-time instance {fwd_instance}",
+               runtime_ms=mean["warm", "run-time"], runtime_call_ms=rt_call_ms,
+               flushed_ms=mean["flushed", "instance"],
+               runtime_flushed_ms=mean["flushed", "run-time"],
+               turns_ms={f"{cache}, {who}": v
+                         for (cache, who), v in turns.items()},
+               max_scaled_err_vs_runtime=worst_fwd_rt,
+               ptxas_instance=ptxas, ptxas_runtime=rt_ptxas)
     for entry, key in ((bwd, "backward"), (fwd, "forward")):
         entry.update(max_abs_err=worst[key][0], max_scaled_err=worst[key][1])
     pair_ms = cuda_median_ms(
@@ -621,8 +878,10 @@ def ptxas_report(log, kernel, template_args):
     """ptxas -v's lines for one instance of ``kernel`` in a build log: its
     registers, spills, stack and barriers (dynamic shared memory is set at
     launch and not in the report)."""
-    # the instance's mangled name: kernel I Li<arg>E ... E
-    mangled = f"{kernel}I{''.join(f'Li{a}E' for a in template_args)}E"
+    # the instance's mangled name: kernel I Li<arg>E ... E (a kernel that
+    # is no template: kernel E, the end of its nested name)
+    mangled = (f"{kernel}I{''.join(f'Li{a}E' for a in template_args)}E"
+               if template_args else f"{kernel}E")
     out, inside = [], False
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -729,26 +988,13 @@ def phase_fused_general(rk, rg, build_log):
         rg.general_fused_bytes(*dims), rg.general_fused_flops(*dims), label)
     # the two designs in turns, as the path finds the inputs (warm in L2)
     # and with L2 flushed before each launch
-    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
-
-    def flushed(fn):
-        def run():
-            flush.zero_()
-            return fn()
-        return run
-
-    turns = {}
-    for cache, wrap in (("warm", lambda fn: fn), ("flushed", flushed)):
-        for who in ("direct", "staged", "staged", "direct"):
-            fn, name = ((direct, rk.DIRECT_KERNEL) if who == "direct"
-                        else (staged, rk.STAGED_KERNEL))
-            ms, how = kernel_device_ms(wrap(fn), name)
-            turns.setdefault((cache, who), []).append(ms)
-            log(f"  turn [{cache}] {who}: {ms * 1e3:.2f} us ({how})")
+    turns = design_turns({"direct": (direct, rk.DIRECT_KERNEL),
+                          "staged": (staged, rk.STAGED_KERNEL)},
+                         ("direct", "staged", "staged", "direct"),
+                         strict=False)
     split = {cache: phase_split(rg, args, wrap)
              for cache, wrap in (("warm", lambda fn: fn),
-                                 ("flushed", flushed))}
-    del flush
+                                 ("flushed", l2_flusher()))}
     for cache, sp in split.items():
         log(f"staged kernel phases [{cache}] (per block, medians; stamps "
             "from %globaltimer and clock64): "
@@ -930,12 +1176,15 @@ def phase_main_path(nempc, rk, rg, card):
         log(f"warm {step}: {times[-1] * 1e3:.1f} ms  sweeps "
             f"{launches[-1]}  " + telemetry("warm", res))
     n = counters(rk, rg)
-    log(f"LV path: fused kernel launches {n['fused']}, streamed backward "
+    log(f"LV path: fused kernel launches {n['fused']} (staged "
+        f"{n['fused_staged']}, riccati_sweep.cu {n['fused_direct']}), "
+        f"streamed backward "
         f"{n['backward']} / forward {n['forward']}, general "
         f"{n['general_backward']} / {n['general_forward']}, plain calls "
         f"{n['plain']}")
-    if not only_launched(n, "fused"):
-        raise RuntimeError("the LV path did not go through the fused "
+    if (not only_launched(n, "fused", "fused_staged")
+            or n["fused_staged"] != n["fused"]):
+        raise RuntimeError("the LV path did not go through the staged fused "
                            "kernel alone")
     if min(conv) < MIN_WARM_CONVERGED:
         raise RuntimeError(f"warm convergence {conv} below "
@@ -947,7 +1196,7 @@ def phase_main_path(nempc, rk, rg, card):
     sweep_ms = cuda_median_ms(lambda: rk.riccati_sweep_cuda(*args))
     report_split(nempc, mpc, carry, xs, res, times, launches[-1], sweep_ms,
                  card, params=params)
-    return params, x0s, n["fused"]
+    return params, x0s, n["fused_staged"]
 
 
 def phase_quadrotor(nempc, rk, rg, card, pair_ms):
@@ -1081,16 +1330,18 @@ def phase_fleet_eq(nempc, rk, rg, card, pair_ms):
     log(f"EQ/border path: general backward launches "
         f"{n['general_backward']} (the compile-time instance "
         f"{n['general_backward_instance']}), forward "
-        f"{n['general_forward']}; fused "
+        f"{n['general_forward']} (the compile-time instance "
+        f"{n['general_forward_instance']}); fused "
         f"{n['fused']}, streamed backward {n['backward']} / forward "
         f"{n['forward']}, plain calls {n['plain']}")
     if (not only_launched(n, "general_backward", "general_backward_instance",
-                          "general_forward")
+                          "general_forward", "general_forward_instance")
             or n["general_forward"] != n["general_backward"]
-            or n["general_backward_instance"] != n["general_backward"]):
+            or n["general_backward_instance"] != n["general_backward"]
+            or n["general_forward_instance"] != n["general_forward"]):
         raise RuntimeError("the EQ/border path did not go through the "
-                           "general pair alone, with the backward kernel's "
-                           "compile-time instance")
+                           "general pair alone, with both kernels' "
+                           "compile-time instances")
     if min(conv) < MIN_WARM_CONVERGED:
         raise RuntimeError(f"EQ/border convergence {conv} (cold, warm...) "
                            f"below {MIN_WARM_CONVERGED}/{B}")
@@ -1099,7 +1350,7 @@ def phase_fleet_eq(nempc, rk, rg, card, pair_ms):
         f"share (cold, warm...) {[round(b, 4) for b in binding]}")
     report_split(nempc, mpc, carry, xs, res, times, launches[-1], pair_ms,
                  card)
-    return x0s, n["general_backward_instance"], n["general_forward"]
+    return x0s, n["general_backward_instance"], n["general_forward_instance"]
 
 
 def check_floor(tag, res, u_floor):
@@ -1379,10 +1630,11 @@ def main():
     log(f"build phase {time.perf_counter() - t0:.1f} s")
 
     # phases 3, 3b, 3c, 3d: kernels vs plain
-    fused = phase_kernels(rk)
+    logs = {src: r.log for src, r in zip(sources, built)}
+    fused = phase_kernels(rk, logs)
     bwd, fwd, pair_ms = phase_streamed(rk)
-    gbwd, gfwd, gpair_ms = phase_general(rk, rg)
-    gfused = phase_fused_general(rk, rg, built[-1].log)
+    gbwd, gfwd, gpair_ms = phase_general(rk, rg, logs[rk.GENERAL_SOURCE])
+    gfused = phase_fused_general(rk, rg, logs[rk.GENERAL_FUSED_SOURCE])
 
     # phases 4, 4b, 4c, 4d, 6: main paths and their numbers
     params, x0s, fused["launches"] = phase_main_path(nempc, rk, rg, card)

@@ -1,11 +1,11 @@
 // Hopper's asynchronous copies into shared memory (sm_90a), each inline-PTX
 // primitive in one small __device__ function: the 1-D bulk copy (the Tensor
 // Memory Accelerator's copy of a contiguous range) that completes on an
-// mbarrier, the mbarrier's init, arrival and wait, and the 4-byte cp.async
-// copy for ranges the bulk copy does not take; and the clocks a kernel's
-// phases are stamped with.  Keeping them here, and nothing else, lets a
-// host-side emulation of a kernel replace this header with plain copies
-// and host clocks.
+// mbarrier, the mbarrier's init, arrival and wait, and the 4-, 8- and
+// 16-byte cp.async copies for ranges the bulk copy does not take; and the
+// clocks a kernel's phases are stamped with.  Keeping them here, and
+// nothing else, lets a host-side emulation of a kernel replace this header
+// with plain copies and host clocks.
 
 #pragma once
 
@@ -66,6 +66,19 @@ __device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src,
 // the calling thread's next copy4_wait_all().
 __device__ __forceinline__ void copy4_async(float* dst, const float* src) {
   __pipeline_memcpy_async(dst, src, 4);
+}
+
+// Two floats by cp.async (both addresses 8-byte aligned), and four (both
+// 16-byte aligned, L1 bypassed: the stage inputs are read once); either
+// lands as the 4-byte copy does, at the calling thread's wait on its group.
+__device__ __forceinline__ void copy8_async(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void copy16_async(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
 }
 
 __device__ __forceinline__ void copy4_wait_all() {

@@ -1057,9 +1057,13 @@ cudaError_t launch(const void* A, const void* Bm, const void* G, const void* M,
 // Plain C entry points (bound with ctypes).  Each launches on `stream` of
 // `device` and returns the launch's cudaError_t (0 on success).  The
 // instances are (nx, nu) = (2, 1) with R in {1, 2, 3} right-hand sides and
-// r in {0, 1} equality rows, except (R, r) = (1, 0) (the plain sweep,
-// riccati_sweep.cu); any other shape returns cudaErrorInvalidValue.  Both
-// lists and `_GENERAL_INSTANCES` in ops/cuda/riccati_kernel.py must agree.
+// r in {0, 1} equality rows; any other shape returns cudaErrorInvalidValue.
+// The staged entry also takes (R, r) = (1, 0), the plain sweep's shape
+// (riccati_sweep_cuda launches it there: the general sweep at one
+// right-hand side and no equality rows is the plain sweep), and its list
+// is `_STAGED_INSTANCES` in ops/cuda/riccati_kernel.py; the direct entry's
+// is `_GENERAL_INSTANCES` (at (1, 0) riccati_sweep.cu is the direct
+// design).
 //
 // riccati_general_fused_f32: the staged kernel, or the direct kernel at a
 // horizon where not one problem fits in shared memory.  Bit i of `aligned`
@@ -1084,6 +1088,7 @@ extern "C" int riccati_general_fused_f32(
     return static_cast<int>(launch<NX_, NU_, R_, RE_>(                      \
         A, Bm, G, M, mx, mu, c, delta, dc, E, F, h, Jx, dX, dU, dLam, dNu, \
         ok, gains, stamps, nbatch, H, static_cast<unsigned>(aligned), s));
+  RICCATI_GENERAL_FUSED_CASE(2, 1, 1, 0)
   RICCATI_GENERAL_FUSED_CASE(2, 1, 1, 1)
   RICCATI_GENERAL_FUSED_CASE(2, 1, 2, 0)
   RICCATI_GENERAL_FUSED_CASE(2, 1, 2, 1)

@@ -24,8 +24,14 @@
 // The per-stage gains (K, k, Pbar, pbar, Mxu) go to a global scratch buffer
 // between the two passes (the TPU kernel kept them in VMEM); each thread
 // reads back only its own gains, so no synchronisation across blocks is
-// needed.  Making it fast (batch-innermost coalesced layouts, several
-// threads per problem, shared-memory staging) is later work.
+// needed.
+//
+// The solver's fused plain sweep is now riccati_general_fused.cu's staged
+// kernel at <2, 1, 1, 0> (each block's inputs and gains in shared memory;
+// the general sweep at one right-hand side and no equality rows is this
+// sweep).  riccati_sweep_cuda launches this kernel only at a horizon where
+// not one problem fits a staged block, and riccati_sweep_direct_cuda at
+// every horizon, so that the two designs can be held against each other.
 //
 // Layouts (all float32, C-contiguous, batch first):
 //   A (B,H,NX,NX)  Bm (B,H,NX,NU)  G, M (B,H,NS,NS) symmetric, of which only

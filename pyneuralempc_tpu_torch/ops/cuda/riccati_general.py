@@ -29,7 +29,11 @@ Replaces ``pyneuralempc_tpu/ops/pallas/riccati_kernel.py``
   shape takes it.  The backward entry launches a compile-time instance of
   the backward kernel for the (nx, nu, R, r) in
   ``riccati_kernel._GENERAL_BACKWARD_INSTANCES`` (the EQ/border quadrotor
-  fleet's (12, 4, 2, 1)) and the run-time kernel for every other shape.
+  fleet's (12, 4, 2, 1)) and the run-time kernel for every other shape;
+  the forward entry likewise its compile-time instance, which streams each
+  warp's stage inputs through a ring of stage slots in shared memory, for
+  the shapes in ``riccati_kernel._GENERAL_FORWARD_INSTANCES`` (the same
+  (12, 4, 2, 1)).
 
 Beside them:
 
@@ -45,8 +49,9 @@ Beside them:
   :func:`riccati_sweep_general_streamed_cuda` — check their inputs,
   allocate outputs (and a gains buffer where a kernel needs one or the
   caller asks for it), launch on PyTorch's current stream.
-* :func:`riccati_general_backward_runtime_cuda` — the run-time backward
-  kernel at any shape, the instance's shape too, and
+* :func:`riccati_general_backward_runtime_cuda` and
+  :func:`riccati_general_forward_runtime_cuda` — the run-time backward
+  and forward kernels at any shape, the instances' shape too, and
   :func:`riccati_sweep_general_fused_direct_cuda` — the fused direct
   kernel at any horizon, so that ``chip_smoke.py`` and the card tests can
   hold the two designs of each against each other.  The solver never
@@ -58,10 +63,12 @@ Beside them:
 ``FUSED_LAUNCHES`` counts the fused kernels' launches, of which
 ``FUSED_STAGED_LAUNCHES`` took the staged kernel and
 ``FUSED_DIRECT_LAUNCHES`` the direct one; ``BACKWARD_LAUNCHES`` and
-``FORWARD_LAUNCHES`` count the pair's; ``BACKWARD_INSTANCE_LAUNCHES`` counts
-the backward launches that took the compile-time instance and
-``BACKWARD_RUNTIME_LAUNCHES`` those of
-:func:`riccati_general_backward_runtime_cuda`.
+``FORWARD_LAUNCHES`` count the pair's; ``BACKWARD_INSTANCE_LAUNCHES`` and
+``FORWARD_INSTANCE_LAUNCHES`` count the launches of each that took the
+compile-time instance, ``BACKWARD_RUNTIME_LAUNCHES`` and
+``FORWARD_RUNTIME_LAUNCHES`` those of
+:func:`riccati_general_backward_runtime_cuda` and
+:func:`riccati_general_forward_runtime_cuda`.
 
 Layouts are batch-first and stage-major, so a stage's R right-hand sides
 are contiguous: A (B,H,nx,nx), B (B,H,nx,nu), G and M (B,H,ns,ns)
@@ -82,7 +89,8 @@ from . import riccati_kernel as _rk
 from .riccati_kernel import (GENERAL_FUSED_SOURCE, GENERAL_MAX_R,
                              GENERAL_SOURCE, STREAMED_MAX_NU,
                              STREAMED_MAX_NX, _GENERAL_BACKWARD_INSTANCES,
-                             _GENERAL_INSTANCES, _check, _chol_local_retry,
+                             _GENERAL_FORWARD_INSTANCES, _GENERAL_INSTANCES,
+                             _aligned_mask, _check, _chol_local_retry,
                              _entry, _general_fits, _stream, backward_bytes,
                              backward_flops, forward_bytes, forward_flops,
                              gain_width, kernel_plan, staged_block_problems,
@@ -95,6 +103,7 @@ __all__ = ["riccati_general_backward_plain", "riccati_general_forward_plain",
            "riccati_general_backward_cuda",
            "riccati_general_backward_runtime_cuda",
            "riccati_general_forward_cuda",
+           "riccati_general_forward_runtime_cuda",
            "riccati_sweep_general_streamed_cuda", "riccati_sweep_general",
            "general_fused_bytes", "general_fused_flops",
            "general_backward_bytes", "general_backward_flops",
@@ -107,6 +116,8 @@ BACKWARD_LAUNCHES = 0   # general backward launches
 BACKWARD_INSTANCE_LAUNCHES = 0   # of them, the compile-time instance's
 BACKWARD_RUNTIME_LAUNCHES = 0    # riccati_general_backward_runtime_cuda's
 FORWARD_LAUNCHES = 0    # general forward launches
+FORWARD_INSTANCE_LAUNCHES = 0    # of them, the compile-time instance's
+FORWARD_RUNTIME_LAUNCHES = 0     # riccati_general_forward_runtime_cuda's
 
 
 # ---- bytes and operations (the least the card must do) ----
@@ -333,11 +344,7 @@ def riccati_general_backward_runtime_cuda(A, B, G, M, mx, mu, c, delta,
     return gains, ok
 
 
-def riccati_general_forward_cuda(A, B, c, Jx, gains):
-    """Launch the general forward kernel of ``csrc/riccati_general.cu`` on
-    CUDA tensors (no fallback).  Returns ``(dX, dU, dLam, dNu)`` as
-    :func:`riccati_general_forward_plain` does."""
-    global FORWARD_LAUNCHES
+def _forward_launch(entry, A, B, c, Jx, gains):
     if Jx.dim() != 4:
         raise ValueError(f"Jx must be (B, H, r, nx), got {tuple(Jx.shape)}")
     if c.dim() != 4:
@@ -349,7 +356,7 @@ def riccati_general_forward_cuda(A, B, c, Jx, gains):
         "c": (c, (Bn, H, R, nx)), "Jx": (Jx, (Bn, H, r, nx)),
         "gains": (gains, (Bn, H, gain_width(nx, nu, R, r)))})
     _require(Bn, H, nx, nu, R, r)
-    fn = _entry(GENERAL_SOURCE, "riccati_general_forward_f32", 9, 7)
+    fn = _entry(GENERAL_SOURCE, entry, 9, 7)
     dev = c.device
     dX = torch.empty((Bn, H, R, nx), dtype=torch.float32, device=dev)
     dU = torch.empty((Bn, H, R, nu), dtype=torch.float32, device=dev)
@@ -359,9 +366,35 @@ def riccati_general_forward_cuda(A, B, c, Jx, gains):
              gains.data_ptr(), dX.data_ptr(), dU.data_ptr(), dLam.data_ptr(),
              dNu.data_ptr(), Bn, H, nx, nu, R, r, dev.index or 0,
              _stream(dev))
-    _raise_on(err, "riccati_general_forward", Bn, H, nx, nu, R, r)
+    _raise_on(err, entry, Bn, H, nx, nu, R, r)
+    return (dX, dU, dLam, dNu), (nx, nu, R, r)
+
+
+def riccati_general_forward_cuda(A, B, c, Jx, gains):
+    """Launch the general forward kernel of ``csrc/riccati_general.cu`` on
+    CUDA tensors (no fallback): the compile-time instance at the shapes of
+    ``_GENERAL_FORWARD_INSTANCES``, the run-time kernel at any other.
+    Returns ``(dX, dU, dLam, dNu)`` as :func:`riccati_general_forward_plain`
+    does.  Inputs that do not start on a 16-byte boundary are copied in
+    narrower pieces, never refused."""
+    global FORWARD_LAUNCHES, FORWARD_INSTANCE_LAUNCHES
+    out, shape = _forward_launch("riccati_general_forward_f32", A, B, c, Jx,
+                                 gains)
     FORWARD_LAUNCHES += 1
-    return dX, dU, dLam, dNu
+    if shape in _GENERAL_FORWARD_INSTANCES:
+        FORWARD_INSTANCE_LAUNCHES += 1
+    return out
+
+
+def riccati_general_forward_runtime_cuda(A, B, c, Jx, gains):
+    """:func:`riccati_general_forward_cuda` with the run-time forward kernel
+    at every shape.  Not on the solver's path: it lets one run hold the
+    instance against the run-time kernel and time both."""
+    global FORWARD_RUNTIME_LAUNCHES
+    out, _ = _forward_launch("riccati_general_forward_runtime_f32", A, B, c,
+                             Jx, gains)
+    FORWARD_RUNTIME_LAUNCHES += 1
+    return out
 
 
 def riccati_sweep_general_streamed_cuda(A, B, G, M, mx, mu, c, delta,
@@ -382,13 +415,6 @@ def _require_fused(Bn, H, nx, nu, R, r):
             f" r={r}; riccati_sweep_general_streamed_cuda takes it")
     if Bn == 0 or H == 0:
         raise ValueError("the CUDA sweeps need B >= 1 and H >= 1")
-
-
-def _aligned_mask(tensors):
-    """Bit i set where ``tensors[i]`` starts on a 16-byte boundary: the
-    ranges of such an input may take bulk copies into shared memory (the
-    staged kernel copies the others 4 bytes at a time)."""
-    return sum(1 << i for i, t in enumerate(tensors) if t.data_ptr() % 16 == 0)
 
 
 def _fused_launch(direct, args, return_gains, stamps=None):

@@ -6,9 +6,16 @@ Replaces the plain sweep of ``pyneuralempc_tpu/ops/pallas/riccati_kernel.py``
 ``_riccati_pallas_call``: its fused branch (:419-465) and its streamed pair,
 the backward kernel (:468) and the forward kernel (:488).
 
-* ``csrc/riccati_sweep.cu`` — the fused sweep, one thread per problem,
-  backward then forward in one launch, instantiated for (nx, nu) in
-  ``_INSTANCES`` (the LV fleet's (2, 1)).
+* ``csrc/riccati_general_fused.cu``'s staged kernel at <2, 1, 1, 0> — the
+  fused sweep for (nx, nu) in ``_INSTANCES`` (the LV fleet's (2, 1)): the
+  general sweep at one right-hand side and no equality rows is the plain
+  sweep, so the LV fleet takes the general source's staged design (each
+  block's inputs and gains in shared memory), wherever a block holds at
+  least one problem at its horizon.
+* ``csrc/riccati_sweep.cu`` — the first fused design, one thread per
+  problem reading every stage from device memory, backward then forward
+  in one launch, at (nx, nu) in ``_INSTANCES``: the fused sweep at a
+  horizon where not one problem fits a staged block.
 * ``csrc/riccati_streamed.cu`` — the streamed pair, one warp per problem,
   any nx <= 32 and nu <= 16 at run time: the backward kernel writes each
   stage's gains to device memory, the forward kernel reads them back.  The
@@ -29,16 +36,19 @@ Beside them:
   their inputs, allocate outputs and scratch, launch on PyTorch's current
   stream.
 * :func:`riccati_backward_runtime_cuda` — the run-time backward kernel at
-  any shape, the instance's too, so that ``chip_smoke.py`` and the card
-  tests can hold the two designs against each other.  The solver never
-  calls it.
+  any shape, the instance's too, and :func:`riccati_sweep_direct_cuda` —
+  ``csrc/riccati_sweep.cu`` at any horizon, so that ``chip_smoke.py`` and
+  the card tests can hold the two designs of each against each other.
+  The solver never calls them.
 * :func:`riccati_sweep` — the dispatch the solver calls, on
   :func:`kernel_plan`.  It never drops a CUDA tensor to a plain version.
 
-``LAUNCHES`` counts fused launches, ``BACKWARD_LAUNCHES`` and
-``FORWARD_LAUNCHES`` the streamed pair's (``BACKWARD_INSTANCE_LAUNCHES`` the
-backward launches that took the compile-time instance,
-``BACKWARD_RUNTIME_LAUNCHES`` those of :func:`riccati_backward_runtime_cuda`),
+``LAUNCHES`` counts fused launches (``STAGED_LAUNCHES`` those of the
+staged kernel, ``DIRECT_LAUNCHES`` those of ``csrc/riccati_sweep.cu``),
+``BACKWARD_LAUNCHES`` and ``FORWARD_LAUNCHES`` the streamed pair's
+(``BACKWARD_INSTANCE_LAUNCHES`` the backward launches that took the
+compile-time instance, ``BACKWARD_RUNTIME_LAUNCHES`` those of
+:func:`riccati_backward_runtime_cuda`),
 and ``PLAIN_CALLS`` calls of a plain version (a whole plain sweep counts
 once), so a run can show which path it took.
 
@@ -61,7 +71,9 @@ import torch
 # solver's global-δ ladder convexifies the whole horizon.
 _LOCAL_DELTAS = (0.0, 1e-6, 1e-4)
 
-# (nx, nu) pairs that csrc/riccati_sweep.cu instantiates.
+# (nx, nu) pairs of the fused plain sweep: csrc/riccati_sweep.cu
+# instantiates them, and csrc/riccati_general_fused.cu's staged entry at
+# (nx, nu, 1, 0) (_STAGED_INSTANCES).
 _INSTANCES = frozenset({(2, 1)})
 # (nx, nu) pairs for which csrc/riccati_streamed.cu's backward entry launches
 # the compile-time instance riccati_general_backward_fixed<nx, nu, 1, 0>
@@ -81,11 +93,26 @@ GENERAL_MAX_R = 65
 # one stage equality row; (R, r) = (1, 0) is the plain sweep's.
 _GENERAL_INSTANCES = frozenset((2, 1, R, r) for R in (1, 2, 3)
                                for r in (0, 1) if (R, r) != (1, 0))
+# csrc/riccati_general_fused.cu's staged entry's list: the general
+# instances and the plain sweep's (nx, nu, 1, 0), which riccati_sweep_cuda
+# launches (the general sweep at one right-hand side and no equality rows
+# is the plain sweep).  Its direct entry's list is _GENERAL_INSTANCES.
+_STAGED_INSTANCES = _GENERAL_INSTANCES | {(nx, nu, 1, 0)
+                                          for nx, nu in _INSTANCES}
 # (nx, nu, R, r) tuples for which csrc/riccati_general.cu's backward entry
 # launches its compile-time instance (its C entry point's list): the
 # EQ/border quadrotor fleet's stage.  Every other shape takes the run-time
 # backward kernel.
 _GENERAL_BACKWARD_INSTANCES = frozenset({(12, 4, 2, 1)})
+# (nx, nu, R, r) tuples for which csrc/riccati_general.cu's forward entry
+# launches its compile-time instance riccati_general_forward_fixed (its C
+# entry point's list): the EQ/border quadrotor fleet's stage.  The
+# instance streams each warp's stage inputs through a ring of FORWARD_RING
+# stage slots in shared memory (kForwardRing in the source).
+_GENERAL_FORWARD_INSTANCES = frozenset({(12, 4, 2, 1)})
+FORWARD_RING = 2
+# Problems (warps) a block of the streamed kernels (kMaxWarps).
+STREAMED_WARPS = 4
 # csrc/riccati_general_fused.cu's two kernels.  The staged kernel's block
 # of STAGED_MAX_PROBLEMS threads holds up to that many problems' inputs,
 # gains and outputs in at most STAGED_MAX_SMEM bytes of dynamic shared
@@ -93,10 +120,13 @@ _GENERAL_BACKWARD_INSTANCES = frozenset({(12, 4, 2, 1)})
 # takes a horizon at which not one problem fits.
 STAGED_KERNEL = "riccati_general_fused_staged_kernel"
 DIRECT_KERNEL = "riccati_general_fused_kernel"
+SWEEP_KERNEL = "riccati_sweep_kernel"     # csrc/riccati_sweep.cu's
 STAGED_MAX_PROBLEMS = 32
 STAGED_MAX_SMEM = 232_448
 
-LAUNCHES = 0            # fused kernel launches by riccati_sweep_cuda
+LAUNCHES = 0            # fused plain sweep launches
+STAGED_LAUNCHES = 0     # of them, the staged kernel's at <2, 1, 1, 0>
+DIRECT_LAUNCHES = 0     # of them, csrc/riccati_sweep.cu's
 BACKWARD_LAUNCHES = 0   # streamed backward launches by riccati_backward_cuda
 BACKWARD_INSTANCE_LAUNCHES = 0   # of them, the compile-time instance's
 BACKWARD_RUNTIME_LAUNCHES = 0    # riccati_backward_runtime_cuda's
@@ -178,6 +208,31 @@ def general_backward_kernel(nx: int, nu: int, R: int, r: int) -> str:
     return "riccati_general_backward_kernel"
 
 
+def general_forward_kernel(nx: int, nu: int, R: int, r: int) -> str:
+    """The kernel that csrc/riccati_general.cu's forward entry launches at
+    this shape, as a profiler names it: the compile-time instance, with its
+    template arguments, or the run-time kernel."""
+    if (nx, nu, R, r) in _GENERAL_FORWARD_INSTANCES:
+        return f"riccati_general_forward_fixed<{nx}, {nu}, {R}, {r}>"
+    return "riccati_general_forward_kernel"
+
+
+def forward_slot_floats(nx: int, nu: int, R: int, r: int) -> int:
+    """Floats of one stage slot of the forward instance's ring
+    (``ForwardLayout::kSlot`` in csrc/riccati_general.cu): A, B, c, Jx and
+    the gains, each from a 16-byte boundary of the slot with room for its
+    source's offset of 0-3 floats within 16 bytes."""
+    return sum(_round4(n + 3) for n in (
+        nx * nx, nx * nu, R * nx, r * nx, gain_width(nx, nu, R, r)) if n)
+
+
+def forward_ring_bytes(nx: int, nu: int, R: int, r: int) -> int:
+    """Dynamic shared memory of a block of the forward instance: its
+    STREAMED_WARPS warps' rings of FORWARD_RING stage slots each."""
+    return 4 * STREAMED_WARPS * FORWARD_RING * forward_slot_floats(
+        nx, nu, R, r)
+
+
 def kernel_plan(H: int, nx: int, nu: int, device, R: int = 1,
                 r: int = 0) -> dict:
     """Which sweep a problem of these dims takes on ``device``, and why.
@@ -192,7 +247,9 @@ def kernel_plan(H: int, nx: int, nu: int, device, R: int = 1,
     plan also names the kernel (``"kernel"``: STAGED_KERNEL, or
     DIRECT_KERNEL at a horizon where not one problem fits in a staged
     block) and the staged block's problems (``"block_problems"``, 0 for the
-    direct kernel).
+    direct kernel).  So does the fused plain plan: STAGED_KERNEL (at
+    <nx, nu, 1, 0>), or SWEEP_KERNEL (csrc/riccati_sweep.cu) at a horizon
+    where not one problem fits.
     """
     kind = torch.device(device).type
     if kind == "cpu":
@@ -220,8 +277,17 @@ def kernel_plan(H: int, nx: int, nu: int, device, R: int = 1,
                            f"1 <= R <= {GENERAL_MAX_R}, r <= nu")}
     if kind == "cuda" and H >= 1:
         if (nx, nu) in _INSTANCES:
+            P = staged_block_problems(H, nx, nu, 1, 0)
+            how = (f"csrc/{GENERAL_FUSED_SOURCE}'s staged kernel at <{nx}, "
+                   f"{nu}, 1, 0>, {P} problems a block in shared memory"
+                   if P else
+                   f"csrc/{SOURCE} <{nx}, {nu}>: not one problem's {H} "
+                   "stages fit in shared memory")
             return {"path": "cuda_fused",
-                    "reason": f"csrc/{SOURCE} instantiates <{nx}, {nu}>"}
+                    "kernel": STAGED_KERNEL if P else SWEEP_KERNEL,
+                    "block_problems": P,
+                    "reason": f"the fused plain sweep at (nx, nu) = ({nx}, "
+                              f"{nu}): {how}"}
         if _streamed_fits(nx, nu):
             return {"path": "cuda_streamed",
                     "reason": f"csrc/{STREAMED_SOURCE} takes nx={nx}, "
@@ -511,34 +577,80 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def riccati_sweep_cuda(A, B, G, M, mx, mu, c, delta):
-    """Launch the fused ``csrc/riccati_sweep.cu`` on CUDA tensors (no
-    fallback).
+def _aligned_mask(tensors):
+    """Bit i set where ``tensors[i]`` starts on a 16-byte boundary: the
+    ranges of such an input may take bulk copies into shared memory (the
+    staged kernel copies the others 4 bytes at a time)."""
+    return sum(1 << i for i, t in enumerate(tensors)
+               if t is not None and t.data_ptr() % 16 == 0)
 
-    Raises on a tensor that is not float32, not contiguous, not on one CUDA
-    device, of the wrong shape, or of an (nx, nu) with no instantiation.
-    """
-    global LAUNCHES
+
+def _sweep_launch(direct, A, B, G, M, mx, mu, c, delta):
+    """The fused plain sweep: the staged kernel of
+    ``csrc/riccati_general_fused.cu`` at <nx, nu, 1, 0> where a block holds
+    a problem at this horizon and ``direct`` is false, else
+    ``csrc/riccati_sweep.cu``."""
+    global LAUNCHES, STAGED_LAUNCHES, DIRECT_LAUNCHES
     Bn, H, nx, nu = _check_sweep_inputs(A, B, G, M, mx, mu, c, delta)
     if (nx, nu) not in _INSTANCES:
         raise NotImplementedError(
             f"csrc/{SOURCE} instantiates {sorted(_INSTANCES)} only, not "
             f"nx={nx}, nu={nu}; riccati_sweep_streamed_cuda takes it")
-    fn = _entry(SOURCE, "riccati_sweep_f32", 13)
+    staged = not direct and staged_block_problems(H, nx, nu, 1, 0) > 0
     dev = c.device
     dX = torch.empty((Bn, H, nx), dtype=torch.float32, device=dev)
     dU = torch.empty((Bn, H, nu), dtype=torch.float32, device=dev)
     dLam = torch.empty((Bn, H, nx), dtype=torch.float32, device=dev)
     ok = torch.empty((Bn,), dtype=torch.bool, device=dev)
-    gains = torch.empty((Bn, H, gain_width(nx, nu)), dtype=torch.float32,
-                        device=dev)
-    err = fn(A.data_ptr(), B.data_ptr(), G.data_ptr(), M.data_ptr(),
-             mx.data_ptr(), mu.data_ptr(), c.data_ptr(), delta.data_ptr(),
-             dX.data_ptr(), dU.data_ptr(), dLam.data_ptr(), ok.data_ptr(),
-             gains.data_ptr(), Bn, H, nx, nu, dev.index or 0, _stream(dev))
-    _raise_on(err, "riccati_sweep", Bn, H, nx, nu)
+    if staged:
+        # the general sweep at R = 1, r = 0: mx, mu, c are its (B,H,1,·)
+        # right-hand sides, δ stands for δ_c (not read), E, F, h, Jx and
+        # dNu are empty, and the gains stay in shared memory
+        entry = "riccati_general_fused_f32"
+        ins = (A, B, G, M, mx, mu, c, delta, delta, None, None, None, None)
+        err = _entry(GENERAL_FUSED_SOURCE, entry, 20, 8)(
+            *[None if t is None else t.data_ptr() for t in ins],
+            dX.data_ptr(), dU.data_ptr(), dLam.data_ptr(), None,
+            ok.data_ptr(), None, None, Bn, H, nx, nu, 1, 0,
+            _aligned_mask(ins), dev.index or 0, _stream(dev))
+    else:
+        entry = "riccati_sweep_f32"
+        gains = torch.empty((Bn, H, gain_width(nx, nu)), dtype=torch.float32,
+                            device=dev)
+        err = _entry(SOURCE, entry, 13)(
+            A.data_ptr(), B.data_ptr(), G.data_ptr(), M.data_ptr(),
+            mx.data_ptr(), mu.data_ptr(), c.data_ptr(), delta.data_ptr(),
+            dX.data_ptr(), dU.data_ptr(), dLam.data_ptr(), ok.data_ptr(),
+            gains.data_ptr(), Bn, H, nx, nu, dev.index or 0, _stream(dev))
+    _raise_on(err, entry, Bn, H, nx, nu)
     LAUNCHES += 1
+    if staged:
+        STAGED_LAUNCHES += 1
+    else:
+        DIRECT_LAUNCHES += 1
     return dX, dU, dLam, ok
+
+
+def riccati_sweep_cuda(A, B, G, M, mx, mu, c, delta):
+    """Launch the fused plain sweep on CUDA tensors (no fallback): the
+    staged kernel of ``csrc/riccati_general_fused.cu`` at <nx, nu, 1, 0>
+    where a block holds at least one problem at this horizon
+    (``kernel_plan``'s ``"kernel"``), ``csrc/riccati_sweep.cu`` where none
+    fits.  Inputs that do not start on a 16-byte boundary are copied 4
+    bytes at a time, never refused.
+
+    Raises on a tensor that is not float32, not contiguous, not on one CUDA
+    device, of the wrong shape, or of an (nx, nu) with no instantiation.
+    """
+    return _sweep_launch(False, A, B, G, M, mx, mu, c, delta)
+
+
+def riccati_sweep_direct_cuda(A, B, G, M, mx, mu, c, delta):
+    """:func:`riccati_sweep_cuda` with ``csrc/riccati_sweep.cu`` (the first
+    design: every stage from device memory, the gains in a device scratch)
+    at every horizon.  Not on the solver's path: it lets one run hold the
+    two designs against each other and time both."""
+    return _sweep_launch(True, A, B, G, M, mx, mu, c, delta)
 
 
 def _require_streamed(nx, nu):

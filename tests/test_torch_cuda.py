@@ -1,6 +1,7 @@
 """Tests of the port that need an NVIDIA card: the CUDA sweeps (the fused
-kernel, the streamed backward/forward pair and the general pair, each with
-its backward kernel's compile-time instance, and the fused general
+kernel, staged at <2, 1, 1, 0> and direct, the streamed backward/forward
+pair and the general pair, each with its backward kernel's compile-time
+instance, the general pair's forward instance too, and the fused general
 kernels, staged and direct) against their plain versions and each other,
 the wrappers' checks and dispatch, and the LV, quadrotor, EQ/border
 quadrotor and budgeted LV paths on the card against the CPU.  They skip
@@ -664,3 +665,122 @@ def test_budget_fleet_on_card_matches_cpu():
     assert float(du[determined].max()) <= 1e-4
     # the other members within what f32 leaves open
     assert bool((du <= 1e-4 + 2.0 * moved).all())
+
+
+# ---- the fused plain sweep through the staged kernel at <2, 1, 1, 0> ----
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("B,H", [(1001, 20), (257, 50)])
+def test_fused_plain_staged_matches_plain_and_direct(kind, B, H):
+    """riccati_sweep_cuda takes the staged kernel at <2, 1, 1, 0> (32
+    problems a block at H=20, 29 at H=50, the last block ragged): its ok
+    flags equal riccati_sweep_plain's and csrc/riccati_sweep.cu's
+    (riccati_sweep_direct_cuda), its outputs within SCALED_ATOL of both;
+    the launch counters split the fused launches by kernel."""
+    _card()
+    P = rk.staged_block_problems(H, 2, 1, 1, 0)
+    plan = rk.kernel_plan(H, 2, 1, "cuda")
+    assert (plan["kernel"], plan["block_problems"]) == (rk.STAGED_KERNEL, P)
+    assert P == {20: 32, 50: 29}[H]
+    args = [torch.as_tensor(a, device="cuda")
+            for a in sweep_case(kind, B=B, H=H, nx=2, nu=1, seed=B + H)]
+    n0 = (rk.LAUNCHES, rk.STAGED_LAUNCHES, rk.DIRECT_LAUNCHES)
+    out = rk.riccati_sweep_cuda(*args)
+    direct = rk.riccati_sweep_direct_cuda(*args)
+    torch.cuda.synchronize()
+    assert (rk.LAUNCHES, rk.STAGED_LAUNCHES, rk.DIRECT_LAUNCHES) == (
+        n0[0] + 2, n0[1] + 1, n0[2] + 1)
+    ref = rk.riccati_sweep_plain(*args)
+    ok = ref[3]
+    want = (torch.arange(B, device="cuda") % 2 == 0
+            if kind == "negative_curvature"
+            else torch.ones(B, dtype=torch.bool, device="cuda"))
+    assert torch.equal(ok, want)
+    assert torch.equal(out[3], ok) and torch.equal(direct[3], ok)
+    for o, d, q in zip(out[:3], direct[:3], ref[:3]):
+        assert _scaled_err(o, q, ok) <= SCALED_ATOL
+        assert _scaled_err(o, d, ok) <= SCALED_ATOL
+
+
+def test_fused_plain_staged_misaligned_and_past_shared_memory():
+    """Inputs 4 bytes off a 16-byte boundary give the aligned outputs bit
+    for bit; at a horizon where not one problem fits a staged block the
+    wrapper launches csrc/riccati_sweep.cu, which matches the plain
+    sweep."""
+    _card()
+    args = _sweep_inputs(257, 20, seed=4)
+    out = rk.riccati_sweep_cuda(*args)
+    mis = [_misaligned(a) for a in args]
+    assert rk._aligned_mask(mis) == 0
+    n0 = rk.STAGED_LAUNCHES
+    moved = rk.riccati_sweep_cuda(*mis)
+    torch.cuda.synchronize()
+    assert rk.STAGED_LAUNCHES == n0 + 1
+    for o, m in zip(out, moved):
+        _same_bits(o, m)
+    H = 2000
+    assert rk.staged_block_problems(H, 2, 1, 1, 0) == 0
+    assert rk.kernel_plan(H, 2, 1, "cuda")["kernel"] == rk.SWEEP_KERNEL
+    args = _sweep_inputs(5, H, seed=2)
+    n0 = (rk.STAGED_LAUNCHES, rk.DIRECT_LAUNCHES)
+    out = rk.riccati_sweep_cuda(*args)
+    torch.cuda.synchronize()
+    assert (rk.STAGED_LAUNCHES, rk.DIRECT_LAUNCHES) == (n0[0], n0[1] + 1)
+    ref = rk.riccati_sweep_plain(*args)
+    assert torch.equal(out[3], ref[3]) and bool(ref[3].all())
+    for o, q in zip(out[:3], ref[:3]):
+        assert _scaled_err(o, q) <= SCALED_ATOL
+
+
+# ---- the general forward kernel's compile-time instance ----
+
+def _forward_inputs(kind, B, H, seed):
+    """The EQ/border stage's forward inputs and the plain backward's gains
+    (so every kernel is fed the same gains), with the ok flags."""
+    args = _general(kind, B, H, 12, 4, 2, 1, seed=seed)
+    gains, ok = rg.riccati_general_backward_plain(*args[:12])
+    return [args[0], args[1], args[6], args[12], gains], ok
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("H", [50, 7])
+def test_general_forward_instance_matches_plain_and_runtime(kind, H):
+    """At (12, 4, 2, 1) the forward entry launches the compile-time
+    instance: against riccati_general_forward_plain and the run-time
+    forward kernel fed the same gains, and the launch counters."""
+    _card()
+    assert rk.general_forward_kernel(12, 4, 2, 1) == \
+        "riccati_general_forward_fixed<12, 4, 2, 1>"
+    ins, ok = _forward_inputs(kind, 257, H, seed=H)
+    n0 = (rg.FORWARD_LAUNCHES, rg.FORWARD_INSTANCE_LAUNCHES,
+          rg.FORWARD_RUNTIME_LAUNCHES)
+    outs = [rg.riccati_general_forward_cuda(*ins) for _ in range(2)]
+    rt = rg.riccati_general_forward_runtime_cuda(*ins)
+    torch.cuda.synchronize()
+    n = len(outs)
+    assert (rg.FORWARD_LAUNCHES, rg.FORWARD_INSTANCE_LAUNCHES,
+            rg.FORWARD_RUNTIME_LAUNCHES) == (n0[0] + n, n0[1] + n, n0[2] + 1)
+    ref = rg.riccati_general_forward_plain(*ins)
+    for out in outs:
+        for o, r, q in zip(out, rt, ref):
+            assert _scaled_err(o, q, ok) <= STREAMED_ATOL
+            assert _scaled_err(o, r, ok) <= STREAMED_ATOL
+        for o, first in zip(out, outs[0]):
+            _same_bits(o, first)        # launch to launch, bit for bit
+
+
+def test_general_forward_instance_misaligned_inputs():
+    """Inputs 4 bytes off a 16-byte boundary (and the gains of an odd
+    stage 8 bytes off at every other stage) take narrower copies: the
+    plain version's outputs, and the aligned inputs' bit for bit."""
+    _card()
+    ins, ok = _forward_inputs("delta_per_problem", 257, 50, seed=5)
+    aligned = rg.riccati_general_forward_cuda(*ins)
+    mis = [_misaligned(a) for a in ins]
+    assert all(a.data_ptr() % 16 == 4 for a in mis)
+    moved = rg.riccati_general_forward_cuda(*mis)
+    torch.cuda.synchronize()
+    ref = rg.riccati_general_forward_plain(*ins)
+    for m, a, q in zip(moved, aligned, ref):
+        _same_bits(m, a)
+        assert _scaled_err(m, q, ok) <= STREAMED_ATOL

@@ -361,3 +361,76 @@ def test_general_direction_matches_jax():
     assert [t.shape[1:] for t in zb[:4]] == [t.shape[1:] for t in tb[:4]]
     assert [t.shape[1:] for t in zb[4] + zb[5]] == [
         t.shape[1:] for t in tb[4] + tb[5]]
+
+
+# ---- the forward kernel's compile-time instance ----
+
+def test_forward_instances_match_the_c_entry_point():
+    """The forward entry's list of compile-time instances is exactly
+    _GENERAL_FORWARD_INSTANCES: the EQ/border quadrotor fleet's stage; the
+    source's ring depth is FORWARD_RING, and the entry takes no depth."""
+    text = SOURCE.read_text()
+    cases = re.findall(r"^\s*RICCATI_GENERAL_FORWARD_CASE\((\d+), (\d+), "
+                       r"(\d+), (\d+)\)\s*$", text, re.M)
+    assert {tuple(map(int, t)) for t in cases} == \
+        rk._GENERAL_FORWARD_INSTANCES
+    assert len(cases) == len(rk._GENERAL_FORWARD_INSTANCES)
+    assert rk._GENERAL_FORWARD_INSTANCES == {(12, 4, 2, 1)}
+    assert f"constexpr int kForwardRing = {rk.FORWARD_RING};" in text
+    assert text.count("riccati_general_forward_fixed<NX, NU, R, RE>") == 1
+    entry = text[text.index('int riccati_general_forward_f32('):]
+    assert "int ring" not in entry[:entry.index("{")]
+    assert 'extern "C" int riccati_general_forward_runtime_f32(' in text
+    assert re.search(r"^riccati_general_forward_fixed\(", text, re.M)
+    assert re.search(r"^riccati_general_forward_kernel\(", text, re.M)
+
+
+@pytest.mark.parametrize("shape", [(12, 4, 2, 1), (12, 4, 2, 0),
+                                   (12, 4, 1, 0), (12, 4, 1, 4),
+                                   (4, 2, 2, 1), (32, 16, 65, 2)])
+def test_general_forward_kernel_rule(shape):
+    """The instance, named with its template arguments, at (12, 4, 2, 1);
+    the run-time kernel at any other shape; neither name holds the
+    other."""
+    name = rk.general_forward_kernel(*shape)
+    if shape == (12, 4, 2, 1):
+        assert name == "riccati_general_forward_fixed<12, 4, 2, 1>"
+    else:
+        assert name == "riccati_general_forward_kernel"
+    names = ["riccati_general_forward_kernel",
+             rk.general_forward_kernel(12, 4, 2, 1)]
+    for a in names:
+        for b in names:
+            assert a == b or a.replace(" ", "") not in b.replace(" ", "")
+
+
+def test_forward_ring_bytes_hand_worked():
+    """One stage slot at (12, 4, 2, 1): A 144, B 48, c 24, Jx 12 and 286
+    gain floats, each with 3 floats of room for its source's offset,
+    rounded to 16 bytes: 148 + 52 + 28 + 16 + 292 = 536 floats; a block of
+    4 warps with rings of 2 slots takes 17,152 B, so 8 blocks (B=4096 in one
+    wave on 132 SMs) fit an SM's 228 KB."""
+    assert rk.gain_width(12, 4, 2, 1) == 286
+    assert rk.forward_slot_floats(12, 4, 2, 1) == 536
+    assert rk.FORWARD_RING == 2
+    assert rk.forward_ring_bytes(12, 4, 2, 1) == 17_152
+    assert 8 * (rk.forward_ring_bytes(12, 4, 2, 1) + 1024) <= 228 * 1024
+    # no Jx at r = 0: its range takes no room
+    assert rk.forward_slot_floats(12, 4, 2, 0) == 148 + 52 + 28 + 276
+
+
+def test_forward_runtime_wrapper_refuses_cpu_tensors():
+    """The run-time forward wrapper, like the solver's, launches only on
+    CUDA tensors; a refused call moves no counter."""
+    args = [torch.as_tensor(a) for a in general_sweep_case(
+        "delta0", B=3, H=2, nx=12, nu=4, R=2, r=1)]
+    gains, _ = rg.riccati_general_backward_plain(*args[:12])
+    ins = (args[0], args[1], args[6], args[12], gains)
+    counts = (rg.FORWARD_LAUNCHES, rg.FORWARD_INSTANCE_LAUNCHES,
+              rg.FORWARD_RUNTIME_LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA device"):
+        rg.riccati_general_forward_runtime_cuda(*ins)
+    with pytest.raises(ValueError, match="CUDA device"):
+        rg.riccati_general_forward_cuda(*ins)
+    assert (rg.FORWARD_LAUNCHES, rg.FORWARD_INSTANCE_LAUNCHES,
+            rg.FORWARD_RUNTIME_LAUNCHES) == counts

@@ -88,12 +88,14 @@ def test_kernel_plan_fused_general_is_pinned():
 
 
 def test_instances_match_the_c_entry_point():
-    """The C entry point's switch instantiates exactly _GENERAL_INSTANCES
+    """The staged C entry point's switch instantiates exactly
+    _STAGED_INSTANCES: _GENERAL_INSTANCES and the plain sweep's (2, 1, 1, 0)
     (any other shape returns cudaErrorInvalidValue there)."""
     cases = re.findall(r"^\s*RICCATI_GENERAL_FUSED_CASE\((\d+), (\d+), "
                        r"(\d+), (\d+)\)\s*$", SOURCE.read_text(), re.M)
-    assert {tuple(map(int, t)) for t in cases} == rk._GENERAL_INSTANCES
-    assert len(cases) == len(rk._GENERAL_INSTANCES)
+    assert {tuple(map(int, t)) for t in cases} == rk._STAGED_INSTANCES
+    assert len(cases) == len(rk._STAGED_INSTANCES)
+    assert rk._STAGED_INSTANCES == rk._GENERAL_INSTANCES | {(2, 1, 1, 0)}
 
 
 def test_bound_counts():

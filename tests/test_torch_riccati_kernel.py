@@ -109,10 +109,14 @@ def test_kernel_plan_is_pinned():
 
 
 def test_kernel_plan_names_the_fused_general_kernel():
-    """Only the fused general plan names a kernel of its source and the
-    problems of its staged block; the plain sweep's plans do not change."""
-    for shape in ((20, 2, 1), (50, 12, 4)):
-        assert set(rk.kernel_plan(*shape, "cuda")) == {"path", "reason"}
+    """The fused plans name a kernel of csrc/riccati_general_fused.cu (or
+    csrc/riccati_sweep.cu) and the problems of its staged block: the fused
+    general plan, and the fused plain one at (2, 1), which takes the staged
+    kernel at <2, 1, 1, 0>; the streamed plans name none."""
+    plain = rk.kernel_plan(20, 2, 1, "cuda")
+    assert (plain["path"], plain["kernel"], plain["block_problems"]) == (
+        "cuda_fused", "riccati_general_fused_staged_kernel", 32)
+    assert set(rk.kernel_plan(50, 12, 4, "cuda")) == {"path", "reason"}
     assert set(rk.kernel_plan(50, 12, 4, "cuda", R=2, r=1)) == {"path",
                                                                 "reason"}
     staged = rk.kernel_plan(20, 2, 1, "cuda", R=2, r=0)
@@ -350,3 +354,83 @@ def test_backward_runtime_wrapper_refuses_cpu_tensors():
         rk.riccati_backward_cuda(*t)
     assert (rk.BACKWARD_LAUNCHES, rk.BACKWARD_INSTANCE_LAUNCHES,
             rk.BACKWARD_RUNTIME_LAUNCHES, rk.PLAIN_CALLS) == counts
+
+
+# ---- the fused plain sweep through the staged general kernel ----
+
+FUSED_SOURCE = STREAMED_SOURCE.parent / rk.GENERAL_FUSED_SOURCE
+
+
+@pytest.mark.parametrize("H", [1, 20, 50, 500])
+def test_fused_plain_plan_names_the_staged_kernel(H):
+    """At (2, 1) the fused plain plan names the staged kernel of
+    csrc/riccati_general_fused.cu with the problems a block holds at
+    <2, 1, 1, 0> (32 at the LV fleet's H=20)."""
+    P = rk.staged_block_problems(H, 2, 1, 1, 0)
+    p = rk.kernel_plan(H, 2, 1, "cuda")
+    assert P > 0 and p["path"] == "cuda_fused"
+    assert (p["kernel"], p["block_problems"]) == (rk.STAGED_KERNEL, P)
+    assert f"{P} problems a block" in p["reason"]
+    assert {1: 32, 20: 32, 50: 29}.get(H, P) == P
+
+
+@pytest.mark.parametrize("H", [1500, 2000, 5000])
+def test_fused_plain_plan_takes_riccati_sweep_past_shared_memory(H):
+    """Where not one problem's horizon fits a staged block, the fused plain
+    plan names csrc/riccati_sweep.cu's kernel, with 0 problems."""
+    p = rk.kernel_plan(H, 2, 1, "cuda")
+    assert rk.staged_block_problems(H, 2, 1, 1, 0) == 0
+    assert (p["path"], p["kernel"], p["block_problems"]) == (
+        "cuda_fused", "riccati_sweep_kernel", 0)
+    assert rk.SOURCE in p["reason"]
+
+
+def test_staged_block_at_the_plain_shape_hand_worked():
+    """<2, 1, 1, 0> at H=20: per problem A 80, B 40, c 40, δ 1, G 180, M
+    180, mx 40, mu 20 floats and 220 of gains (11 a stage); 32 problems
+    take 102,544 bytes with the mbarrier and the 16-byte rounding."""
+    assert rk.gain_width(2, 1) == 11
+    assert rk.staged_smem_bytes(32, 20, 2, 1, 1, 0) == 102_544
+    assert rk.staged_block_problems(20, 2, 1, 1, 0) == 32
+
+
+def test_staged_entry_lists_the_plain_shape():
+    """The staged entry's C case list holds (2, 1, 1, 0) and equals
+    _STAGED_INSTANCES; the direct entry's does not hold it (at (1, 0)
+    csrc/riccati_sweep.cu is the direct design)."""
+    text = FUSED_SOURCE.read_text()
+    staged = re.findall(r"^\s*RICCATI_GENERAL_FUSED_CASE\((\d+), (\d+), "
+                        r"(\d+), (\d+)\)\s*$", text, re.M)
+    direct = re.findall(r"^\s*RICCATI_GENERAL_FUSED_DIRECT_CASE\((\d+), "
+                        r"(\d+), (\d+), (\d+)\)\s*$", text, re.M)
+    assert (2, 1, 1, 0) in {tuple(map(int, t)) for t in staged}
+    assert {tuple(map(int, t)) for t in staged} == rk._STAGED_INSTANCES
+    assert (2, 1, 1, 0) not in {tuple(map(int, t)) for t in direct}
+    assert {(nx, nu, 1, 0) for nx, nu in rk._INSTANCES} <= \
+        rk._STAGED_INSTANCES
+
+
+def test_fused_plain_kernel_names_in_the_sources():
+    """chip_smoke.py matches both fused plain designs by name in a
+    profiler trace: each is defined under its name, and neither name
+    holds the other."""
+    sweep = (STREAMED_SOURCE.parent / rk.SOURCE).read_text()
+    assert re.search(rf"^{rk.SWEEP_KERNEL}\(", sweep, re.M)
+    assert re.search(rf"^{rk.STAGED_KERNEL}\(", FUSED_SOURCE.read_text(),
+                     re.M)
+    assert rk.SWEEP_KERNEL not in rk.STAGED_KERNEL
+    assert rk.STAGED_KERNEL not in rk.SWEEP_KERNEL
+
+
+def test_sweep_direct_wrapper_refuses_cpu_tensors():
+    """riccati_sweep_direct_cuda, like riccati_sweep_cuda, launches only
+    on CUDA tensors, and a refused call moves no counter."""
+    args = _torch(sweep_data())
+    counts = (rk.LAUNCHES, rk.STAGED_LAUNCHES, rk.DIRECT_LAUNCHES,
+              rk.PLAIN_CALLS)
+    with pytest.raises(ValueError, match="CUDA device"):
+        rk.riccati_sweep_direct_cuda(*args)
+    with pytest.raises(ValueError, match="CUDA device"):
+        rk.riccati_sweep_cuda(*args)
+    assert (rk.LAUNCHES, rk.STAGED_LAUNCHES, rk.DIRECT_LAUNCHES,
+            rk.PLAIN_CALLS) == counts
