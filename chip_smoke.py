@@ -74,12 +74,23 @@ Phases (each raises, and the script exits non-zero, on failure):
    forward, epilogue) from its per-block clock stamps, warm and flushed;
    the staged block's problems and shared memory, and ptxas's report of
    both kernels; the streamed general pair timed at the same shape.
+3e. Run-time streamed pair at the new paths' stages: the GRU fleet's
+   lifted (10, 1) at H=100, B=16384 (the four cases drawn at B=4096 and
+   repeated 4 times on the card) and cartpole's (4, 1) at H=50 (the four
+   cases at B=4096, then the path's one problem), as 3b against the plain
+   halves and the plain sweep; timed at the paths' shapes, (4, 1) at
+   B=4096 too.
 4. LV path: trains the 2x32 tanh MLP surrogate of the Lotka-Volterra
    system on the card, builds NMPC as bench.py does, solves B=4096 cold and
    then warm re-plans, the plant advanced by the true ODE through the port's
    RK4.  Launch counters are zeroed just before and read just after: the
    fused kernel must have launched, every launch through the staged
-   kernel, and the streamed pair and the plain sweep must not have.
+   kernel, and the streamed pair and the plain sweep must not have.  Then
+   one cold solve whose params are the surrogate stacked B times (one
+   model per member): the shared cold solve's converged mask, and its
+   controls within 1e-5 on the members f32 fixes (the shared solve from
+   starts moved by ±1e-7 moves them by at most 5e-5, with the same
+   iterations), within 1e-5 + 2× their own move on the others.
 4b. Quadrotor path: NMPC of the quadrotor (true ODE, H=50, RK4, StageCost
    with a terminal term, box bounds) on B=4096 starts, bench.py's protocol:
    one cold solve, one untimed warm re-plan, then timed warm re-plans, each
@@ -97,8 +108,8 @@ Phases (each raises, and the script exits non-zero, on failure):
 4d. Budgeted LV path: the LV MLP fleet (phase 4's trained surrogate) with a
    minimum feed delivery over the horizon, Σu ≥ U_FLOOR
    (pyneuralempc_tpu_torch/examples/lotka_volterra.py: one trajectory-level
-   row, R=2, r=0), on B=4096: one cold solve and 8 timed warm re-plans as
-   in phase 4, then one closed_loop_batch run (api/simulate.py, steps=16,
+   row, R=2, r=0), on B=4096: one cold solve and WARM_STEPS timed warm
+   re-plans as in phase 4, then one closed_loop_batch run (api/simulate.py, steps=16,
    replan_every=2: a cold solve and 8 warm re-plans) against the true ODE.
    Counters: the fused general kernel must have launched, every launch
    through its staged kernel, and nothing else in either run; every plan
@@ -106,9 +117,32 @@ Phases (each raises, and the script exits non-zero, on failure):
    converged plan and binding on 5-95% of the converged cold plans.
    Closed loop: solves/s, the largest state-box violation on the true
    plant, the mean feed cost.
+4e. GRU fleet (pyneuralempc_tpu_torch/examples/fleet_rnn.py at its full
+   size, BASELINE config 5): the GRU fit on the card (3000 Adam steps on
+   512 x 32 plant sequences), then B=16384 lifted (10-state) problems,
+   H=100: a cold solve, one untimed and 3 timed warm re-plans.  Counters:
+   the streamed pair alone, every backward launch through the run-time
+   kernel (no instance); at least 16368/16384 converged on every solve.
+4f. Cartpole (pyneuralempc_tpu_torch/examples/cartpole.py, BASELINE
+   config 3): the 60-step swing-up with the true dynamics, NMPC.next every
+   2 steps on the card.  Counters as in 4e.  Gates: final cos θ ≥ 0.99,
+   tip clearance ≤ 0.55 + 1e-3, forces within ±10 + 1e-4, the plant's
+   states within the box + 1e-3.  Then next_multi_start(n_starts=8) from
+   the hanging start, seed 0.
+4g. Quadrotor MLP fleet (examples/quadrotor.py --mlp): the normalised
+   surrogate fit on the card at the JAX example's settings, then B=1024,
+   H=50: a cold solve, one untimed and 2 timed warm re-plans.  Counters as
+   in 4b; at least 994/1024 converged on every solve; the cold plans
+   approach hover.
 5. Card vs CPU: 16 LV problems, 16 quadrotor problems, 16 EQ/border
    quadrotor problems and 16 budgeted LV problems solved on the card and on
-   the CPU, and the budgeted fleet's closed loop (B=16, steps=4) on both.
+   the CPU, and the budgeted fleet's closed loop (B=16, steps=4) on both;
+   then, with equal iteration counts too, 16 GRU fleet problems, cartpole's
+   first re-plan cut at 20 iterations (its first re-plans do not converge
+   in 120, and two unconverged nonconvex iterate paths part by f32
+   rounding after ~30) and a converging cartpole re-plan, 16 quadrotor MLP
+   problems, and the cartpole multi-start's winner (cut at 20 iterations)
+   and its index.
    The budgeted comparisons hold to the 1e-4 gates the members whose CPU
    answer is fixed to them: with the floor binding, feed moved between
    stages at constant Σu is tie-broken only by the 1e-4·Σu² term, and some
@@ -132,7 +166,9 @@ import numpy as np
 import torch
 
 B, H, DT, REG = 4096, 20, 0.1, 1e-4
-WARM_STEPS = 8
+# timed warm re-plans of the LV paths (once 8, cut to keep the whole run
+# inside its time since the GRU, cartpole and quadrotor MLP paths joined)
+WARM_STEPS = 4
 MIN_WARM_CONVERGED = 4092
 # kernel vs plain, f32: every element within SWEEP_TOL·max(1, |plain|), and
 # every output within SWEEP_TOL·max(1, max|plain|) absolute (dLam reaches
@@ -150,7 +186,7 @@ PALLAS = "pyneuralempc_tpu/ops/pallas/riccati_kernel.py"
 CSRC = "pyneuralempc_tpu_torch/csrc/"
 # the quadrotor path (bench.py's BASELINE config 4)
 QH, QNX, QNU = 50, 12, 4
-Q_WARM_STEPS = 4
+Q_WARM_STEPS = 2             # once 4, cut as WARM_STEPS
 # the EQ/border quadrotor path: R right-hand sides (1 + one budget row), r
 # stage equality rows
 QR, QEQ = 2, 1
@@ -174,8 +210,42 @@ BINDING_SHARE = (0.05, 0.95)
 PERTURB, DETERMINED, SPREAD = 1e-7, 5e-5, 2.0
 
 
+T_START = time.perf_counter()
+
+
+# the run-time streamed pair at the new paths' stages: (tag, nx, nu, H,
+# problems a seeded case draws, times the card repeats them, the path whose
+# launches count).  The GRU fleet's lifted stage is 2 states + 8 hidden.
+RNN_B, RNN_H, RNN_NX = 16384, 100, 10
+CP_H, CP_NX, CP_TIME_B = 50, 4, 4096
+NEW_STREAMED_SHAPES = (
+    (f"nx={RNN_NX}, nu=1, H={RNN_H}, B={RNN_B}", RNN_NX, 1, RNN_H, 4096,
+     RNN_B // 4096, "fleet_rnn"),
+    (f"nx={CP_NX}, nu=1, H={CP_H}", CP_NX, 1, CP_H, CP_TIME_B, 1,
+     "cartpole"),
+)
+# phase 4e: the GRU fleet (examples/fleet_rnn.py at its full size)
+RNN_WARM_STEPS = 3
+RNN_MIN_CONVERGED = RNN_B - 16     # the 4-in-4096 rate of the other paths
+# phase 4f: the cartpole swing-up (examples/cartpole.py)
+CP_STEPS = 60
+CP_MIN_COS = 0.99
+CP_TIP_SLACK, CP_FORCE_SLACK, CP_BOX_SLACK = 1e-3, 1e-4, 1e-3
+CP_JAX_CONVERGED = "25/30"         # cartpole_tpu.log, the JAX package
+CP_STARTS = 8
+# phase 5: cartpole's first re-plan cut at this many iterations (its first
+# re-plans do not converge in 120; tests/test_torch_cartpole.py)
+CP_FIRST_ITERS = 20
+# phase 4g: the quadrotor MLP fleet (examples/quadrotor.py --mlp)
+QM_B, QM_WARM_STEPS = 1024, 2
+QM_MIN_CONVERGED = 994             # 97%
+# phase 4: per-member params give the shared solve's plans to this
+PER_MEMBER_DU = 1e-5
+
+
 def log(*a):
-    print(*a, flush=True)
+    """One line of the run's log, after the seconds since the start."""
+    print(f"[{time.perf_counter() - T_START:7.1f} s]", *a, flush=True)
 
 
 def card_line():
@@ -505,6 +575,47 @@ def phase_kernels(rk, build_logs):
     return entry
 
 
+def hold_streamed_pair(rk, kind, args, tag):
+    """The streamed pair on one seeded case against its plain halves: the
+    backward kernel's gains and ok flags against riccati_backward_plain,
+    the forward kernel against riccati_forward_plain fed the same gains,
+    the pair against the plain sweep.  Returns the gains, the plain ok flags
+    and the worst (max |diff|, max scaled diff) of the backward and of the
+    forward kernel."""
+
+    def gate(what, abs_err, scaled):
+        log(f"streamed {what} vs plain [{kind}, {tag}]: max |diff| "
+            f"{abs_err:.3e}, max |diff|/max(1,|plain|) {scaled:.3e} (limit "
+            f"{STREAMED_TOL})")
+        if not scaled <= STREAMED_TOL:
+            raise RuntimeError(f"{kind}, {tag}: streamed {what} differs from "
+                               f"plain by {scaled:.3e} > {STREAMED_TOL}")
+
+    A, Bm, c = args[0], args[1], args[6]
+    gains, ok = rk.riccati_backward_cuda(*args)
+    torch.cuda.synchronize()
+    g_ref, ok_ref = rk.riccati_backward_plain(*args)
+    check_ok(kind, ok, ok_ref)
+    e_bwd = errors([gains], [g_ref], ok_ref)[:2]
+    gate("backward (gains)", *e_bwd)
+    del g_ref
+    out = rk.riccati_forward_cuda(A, Bm, c, gains)
+    torch.cuda.synchronize()
+    e_fwd = errors(out, rk.riccati_forward_plain(A, Bm, c, gains),
+                   ok_ref)[:2]
+    gate("forward (dX, dU, dLam; same gains)", *e_fwd)
+    del out
+    pair = rk.riccati_sweep_streamed_cuda(*args)
+    torch.cuda.synchronize()
+    ref = rk.riccati_sweep_plain(*args)
+    check_ok(kind, pair[3], ref[3])
+    gate("pair end to end (dX, dU, dLam)",
+         *errors(pair[:3], ref[:3], ok_ref)[:2])
+    log(f"  [{kind}, {tag}] ok {int(ok.sum())}/{ok.numel()} (equal to plain, "
+        "as expected)")
+    return gains, ok_ref, e_bwd, e_fwd
+
+
 def phase_streamed(rk):
     """The streamed pair against its plain halves at the quadrotor path's
     shapes, on the four cases, the backward instance against the run-time
@@ -514,48 +625,26 @@ def phase_streamed(rk):
     worst = {"backward": [0.0, 0.0], "forward": [0.0, 0.0]}
     worst_rt = 0.0
 
-    def gate(kind, what, abs_err, scaled):
-        log(f"streamed {what} vs plain [{kind}]: max |diff| {abs_err:.3e}, "
-            f"max |diff|/max(1,|plain|) {scaled:.3e} (limit {STREAMED_TOL})")
-        if not scaled <= STREAMED_TOL:
-            raise RuntimeError(f"{kind}: streamed {what} differs from plain "
-                               f"by {scaled:.3e} > {STREAMED_TOL}")
-
     for kind, seed in CASES.items():
         args = sweep_case(kind, seed, **shape)
-        A, Bm, c = args[0], args[1], args[6]
-        gains, ok = rk.riccati_backward_cuda(*args)
-        torch.cuda.synchronize()
-        g_ref, ok_ref = rk.riccati_backward_plain(*args)
-        check_ok(kind, ok, ok_ref)
-        e = errors([gains], [g_ref], ok_ref)
-        gate(kind, "backward (gains)", *e[:2])
+        gains, ok_ref, e_bwd, e_fwd = hold_streamed_pair(
+            rk, kind, args, f"B={B}, H={QH}, nx={QNX}, nu={QNU}")
         worst["backward"] = [max(a, b) for a, b in zip(worst["backward"],
-                                                       e[:2])]
+                                                       e_bwd)]
+        worst["forward"] = [max(a, b) for a, b in zip(worst["forward"],
+                                                      e_fwd)]
         g_rt, ok_rt = rk.riccati_backward_runtime_cuda(*args)
         torch.cuda.synchronize()
-        check_ok(kind, ok_rt, ok)
+        check_ok(kind, ok_rt, ok_ref)
         e = errors([gains], [g_rt], ok_ref)
-        gate(kind, "backward instance vs the run-time kernel (gains)",
-             *e[:2])
+        log(f"streamed backward instance vs the run-time kernel (gains) "
+            f"[{kind}]: max |diff| {e[0]:.3e}, max scaled {e[1]:.3e} (limit "
+            f"{STREAMED_TOL})")
+        if not e[1] <= STREAMED_TOL:
+            raise RuntimeError(f"{kind}: the backward instance differs from "
+                               f"the run-time kernel by {e[1]:.3e}")
         worst_rt = max(worst_rt, e[1])
-        del g_rt
-        out = rk.riccati_forward_cuda(A, Bm, c, gains)
-        torch.cuda.synchronize()
-        same = rk.riccati_forward_plain(A, Bm, c, gains)
-        e = errors(out, same, ok_ref)
-        gate(kind, "forward (dX, dU, dLam; same gains)", *e[:2])
-        worst["forward"] = [max(a, b) for a, b in zip(worst["forward"],
-                                                      e[:2])]
-        pair = rk.riccati_sweep_streamed_cuda(*args)
-        torch.cuda.synchronize()
-        ref = rk.riccati_sweep_plain(*args)
-        check_ok(kind, pair[3], ref[3])
-        gate(kind, "pair end to end (dX, dU, dLam)",
-             *errors(pair[:3], ref[:3], ok_ref)[:2])
-        log(f"  [{kind}] ok {int(ok.sum())}/{B} (equal to plain, as "
-            "expected)")
-        del args, gains, g_ref, out, same, pair, ref
+        del args, gains, g_rt
 
     # two CUDA designs on one function: the pair against the fused kernel
     args = sweep_case("delta0", 0)
@@ -1056,6 +1145,98 @@ def phase_fused_general(rk, rg, build_log):
     return entry
 
 
+# ---- phase 3e: the run-time streamed pair at the new paths' stages ----
+
+def tiled_sweep_case(kind, seed, Bn, Hn, nx, nu, tile):
+    """A seeded case of Bn problems repeated ``tile`` times along the batch
+    on the card (a case drawn at B=16384, H=100 would take numpy most of a
+    minute); the cases' per-problem patterns repeat with a period that
+    divides Bn."""
+    args = sweep_case(kind, seed, Bn=Bn, Hn=Hn, nx=nx, nu=nu)
+    if tile == 1:
+        return args
+    return [a.repeat((tile,) + (1,) * (a.dim() - 1)) for a in args]
+
+
+def streamed_entries(rk, tag, args, launches_of, plain_runs=5):
+    """Kernel-line entries of the run-time backward kernel and the forward
+    kernel on ``args`` (timed as in phase 3); ``launches_of`` names the path
+    whose launches phase 4 fills in."""
+    Bn, Hn, nx = args[6].shape
+    nu = args[1].shape[-1]
+    A, Bm, c = args[0], args[1], args[6]
+    gains, _ = rk.riccati_backward_cuda(*args)
+    dims = (Bn, Hn, nx, nu)
+    label = f"B={Bn}, H={Hn}, nx={nx}, nu={nu}"
+    bwd = kernel_entry(
+        f"riccati_backward [{tag}]", "riccati_streamed.cu", f"{PALLAS}:468",
+        lambda: rk.riccati_backward_cuda(*args), "riccati_backward_kernel",
+        lambda: rk.riccati_backward_plain(*args), rk.backward_bytes(*dims),
+        rk.backward_flops(*dims), label, plain_runs=plain_runs, strict=True)
+    fwd = kernel_entry(
+        f"riccati_forward [{tag}]", "riccati_streamed.cu", f"{PALLAS}:488",
+        lambda: rk.riccati_forward_cuda(A, Bm, c, gains),
+        "riccati_forward_kernel",
+        lambda: rk.riccati_forward_plain(A, Bm, c, gains),
+        rk.forward_bytes(*dims), rk.forward_flops(*dims), label,
+        plain_runs=plain_runs, strict=True)
+    pair_ms = cuda_median_ms(lambda: rk.riccati_sweep_streamed_cuda(*args))
+    log(f"streamed sweep [{tag}] (backward + forward, one wrapper call): "
+        f"{pair_ms * 1e3:.1f} us")
+    for e in (bwd, fwd):
+        e.update(design="run-time kernel", path=launches_of,
+                 shape=dict(zip(("B", "H", "nx", "nu"), dims)))
+    return bwd, fwd, pair_ms
+
+
+def phase_streamed_new_shapes(rk):
+    """The run-time streamed pair at the GRU fleet's lifted stage (10, 1),
+    H=100, B=16384, and at cartpole's (4, 1), H=50, B=1, against the plain
+    halves and the plain sweep on the four seeded cases ((4, 1) also at
+    B=4096); then both timed at the paths' shapes, (4, 1) at B=4096 too."""
+    out = {}
+    for tag, nx, nu, Hn, b_case, tile, path in NEW_STREAMED_SHAPES:
+        if rk.backward_kernel(nx, nu) != "riccati_backward_kernel":
+            raise RuntimeError(f"({nx}, {nu}) takes "
+                               f"{rk.backward_kernel(nx, nu)}, not the "
+                               "run-time backward kernel")
+        plan = rk.kernel_plan(Hn, nx, nu, "cuda")
+        if plan["path"] != "cuda_streamed":
+            raise RuntimeError(f"({nx}, {nu}) at H={Hn} plans {plan}")
+        worst = {"backward": [0.0, 0.0], "forward": [0.0, 0.0]}
+        for kind, seed in CASES.items():
+            args = tiled_sweep_case(kind, seed, b_case, Hn, nx, nu, tile)
+            label = f"B={b_case * tile}, H={Hn}, nx={nx}, nu={nu}"
+            _, _, e_bwd, e_fwd = hold_streamed_pair(rk, kind, args, label)
+            for key, e in (("backward", e_bwd), ("forward", e_fwd)):
+                worst[key] = [max(a, b) for a, b in zip(worst[key], e)]
+            del args
+        args = tiled_sweep_case("delta0", 0, b_case, Hn, nx, nu, tile)
+        if path == "cartpole":
+            # the path's one problem, checked on its own, then timed
+            one = [a[:1].contiguous() for a in args]
+            _, _, e_bwd, e_fwd = hold_streamed_pair(
+                rk, "delta0", one, f"B=1, H={Hn}, nx={nx}, nu={nu}")
+            for key, e in (("backward", e_bwd), ("forward", e_fwd)):
+                worst[key] = [max(a, b) for a, b in zip(worst[key], e)]
+            big = streamed_entries(rk, f"{tag}, B={b_case}", args, path)
+            bwd, fwd, pair_ms = streamed_entries(rk, f"{tag}, B=1", one,
+                                                 path)
+            for e, e_big in zip((bwd, fwd), big[:2]):
+                e.update(b4096_ms=e_big["ms"], b4096_call_ms=e_big["call_ms"],
+                         b4096_plain_ms=e_big["plain_ms"],
+                         b4096_bound_ms=e_big["bound_ms"])
+        else:
+            bwd, fwd, pair_ms = streamed_entries(rk, tag, args, path)
+        for entry, key in ((bwd, "backward"), (fwd, "forward")):
+            entry.update(max_abs_err=worst[key][0],
+                         max_scaled_err=worst[key][1])
+        out[path] = (bwd, fwd, pair_ms)
+        del args
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---- phases 4, 4b, 4c: main paths ----
 
 def make_controller(nempc, device):
@@ -1079,12 +1260,12 @@ def telemetry(tag, res):
             f"{int(res.restorations.sum())}")
 
 
-def check_plan(res, Hn, nx, nu):
+def check_plan(res, Hn, nx, nu, Bn=B):
     for t in (res.u, res.x, res.objective):
         if not bool(torch.isfinite(t).all()):
             raise RuntimeError("non-finite plan")
-    if (tuple(res.u.shape) != (B, Hn, nu)
-            or tuple(res.x.shape) != (B, Hn, nx)):
+    if (tuple(res.u.shape) != (Bn, Hn, nu)
+            or tuple(res.x.shape) != (Bn, Hn, nx)):
         raise RuntimeError(f"unexpected plan shapes {tuple(res.x.shape)}, "
                            f"{tuple(res.u.shape)}")
 
@@ -1096,8 +1277,9 @@ def report_split(nempc, mpc, carry, xs, res, times, sweeps, sweep_ms, card,
     preparation per solver iteration of the lockstep batch), and the device
     busy share of one more warm re-plan (same carry, result dropped) from
     torch.profiler's kernel and copy events."""
+    Bn = xs.shape[0]
     solver_rt = nempc.runtime(xs, params=params)
-    solver_rt["_s_obj"] = torch.ones(B, device="cuda")
+    solver_rt["_s_obj"] = torch.ones(Bn, device="cuda")
     direction = nempc.solve.riccati.make_riccati_direction(mpc.nlp,
                                                            mpc.config)
     prep_ms = cuda_median_ms(
@@ -1112,8 +1294,9 @@ def report_split(nempc, mpc, carry, xs, res, times, sweeps, sweep_ms, card,
         "call, host work included), rest "
         f"{step_ms - blocks_ms - sweeps_ms:.1f} ms of p50 {step_ms:.1f} ms")
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device events only: recording every host op as well made the traced
+    # re-plan take 20-60 s more at 40-60k events
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         mpc.next_batch(xs, params=params, carry=carry)
         torch.cuda.synchronize()
     dev = [e for e in prof.events()
@@ -1127,8 +1310,11 @@ def report_split(nempc, mpc, carry, xs, res, times, sweeps, sweep_ms, card,
         log("device busy share: not measured (the trace holds no device "
             "events)")
     p50 = statistics.median(times)
-    log(f"[{card}] warm re-plan B={B}: p50 {p50 * 1e3:.1f} ms, min "
-        f"{min(times) * 1e3:.1f} ms -> {B / p50:,.0f} solves/s")
+    log(f"[{card}] warm re-plan B={Bn}: p50 {p50 * 1e3:.1f} ms, min "
+        f"{min(times) * 1e3:.1f} ms -> {Bn / p50:,.0f} solves/s")
+    return {"p50_ms": p50 * 1e3, "solves_per_s": Bn / p50,
+            "prepare_ms": prep_ms,
+            "busy": dev_ms / step_ms if dev else None}
 
 
 def phase_main_path(nempc, rk, rg, card):
@@ -1162,6 +1348,7 @@ def phase_main_path(nempc, rk, rg, card):
     torch.cuda.synchronize()
     log(f"cold B={B}: {time.perf_counter() - t0:.2f} s  "
         + telemetry("cold", res))
+    cold = res
     times, conv, launches = [], [], []
     for step in range(WARM_STEPS):
         xs = plant(xs, res.u[:, 0])
@@ -1196,6 +1383,51 @@ def phase_main_path(nempc, rk, rg, card):
     sweep_ms = cuda_median_ms(lambda: rk.riccati_sweep_cuda(*args))
     report_split(nempc, mpc, carry, xs, res, times, launches[-1], sweep_ms,
                  card, params=params)
+
+    # per-member inputs: the shared surrogate stacked B times is one model
+    # per member (the JAX package's rule), each the shared one.  The
+    # per-member path's matmuls are batched products, the shared path's one
+    # product: f32 rounds them apart, and some members' cold plans are
+    # fixed by f32 only loosely (their shared plan moves by up to ~5e-3
+    # when the start moves by 1e-7).  So, as for the budgeted fleet (phase
+    # 5), the shared solve is repeated from starts moved by ±PERTURB:
+    # members it moves by at most DETERMINED, with the same iterations,
+    # are held to PER_MEMBER_DU; any other to PER_MEMBER_DU + SPREAD times
+    # its move.
+    stacked = [{k: v.expand((B,) + tuple(v.shape)).contiguous()
+                for k, v in layer.items()} for layer in params]
+    starts = torch.as_tensor(x0s, device="cuda")
+    t0 = time.perf_counter()
+    _, per = mpc.next_batch(starts, params=stacked)
+    torch.cuda.synchronize()
+    log(f"per-member params (the surrogate stacked {B} times), cold B={B}: "
+        f"{time.perf_counter() - t0:.2f} s  " + telemetry("cold", per))
+    moved = torch.zeros(B, device="cuda")
+    same_iters = torch.ones(B, dtype=torch.bool, device="cuda")
+    for eps in (PERTURB, -PERTURB):
+        _, alt = mpc.next_batch(starts + eps, params=params)
+        moved = torch.maximum(moved, (alt.u - cold.u).abs().amax(dim=(1, 2)))
+        same_iters &= alt.iterations == cold.iterations
+    determined = (moved <= DETERMINED) & same_iters
+    d = (per.u - cold.u).abs().amax(dim=(1, 2))
+    limit = torch.where(determined, torch.full_like(moved, PER_MEMBER_DU),
+                        PER_MEMBER_DU + SPREAD * moved)
+    same = bool(torch.equal(per.converged, cold.converged))
+    worst = torch.argsort(d, descending=True)[:5].tolist()
+    log(f"  per-member vs shared: converged masks equal: {same}; "
+        f"{int(determined.sum())}/{B} members fixed by f32 (the shared "
+        f"answer moves by <= {DETERMINED} under ±{PERTURB} on the start, "
+        f"with the same iterations), max |du| {float(d[determined].max()):.3e}"
+        f" on them (limit {PER_MEMBER_DU}); the five largest |du|: "
+        + ", ".join(f"member {i} {float(d[i]):.3e} (moved "
+                    f"{float(moved[i]):.3e}, iterations {int(per.iterations[i])}"
+                    f"/{int(cold.iterations[i])}, restorations "
+                    f"{int(per.restorations[i])}/{int(cold.restorations[i])})"
+                    for i in worst))
+    if not (same and bool((d <= limit).all())
+            and int(determined.sum()) >= B // 2):
+        raise RuntimeError("per-member params do not give the shared "
+                           "solve's plans")
     return params, x0s, n["fused_staged"]
 
 
@@ -1470,18 +1702,255 @@ def phase_budget(nempc, rk, rg, card, params, x0s, fused_ms):
     return n["fused_general_staged"], n_cl["fused_general_staged"]
 
 
+# ---- phases 4e, 4f, 4g: the GRU fleet, cartpole, the quadrotor MLP ----
+
+def warm_replans(mpc, res, carry, steps, counter, params=None):
+    """One untimed and ``steps`` timed warm re-plans, each from the plan's
+    first state.  Returns (carry, res, per-solve converged counts, times,
+    the sweeps ``counter()`` saw in each timed step)."""
+    t0 = time.perf_counter()
+    carry, res = mpc.next_batch(res.x[:, 0].contiguous(), params=params,
+                                carry=carry)
+    torch.cuda.synchronize()
+    conv = [int(res.converged.sum())]
+    log(f"warm (untimed): {(time.perf_counter() - t0) * 1e3:.1f} ms  "
+        + telemetry("warm", res))
+    times, launches = [], []
+    for step in range(steps):
+        xs = res.x[:, 0].contiguous()
+        n0 = counter()
+        t0 = time.perf_counter()
+        carry, res = mpc.next_batch(xs, params=params, carry=carry)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        conv.append(int(res.converged.sum()))
+        launches.append(counter() - n0)
+        log(f"warm {step}: {times[-1] * 1e3:.1f} ms  sweeps "
+            f"{launches[-1]}  " + telemetry("warm", res))
+    return carry, res, conv, times, launches
+
+
+def only_runtime_pair(rk, rg, tag):
+    """The path's launches: the streamed pair alone, every backward launch
+    through the run-time kernel (the (12, 4) instance never)."""
+    n = counters(rk, rg)
+    log(f"{tag} path: streamed backward launches {n['backward']} (the "
+        f"compile-time instance {n['backward_instance']}), forward "
+        f"{n['forward']}; fused {n['fused']}, general "
+        f"{n['general_backward']} / {n['general_forward']}, fused general "
+        f"{n['fused_general']}, plain calls {n['plain']}")
+    if (not only_launched(n, "backward", "forward")
+            or n["forward"] != n["backward"]):
+        raise RuntimeError(f"the {tag} path did not go through the streamed "
+                           "pair alone, with the run-time backward kernel")
+    return n
+
+
+def phase_fleet_rnn(nempc, rk, rg, card, pair_ms):
+    """The GRU fleet (examples/fleet_rnn.py at its full size): the GRU fit,
+    a cold solve at B=16384, H=100, one untimed and RNN_WARM_STEPS timed
+    warm re-plans."""
+    from pyneuralempc_tpu_torch.examples import fleet_rnn
+
+    t0 = time.perf_counter()
+    gd, params, mse = fleet_rnn.fit_fleet_gru("cuda")
+    torch.cuda.synchronize()
+    log(f"GRU fitted on the card: teacher-forced mse {mse:.2e} "
+        f"({time.perf_counter() - t0:.1f} s, {fleet_rnn.FIT_STEPS} Adam "
+        f"steps on {fleet_rnn.N_SEQS} x {fleet_rnn.SEQ_LEN} sequences, one "
+        "step a CUDA graph replay)")
+    mpc = fleet_rnn.make_fleet_rnn_mpc(gd, "cuda", H=RNN_H)
+    nx = gd.model.dims.x
+    log(f"GRU fleet: kkt backend {mpc.kkt_backend}; lifted state {nx}; "
+        f"sweep plan: {rk.kernel_plan(RNN_H, nx, 1, 'cuda')}")
+    z0s = fleet_rnn.fleet_starts(gd, RNN_B)
+
+    reset_counters(rk, rg)
+    t0 = time.perf_counter()
+    carry, res = mpc.next_batch(z0s, params=params)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    log(f"GRU fleet cold B={RNN_B}, H={RNN_H}: {cold_s:.2f} s  "
+        + telemetry("cold", res))
+    conv = [int(res.converged.sum())]
+    check_plan(res, RNN_H, nx, 1, Bn=RNN_B)
+    carry, res, warm_conv, times, launches = warm_replans(
+        mpc, res, carry, RNN_WARM_STEPS, lambda: rk.BACKWARD_LAUNCHES,
+        params)
+    conv += warm_conv
+    n = only_runtime_pair(rk, rg, "GRU fleet")
+    if min(conv) < RNN_MIN_CONVERGED:
+        raise RuntimeError(f"GRU fleet convergence {conv} (cold, warm...) "
+                           f"below {RNN_MIN_CONVERGED}/{RNN_B}")
+    check_plan(res, RNN_H, nx, 1, Bn=RNN_B)
+    log(f"converged: cold, then every warm step {conv} (the JAX package's "
+        "TPU record, fleet_rnn_tpu.log: 16384/16384)")
+    split = report_split(nempc, mpc, carry, res.x[:, 0].contiguous(), res,
+                         times, launches[-1], pair_ms, card, params=params)
+    split.update(cold_s=cold_s, converged=conv)
+    return gd, params, z0s, n["backward"], n["forward"], split
+
+
+def phase_cartpole(nempc, rk, rg, card):
+    """The cartpole swing-up (examples/cartpole.py): CP_STEPS plant steps
+    with the true dynamics, a re-plan every 2 by NMPC.next on the card;
+    then one next_multi_start of CP_STARTS starts from the hanging start."""
+    from pyneuralempc_tpu_torch.examples import cartpole
+
+    mpc = cartpole.make_cartpole_mpc("cuda")
+    plan = rk.kernel_plan(CP_H, CP_NX, 1, "cuda")
+    log(f"cartpole: kkt backend {mpc.kkt_backend}; sweep plan: {plan}")
+    reset_counters(rk, rg)
+    t0 = time.perf_counter()
+    traj, us, conv, lat = cartpole.swing_up(mpc, CP_STEPS, device="cuda")
+    loop_s = time.perf_counter() - t0
+    n = only_runtime_pair(rk, rg, "cartpole")
+    cos_final = float(np.cos(traj[-1, 2]))
+    tip = float(np.abs(traj[:, 0] + cartpole.L * np.sin(traj[:, 2])).max())
+    force = float(np.abs(us).max())
+    box = np.asarray(cartpole.STATE_BOX, np.float32)
+    viol = float(np.maximum(traj - box[:, 1], box[:, 0] - traj).max())
+    warm = np.asarray(lat[2:])
+    log(f"cartpole swing-up ({CP_STEPS} steps, a re-plan every "
+        f"{cartpole.REPLAN_EVERY}): {loop_s:.1f} s; solves converged "
+        f"{sum(conv)}/{len(conv)} (the JAX package's TPU record, "
+        f"cartpole_tpu.log: {CP_JAX_CONVERGED}); final cos(theta) "
+        f"{cos_final:.5f} (limit {CP_MIN_COS}); tip clearance max {tip:.6f} "
+        f"(limit {cartpole.TIP_MAX} + {CP_TIP_SLACK}); |force| max "
+        f"{force:.6f} (limit {cartpole.F_MAX} + {CP_FORCE_SLACK}); state-box "
+        f"overshoot {viol:.3e} (limit {CP_BOX_SLACK}); re-plan latency "
+        f"(the first two left out, as the JAX example does) p50 "
+        f"{np.median(warm) * 1e3:.1f} ms, min {warm.min() * 1e3:.1f} ms; "
+        f"every re-plan (ms): {[round(t * 1e3, 1) for t in lat]}")
+    if not (cos_final >= CP_MIN_COS and tip <= cartpole.TIP_MAX
+            + CP_TIP_SLACK and force <= cartpole.F_MAX + CP_FORCE_SLACK
+            and viol <= CP_BOX_SLACK and np.isfinite(traj).all()):
+        raise RuntimeError("the cartpole swing-up missed a gate")
+    # the device's share of one more warm re-plan, from the loop's end
+    from torch.profiler import ProfilerActivity, profile
+    x_end = torch.as_tensor(traj[-1], device="cuda")
+    mpc.next(x_end)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res = mpc.next(x_end)
+        torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    log(f"[{card}] one more warm cartpole re-plan ({int(res.iterations)} "
+        f"iterations, traced): {step_ms:.1f} ms, {len(dev)} device events, "
+        f"{dev_ms:.1f} ms of device time -> device busy "
+        f"{dev_ms / step_ms:.1%}")
+
+    t0 = time.perf_counter()
+    best, idx = mpc.next_multi_start(
+        torch.tensor(cartpole.X_HANGING, device="cuda"), n_starts=CP_STARTS,
+        generator=torch.Generator().manual_seed(0), return_index=True)
+    torch.cuda.synchronize()
+    ms_s = time.perf_counter() - t0
+    log(f"cartpole next_multi_start ({CP_STARTS} starts from the hanging "
+        f"start, seed 0): {ms_s:.1f} s; winner {idx}, converged "
+        f"{bool(best.converged)}, objective {float(best.objective):.4f}, "
+        f"kkt error {float(best.kkt_error):.3e}, iterations "
+        f"{int(best.iterations)}")
+    if not bool(torch.isfinite(best.u).all()):
+        raise RuntimeError("non-finite multi-start plan")
+    return n["backward"], n["forward"], {
+        "loop_s": loop_s, "converged": f"{sum(conv)}/{len(conv)}",
+        "cos_final": cos_final, "tip_max": tip,
+        "traced_replan_ms": step_ms, "traced_device_ms": dev_ms,
+        "traced_iterations": int(res.iterations),
+        "p50_ms": float(np.median(warm) * 1e3),
+        "min_ms": float(warm.min() * 1e3), "multi_start_s": ms_s,
+        "multi_start_index": idx}
+
+
+def phase_quadrotor_mlp(nempc, rk, rg, card):
+    """The quadrotor MLP fleet (examples/quadrotor.py --mlp): the
+    normalised surrogate fit at the JAX example's settings, then B=1024,
+    H=50: a cold solve, one untimed and QM_WARM_STEPS timed warm
+    re-plans."""
+    from pyneuralempc_tpu_torch.examples import quadrotor
+
+    t0 = time.perf_counter()
+    model, params, rel_mse = quadrotor.fit_quad_mlp("cuda")
+    torch.cuda.synchronize()
+    log(f"quadrotor surrogate fitted on the card: normalized mse "
+        f"{rel_mse:.2e} ({time.perf_counter() - t0:.1f} s, 15000 Adam steps "
+        "of 8192 on 262144 transitions, one step a CUDA graph replay; the "
+        "JAX package's TPU record, quadrotor_mlp_tpu.log: 3.36e-04)")
+    mpc = quadrotor.make_quadrotor_mpc("cuda", H=QH, model=model)
+    x0s = quadrotor.quad_x0s(np.random.default_rng(0), QM_B, rates=True)
+    xs = torch.as_tensor(x0s, device="cuda")
+    reset_counters(rk, rg)
+    t0 = time.perf_counter()
+    carry, res = mpc.next_batch(xs, params=params)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    log(f"quadrotor MLP cold B={QM_B}, H={QH}: {cold_s:.2f} s  "
+        + telemetry("cold", res))
+    conv = [int(res.converged.sum())]
+    check_plan(res, QH, QNX, QNU, Bn=QM_B)
+    p_start = float(torch.linalg.norm(xs[:, :3], dim=1).mean())
+    p_end = float(torch.linalg.norm(res.x[:, -1, :3], dim=1).mean())
+    log(f"mean |position|: start {p_start:.3f} -> end of the cold plan "
+        f"{p_end:.3f} (limit 0.7 x start)")
+    if not p_end < 0.7 * p_start:
+        raise RuntimeError("quadrotor MLP plans do not approach hover")
+    carry, res, warm_conv, times, launches = warm_replans(
+        mpc, res, carry, QM_WARM_STEPS, lambda: rk.BACKWARD_LAUNCHES,
+        params)
+    conv += warm_conv
+    n = counters(rk, rg)
+    log(f"quadrotor MLP path: streamed backward launches {n['backward']} "
+        f"(the compile-time instance {n['backward_instance']}), forward "
+        f"{n['forward']}; plain calls {n['plain']}")
+    if (not only_launched(n, "backward", "backward_instance", "forward")
+            or n["forward"] != n["backward"]
+            or n["backward_instance"] != n["backward"]):
+        raise RuntimeError("the quadrotor MLP path did not go through the "
+                           "streamed pair alone, with the backward kernel's "
+                           "compile-time instance")
+    if min(conv) < QM_MIN_CONVERGED:
+        raise RuntimeError(f"quadrotor MLP convergence {conv} (cold, "
+                           f"warm...) below {QM_MIN_CONVERGED}/{QM_B}")
+    check_plan(res, QH, QNX, QNU, Bn=QM_B)
+    log(f"converged: cold, then every warm step {conv} (the JAX package's "
+        "TPU record, quadrotor_mlp_tpu.log, other weights: 1008 cold, 1010 "
+        "warm)")
+    args = sweep_case("delta0", 0, Bn=QM_B, Hn=QH, nx=QNX, nu=QNU)
+    pair_ms = cuda_median_ms(lambda: rk.riccati_sweep_streamed_cuda(*args))
+    split = report_split(nempc, mpc, carry, res.x[:, 0].contiguous(), res,
+                         times, launches[-1], pair_ms, card, params=params)
+    split.update(cold_s=cold_s, converged=conv)
+    return model, params, x0s, n["backward"], split
+
+
 # ---- phase 5: card vs CPU ----
 
-def card_vs_cpu(tag, solve):
+def card_vs_cpu(tag, solve, iterations=False):
+    """``solve(device)`` on the card and on the CPU: |du| within
+    CARD_VS_CPU_DU and equal converged masks (and, with ``iterations``,
+    equal iteration counts).  Returns both results."""
     out = {dev: solve(dev) for dev in ("cuda", "cpu")}
     du = float((out["cuda"].u.cpu() - out["cpu"].u).abs().max())
     same = bool(torch.equal(out["cuda"].converged.cpu(),
                             out["cpu"].converged))
-    log(f"card vs CPU ({tag}, {N_CARD_VS_CPU} cold solves): max |du| "
-        f"{du:.3e}, converged masks equal: {same}")
-    if not (du <= CARD_VS_CPU_DU and same):
+    iters = (not iterations
+             or bool(torch.equal(out["cuda"].iterations.cpu(),
+                                 out["cpu"].iterations)))
+    log(f"card vs CPU ({tag}): max |du| {du:.3e} (limit {CARD_VS_CPU_DU}), "
+        f"converged masks equal: {same}"
+        + (f", iterations equal: {iters} (converged "
+           f"{int(out['cpu'].converged.sum())}/"
+           f"{out['cpu'].converged.numel()})" if iterations else ""))
+    if not (du <= CARD_VS_CPU_DU and same and iters):
         raise RuntimeError(f"{tag}: card and CPU solves differ: |du| "
-                           f"{du:.3e}, masks equal {same}")
+                           f"{du:.3e}, masks equal {same}, iterations equal "
+                           f"{iters}")
+    return out
 
 
 def budget_card_vs_cpu(tag, run, diff, compare):
@@ -1523,6 +1992,59 @@ def budget_card_vs_cpu(tag, run, diff, compare):
     compare(card, cpu, determined)
 
 
+def phase_card_vs_cpu_new(gd, rnn_params, z0s, qm_model, qm_params,
+                          qm_x0s):
+    """The new paths on the card and on the CPU: 16 GRU fleet members,
+    cartpole's first re-plan (cut at CP_FIRST_ITERS iterations) and a
+    converging re-plan, 16 quadrotor MLP members, and a multi-start's
+    winner and its index."""
+    from pyneuralempc_tpu_torch.examples import cartpole, fleet_rnn, quadrotor
+
+    def on(dev, tree):
+        if isinstance(tree, dict):
+            return {k: on(dev, v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [on(dev, v) for v in tree]
+        return tree.to(dev)
+
+    card_vs_cpu(
+        f"GRU fleet, H={RNN_H}, {N_CARD_VS_CPU} cold solves",
+        lambda dev: fleet_rnn.make_fleet_rnn_mpc(gd, dev, H=RNN_H)
+        .next_batch(z0s[:N_CARD_VS_CPU].to(dev),
+                    params=on(dev, rnn_params))[1], iterations=True)
+    hanging = torch.tensor(cartpole.X_HANGING)
+    card_vs_cpu(
+        f"cartpole's first re-plan, H={CP_H}, cut at {CP_FIRST_ITERS} "
+        "iterations",
+        lambda dev: cartpole.make_cartpole_mpc(dev, max_iter=CP_FIRST_ITERS)
+        .next(hanging.to(dev)), iterations=True)
+    near = torch.tensor([0.1, 0.0, 0.3, 0.0])
+    card_vs_cpu(
+        f"cartpole, a converging re-plan 0.3 rad off upright, H={CP_H}",
+        lambda dev: cartpole.make_cartpole_mpc(dev).next(
+            near.to(dev), init_x=near.expand(CP_H, 4).to(dev),
+            init_u=torch.zeros(CP_H, 1, device=dev)), iterations=True)
+    card_vs_cpu(
+        f"quadrotor MLP, H={QH}, {N_CARD_VS_CPU} cold solves",
+        lambda dev: quadrotor.make_quadrotor_mpc(dev, H=QH, model=qm_model)
+        .next_batch(torch.as_tensor(qm_x0s[:N_CARD_VS_CPU], device=dev),
+                    params=on(dev, qm_params))[1], iterations=True)
+    picks = {}
+
+    def multi_start(dev):
+        best, picks[dev] = cartpole.make_cartpole_mpc(
+            dev, max_iter=CP_FIRST_ITERS).next_multi_start(
+            hanging.to(dev), n_starts=CP_STARTS,
+            generator=torch.Generator().manual_seed(0), return_index=True)
+        return best
+    card_vs_cpu(f"cartpole next_multi_start, {CP_STARTS} starts, cut at "
+                f"{CP_FIRST_ITERS} iterations, the winner", multi_start,
+                iterations=True)
+    log(f"  multi-start winner: card {picks['cuda']}, CPU {picks['cpu']}")
+    if picks["cuda"] != picks["cpu"]:
+        raise RuntimeError("the multi-start winners differ")
+
+
 def phase_card_vs_cpu(nempc, params, x0s, q_x0s, eq_x0s):
     from pyneuralempc_tpu_torch.api.simulate import closed_loop_batch
     from pyneuralempc_tpu_torch.examples.fleet_eq import make_fleet_eq_mpc
@@ -1548,9 +2070,10 @@ def phase_card_vs_cpu(nempc, params, x0s, q_x0s, eq_x0s):
         return mpc.next_batch(torch.as_tensor(eq_x0s[:N_CARD_VS_CPU],
                                               device=dev))[1]
 
-    card_vs_cpu("LV", lv)
-    card_vs_cpu(f"quadrotor, H={QH}", quad)
-    card_vs_cpu(f"EQ/border quadrotor, H={QH}", fleet_eq)
+    card_vs_cpu(f"LV, {N_CARD_VS_CPU} cold solves", lv)
+    card_vs_cpu(f"quadrotor, H={QH}, {N_CARD_VS_CPU} cold solves", quad)
+    card_vs_cpu(f"EQ/border quadrotor, H={QH}, {N_CARD_VS_CPU} cold solves",
+                fleet_eq)
 
     surrogate = nempc.MLPDynamics.make(x_dim=2, u_dim=1, hidden=[32, 32])
     starts = x0s[:N_CARD_VS_CPU]
@@ -1635,8 +2158,13 @@ def main():
     bwd, fwd, pair_ms = phase_streamed(rk)
     gbwd, gfwd, gpair_ms = phase_general(rk, rg, logs[rk.GENERAL_SOURCE])
     gfused = phase_fused_general(rk, rg, logs[rk.GENERAL_FUSED_SOURCE])
+    # phase 3e: the run-time streamed pair at the new paths' stages
 
-    # phases 4, 4b, 4c, 4d, 6: main paths and their numbers
+    new_shapes = phase_streamed_new_shapes(rk)
+    rnn_bwd, rnn_fwd, rnn_pair_ms = new_shapes["fleet_rnn"]
+    cp_bwd, cp_fwd, _ = new_shapes["cartpole"]
+
+    # phases 4-4g, 6: main paths and their numbers
     params, x0s, fused["launches"] = phase_main_path(nempc, rk, rg, card)
     q_x0s, bwd["launches"], fwd["launches"] = phase_quadrotor(
         nempc, rk, rg, card, pair_ms)
@@ -1644,11 +2172,23 @@ def main():
         nempc, rk, rg, card, gpair_ms)
     gfused["launches"], gfused["closed_loop_launches"] = phase_budget(
         nempc, rk, rg, card, params, x0s, gfused["call_ms"])
+    (gd, rnn_params, z0s, rnn_bwd["launches"], rnn_fwd["launches"],
+     rnn_split) = phase_fleet_rnn(nempc, rk, rg, card, rnn_pair_ms)
+    cp_bwd["launches"], cp_fwd["launches"], cp_run = phase_cartpole(
+        nempc, rk, rg, card)
+    (qm_model, qm_params, qm_x0s, bwd["quadrotor_mlp_launches"],
+     qm_split) = phase_quadrotor_mlp(nempc, rk, rg, card)
+    bwd["quadrotor_mlp_instance_launches"] = bwd["quadrotor_mlp_launches"]
+    fwd["quadrotor_mlp_launches"] = bwd["quadrotor_mlp_launches"]
 
     # phase 5: card vs CPU
     phase_card_vs_cpu(nempc, params, x0s, q_x0s, eq_x0s)
+    phase_card_vs_cpu_new(gd, rnn_params, z0s, qm_model, qm_params, qm_x0s)
+    log(f"paths: GRU fleet {json.dumps(rnn_split)}; cartpole "
+        f"{json.dumps(cp_run)}; quadrotor MLP {json.dumps(qm_split)}")
 
-    print(json.dumps({"kernels": [fused, bwd, fwd, gbwd, gfwd, gfused]}))
+    print(json.dumps({"kernels": [fused, bwd, fwd, gbwd, gfwd, gfused,
+                                  rnn_bwd, rnn_fwd, cp_bwd, cp_fwd]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

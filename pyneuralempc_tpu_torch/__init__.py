@@ -10,7 +10,10 @@ block-tridiagonal Riccati sweep, hand-written CUDA kernels on the card;
 stage-equality rows and trajectory-level constraint rows take the general
 sweep.  :mod:`.examples.quadrotor` is the quadrotor fleet (12 states, 4
 thrusts, H=50), :mod:`.examples.fleet_eq` the same fleet with a stage
-equality row and a horizon budget row.
+equality row and a horizon budget row, :mod:`.examples.fleet_rnn` a fleet
+with GRU dynamics (the hidden state lifted into the MPC state, H=100) and
+:mod:`.examples.cartpole` the cartpole swing-up with a nonlinear
+tip-clearance row.
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``.
@@ -41,11 +44,18 @@ from .core.problem import (Box, Dims, MPCSpec, PathConstraint, StageCost,
 from .core.structure import SeparableObjective, probe_stage_separable
 from .core.transcription import NLP, transcribe
 from .models.base import DynamicsModel, torch_dynamics
-from .models.convert import mlp_params_from_numpy
+from .models.convert import mlp_params_from_numpy, params_from_numpy
 from .models.mlp import MLPDynamics, mlp_apply, mlp_init
-from .models.train import fit_surrogate, sample_transitions
+from .models.rolling import RollingWindow, rolling_mlp, rolling_window
+from .models.rnn import (GRUDynamics, LSTMDynamics, StackedLSTMDynamics,
+                         fit_gru_on_sequences, gru_dynamics,
+                         keras_gru_dynamics, lstm_dynamics,
+                         stacked_lstm_dynamics)
+from .models.train import (fit_normalized_surrogate, fit_surrogate,
+                           sample_transitions)
 from .solve.interior_point import IPConfig, IPResult, make_solver
-from .api.controller import NMPC, NMPCResult, WarmStart
+from .api.controller import (NMPC, NMPCResult, WarmStart,
+                             multi_start_perturbations)
 from .ops.cuda import riccati_general, riccati_kernel
 
 # Reference-compatible alias (pyNeuralEMPC.constraints.DomainConstraint).
@@ -60,7 +70,12 @@ __all__ = [
     "runtime",
     "SeparableObjective", "probe_stage_separable", "NLP", "transcribe",
     "DynamicsModel", "torch_dynamics", "mlp_params_from_numpy",
-    "MLPDynamics", "mlp_apply", "mlp_init", "fit_surrogate",
-    "sample_transitions", "IPConfig", "IPResult", "make_solver", "NMPC",
-    "NMPCResult", "WarmStart", "riccati_kernel", "riccati_general",
+    "params_from_numpy", "MLPDynamics", "mlp_apply", "mlp_init",
+    "RollingWindow", "rolling_mlp", "rolling_window", "GRUDynamics",
+    "LSTMDynamics", "StackedLSTMDynamics", "gru_dynamics", "lstm_dynamics",
+    "keras_gru_dynamics", "stacked_lstm_dynamics", "fit_gru_on_sequences",
+    "fit_surrogate", "fit_normalized_surrogate", "sample_transitions",
+    "IPConfig", "IPResult", "make_solver", "NMPC", "NMPCResult",
+    "WarmStart", "multi_start_perturbations", "riccati_kernel",
+    "riccati_general",
 ]

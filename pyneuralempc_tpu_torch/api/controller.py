@@ -16,6 +16,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
+from torch.func import vmap
 
 from ..core.problem import (Box, MPCSpec, PathConstraint, StageConstraint,
                             StageCost, runtime)
@@ -81,14 +82,6 @@ def _to(tree, device):
     return [_to(v, device) for v in tree]
 
 
-def _shared(v, unbatched_ndim, name):
-    """p/tvp must be shared across the batch in this slice."""
-    if v is not None and torch.as_tensor(v).dim() == unbatched_ndim + 1:
-        raise NotImplementedError(
-            f"per-problem {name} in next_batch is ROADMAP Queue 1 #6b; "
-            "pass one shared value")
-
-
 def _per_member(params, B: int) -> bool:
     """The JAX package's ``_baxis_tree`` rule: every tensor of ``params``
     carries a leading axis of the batch size."""
@@ -105,6 +98,24 @@ def _per_member(params, B: int) -> bool:
             leaves.append(v)
     return bool(leaves) and all(
         getattr(leaf, "ndim", 0) and leaf.shape[0] == B for leaf in leaves)
+
+
+def per_member_keys(B: int, p=None, tvp=None, params=None) -> tuple:
+    """Which of ``p``/``tvp``/``params`` a batch of B problems carries per
+    member, by the JAX package's rule (``_baxis``/``_baxis_tree``): ``p``
+    of shape (B, p_dim), ``tvp`` of shape (B, H, tvp_dim), ``params`` whose
+    every tensor leads with B.  The others are shared across the batch."""
+    keys = []
+    for name, v, unbatched in (("p", p, 1), ("tvp", tvp, 2)):
+        if v is not None and torch.as_tensor(v).dim() == unbatched + 1:
+            if torch.as_tensor(v).shape[0] != B:
+                raise ValueError(
+                    f"per-member {name} must lead with the batch size {B}, "
+                    f"got shape {tuple(torch.as_tensor(v).shape)}")
+            keys.append(name)
+    if _per_member(params, B):
+        keys.append("params")
+    return tuple(keys)
 
 
 class NMPC:
@@ -170,11 +181,15 @@ class NMPC:
     # ---- functional core (batch-first) ----
 
     def cold_start(self, x0, init_x=None, init_u=None, p=None, tvp=None,
-                   params=None) -> WarmStart:
+                   params=None, per_member: Optional[tuple] = None
+                   ) -> WarmStart:
         """Cold initialiser: the zero-control rollout, simulated, so the
         initial point is dynamically feasible (up to box clipping).
         Explicit init values are honoured.  ``x0`` is (x_dim,) or
-        (B, x_dim); the carry gets the same leading shape."""
+        (B, x_dim); the carry gets the same leading shape.  A batch's
+        ``p``/``tvp``/``params`` may be per member: ``per_member`` names
+        them (:func:`per_member_keys` decides when it is None), and each
+        member's rollout and slacks then use its own."""
         H, dims = self.H, self.spec.dims
         x0 = torch.as_tensor(x0, device=self.device)
         lead = x0.shape[:-1]
@@ -182,14 +197,31 @@ class NMPC:
                          device=self.device)
              if init_u is None else torch.as_tensor(init_u,
                                                     device=self.device))
+        params = _to(params, self.device)
+        per = per_member
+        if per is None:
+            per = per_member_keys(x0.shape[0], p, tvp, params) if lead else ()
+        own = {k: v for k, v in (("p", p), ("tvp", tvp), ("params", params))
+               if k in per}
+
+        def each(fn, *args):
+            """``fn(*args, p, tvp, params)``, per member where any of the
+            three is."""
+            if not per:
+                return fn(*args, p, tvp, params)
+            return vmap(lambda m, *a: fn(*a, m.get("p", p), m.get("tvp", tvp),
+                                         m.get("params", params)))(own, *args)
+
         if init_x is not None:
             X = torch.as_tensor(init_x, device=self.device)
         else:
             phi = step_fn(self.spec.model, self.spec.integrator,
                           self.spec.DT)
-            X = simulate(phi, x0, U, p, tvp, _to(params, self.device))
+            X = each(lambda x0_, U_, p_, tvp_, prm: simulate(
+                phi, x0_, U_, p_, tvp_, prm), x0, U)
             X = torch.nan_to_num(X, nan=0.0, posinf=0.0, neginf=0.0)
-        s = self.nlp.init_slacks(X, U, {"p": p, "tvp": tvp})
+        s = each(lambda X_, U_, p_, tvp_, _: self.nlp.init_slacks(
+            X_, U_, {"p": p_, "tvp": tvp_}), X, U)
         w = self.nlp.pack(X, U, s)
         return WarmStart(w=w, lam=torch.zeros(lead + (self.nlp.m,),
                                               dtype=w.dtype,
@@ -230,19 +262,27 @@ class NMPC:
     def _warm_step(self, carry: WarmStart, rt):
         return self._step(self.shift(carry), rt)
 
-    def _runtime(self, x0s, p, tvp, params):
-        return runtime(torch.as_tensor(x0s, device=self.device),
-                       None if p is None else torch.as_tensor(
-                           p, device=self.device),
-                       None if tvp is None else torch.as_tensor(
-                           tvp, device=self.device),
-                       _to(params, self.device))
+    def _runtime(self, x0s, p, tvp, params, batched=True):
+        """The solver's runtime dict; ``_per_member`` names the inputs that
+        lead with the batch size (:func:`per_member_keys`; none for the
+        single-problem entry points)."""
+        rt = runtime(torch.as_tensor(x0s, device=self.device),
+                     None if p is None else torch.as_tensor(
+                         p, device=self.device),
+                     None if tvp is None else torch.as_tensor(
+                         tvp, device=self.device),
+                     _to(params, self.device))
+        rt["_per_member"] = (per_member_keys(rt["x0"].shape[0], rt["p"],
+                                             rt["tvp"], rt["params"])
+                             if batched else ())
+        return rt
 
     def step(self, carry: WarmStart, x0, p=None, tvp=None,
              params=None) -> Tuple[WarmStart, NMPCResult]:
         """Pure MPC step for one problem: shift the carry, solve, return
         (carry', result)."""
-        rt = self._runtime(torch.as_tensor(x0)[None], p, tvp, params)
+        rt = self._runtime(torch.as_tensor(x0)[None], p, tvp, params,
+                           batched=False)
         new, res = self._warm_step(_lead(carry), rt)
         return _unlead(new), _unlead(res)
 
@@ -252,13 +292,13 @@ class NMPC:
              params=None) -> NMPCResult:
         x0 = torch.as_tensor(x0, device=self.device)
         self._check(x0, p, tvp, init_x, init_u)
-        rt = self._runtime(x0[None], p, tvp, params)
+        rt = self._runtime(x0[None], p, tvp, params, batched=False)
         if self._carry is None or init_x is not None:
             carry = self.cold_start(x0[None], None if init_x is None
                                     else torch.as_tensor(init_x)[None],
                                     None if init_u is None
                                     else torch.as_tensor(init_u)[None],
-                                    p, tvp, params)
+                                    p, tvp, params, per_member=())
             self._carry, res = self._step(carry, rt)
         else:
             self._carry, res = self._warm_step(self._carry, rt)
@@ -275,21 +315,53 @@ class NMPC:
         """Solve a batch of MPC problems as one batch-first solve.
 
         ``x0s``: (B, x_dim).  ``p``/``tvp``/``params`` are shared across the
-        batch.  Returns the batched warm-start carry (pass it back in for
-        receding-horizon use) and a batched :class:`NMPCResult`.
+        batch, or carry a leading batch axis of B: ``p`` (B, p_dim), ``tvp``
+        (B, H, tvp_dim), ``params`` with every tensor leading with B (a
+        different model per member).  Returns the batched warm-start carry
+        (pass it back in for receding-horizon use) and a batched
+        :class:`NMPCResult`.
         """
-        _shared(p, 1, "p")
-        _shared(tvp, 2, "tvp")
-        if _per_member(params, torch.as_tensor(x0s).shape[0]):
-            raise NotImplementedError(
-                "per-member params in next_batch is ROADMAP Queue 1 #6b; "
-                "pass one shared value")
         rt = self._runtime(x0s, p, tvp, params)
         if carry is None:
             carry = self.cold_start(rt["x0"], p=rt["p"], tvp=rt["tvp"],
-                                    params=rt["params"])
+                                    params=rt["params"],
+                                    per_member=rt["_per_member"])
             return self._step(carry, rt)
         return self._warm_step(carry, rt)
+
+    def next_multi_start(self, x0, n_starts: int = 8, noise: float = 0.3,
+                         p=None, tvp=None, params=None,
+                         generator: Optional[torch.Generator] = None,
+                         return_index: bool = False):
+        """Multi-start solve for nonconvex problems: ``n_starts`` copies of
+        the problem from randomly perturbed control initialisations solve
+        as one batch; the lowest objective among the converged starts wins
+        (the lowest ``kkt_error`` when none converged), and every result
+        field is the winner's.
+
+        The perturbations are ``noise`` times standard normals drawn on the
+        CPU from ``generator`` (seed 0 when None) by
+        :func:`multi_start_perturbations`, so the card and the CPU start
+        from the same numbers.  ``return_index`` also returns the winner's
+        index.
+        """
+        x0 = torch.as_tensor(x0, device=self.device)
+        dims = self.spec.dims
+        x0s = x0.expand((n_starts,) + tuple(x0.shape)).contiguous()
+        rt = self._runtime(x0s, p, tvp, params)
+        base = self.cold_start(x0s, p=rt["p"], tvp=rt["tvp"],
+                               params=rt["params"],
+                               per_member=rt["_per_member"])
+        X, U, s = self.nlp.unpack(base.w)
+        du = multi_start_perturbations(generator, n_starts, self.H, dims.u,
+                                       noise).to(device=self.device,
+                                                 dtype=U.dtype)
+        carry = base._replace(w=self.nlp.pack(X, U + du, s))
+        _, res = self._step(carry, rt)
+        idx = multi_start_winner(res)
+        best = type(res)(*[v[idx] if isinstance(v, torch.Tensor) else v
+                           for v in res])
+        return (best, int(idx)) if return_index else best
 
     # ---- validation ----
 
@@ -312,6 +384,27 @@ class NMPC:
             if tuple(torch.as_tensor(init_u).shape) != (self.H, dims.u):
                 raise ValueError(f"init_u must be shape ({self.H}, "
                                  f"{dims.u})")
+
+
+def multi_start_perturbations(generator: Optional[torch.Generator],
+                               n_starts: int, H: int, u_dim: int,
+                               noise: float = 0.3) -> torch.Tensor:
+    """(n_starts, H, u_dim) control perturbations for
+    :meth:`NMPC.next_multi_start`: ``noise`` times standard normals drawn
+    on the CPU from ``generator`` (a CPU generator seeded 0 when None)."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    return noise * torch.randn((n_starts, H, u_dim), generator=generator,
+                               dtype=torch.float32)
+
+
+def multi_start_winner(res: NMPCResult) -> torch.Tensor:
+    """Index of the winning start: the lowest objective among the converged
+    starts, else the lowest ``kkt_error``."""
+    obj = torch.where(res.converged, res.objective,
+                      torch.full_like(res.objective, torch.inf))
+    return torch.where(res.converged.any(), torch.argmin(obj),
+                       torch.argmin(res.kkt_error))
 
 
 def _lead(tup):

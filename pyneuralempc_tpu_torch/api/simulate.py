@@ -23,7 +23,6 @@ import numpy as np
 import torch
 
 from ..ops.integrators import step_fn
-from .controller import _per_member
 
 
 class ClosedLoopResult(NamedTuple):
@@ -92,8 +91,9 @@ def closed_loop_batch(mpc, plant_step: Callable, x0s, steps: int,
     the plant, then re-plans the whole fleet warm from the states reached:
     ``n_replans = steps // replan_every`` rounds after the cold solve.
     ``plant_step(x, u[, plant_params]) -> x_next`` works on single vectors
-    and is vmapped here.  ``p``/``params`` are shared across the batch
-    (per-member ones are ROADMAP Queue 1 #6b).  ``tvp_seq`` optionally
+    and is vmapped here.  ``p``/``params`` are shared across the batch or
+    per member, as :meth:`NMPC.next_batch` takes them (``p`` (B, p_dim),
+    every tensor of ``params`` leading with B).  ``tvp_seq`` optionally
     supplies the time-varying-parameter look-ahead window for every solve:
     shape (n_replans+1, H, tvp_dim) — index 0 feeds the cold solve, index
     j+1 the j-th warm re-plan.  Failure policy matches :func:`closed_loop`:
@@ -111,17 +111,12 @@ def closed_loop_batch(mpc, plant_step: Callable, x0s, steps: int,
         raise ValueError("replan_every cannot exceed the horizon H")
     n_replans = steps // replan_every
     x0s = torch.as_tensor(x0s, device=mpc.device)
-    B = x0s.shape[0]
     if tvp_seq is not None:
         tvp_seq = torch.as_tensor(tvp_seq, device=mpc.device)
         if tvp_seq.shape[0] != n_replans + 1:
             raise ValueError(
                 f"tvp_seq must supply n_replans+1 = {n_replans + 1} "
                 f"windows, got {tvp_seq.shape[0]}")
-    if _per_member(params, B):
-        raise NotImplementedError(
-            "per-member params in closed_loop_batch is ROADMAP Queue 1 #6b; "
-            "pass one shared value")
 
     def plant_one(xx, uu):
         return (plant_step(xx, uu) if plant_params is None

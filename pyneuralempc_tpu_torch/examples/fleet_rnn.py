@@ -1,0 +1,142 @@
+"""RNN-dynamics MPC fleet (BASELINE config 5): 16k concurrent solves of a
+GRU dynamics model, H=100, warm re-planned.
+
+The port's copy of the JAX package's ``examples/fleet_rnn.py``.  The GRU's
+hidden state is lifted into the MPC state (:mod:`..models.rnn`): z = [x, h],
+so the transcription stays first-order Markov and the O(H) Riccati sweep
+applies unchanged (on the card, the streamed plain pair at the lifted
+stage (nx, nu) = (2 + hidden, 1)).
+
+The plant is a 2-state system whose response lags the input through an
+unmeasured first-order filter: what a recurrent surrogate must capture and
+a feed-forward one cannot.  Its training sequences are drawn by numpy from
+a seed.
+
+Run:  python -m pyneuralempc_tpu_torch.examples.fleet_rnn [--cpu]
+      [--batch 16384] [--H 100]
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from ..api.controller import NMPC
+from ..core.problem import StageCost
+from ..models.rnn import fit_gru_on_sequences, gru_dynamics
+from ..solve.interior_point import IPConfig
+
+DT = 1.0
+TARGET = (0.3, 0.2)
+N_SEQS, SEQ_LEN = 512, 32
+FIT_STEPS, FIT_LR = 3000, 3e-3
+
+
+def plant_sequences(seed: int, n: int = N_SEQS, T: int = SEQ_LEN):
+    """n sequences of the lagged plant: x0 ~ U(-0.5, 0.5)², u ~ U(-1, 1),
+    w' = 0.7 w + 0.3 u (the hidden lag), x1' = x1 + 0.5(−0.4 x1 + w'),
+    x2' = x2 + 0.5(0.5 x1 − 0.3 x2).  Returns X (n, T+1, 2), U (n, T, 1),
+    float32."""
+    rng = np.random.default_rng(seed)
+    X = np.zeros((n, T + 1, 2), np.float32)
+    X[:, 0] = rng.uniform(-0.5, 0.5, (n, 2))
+    U = rng.uniform(-1.0, 1.0, (n, T, 1)).astype(np.float32)
+    w = np.zeros(n, np.float32)
+    for t in range(T):
+        w = 0.7 * w + 0.3 * U[:, t, 0]
+        x1, x2 = X[:, t, 0], X[:, t, 1]
+        X[:, t + 1, 0] = x1 + 0.5 * (-0.4 * x1 + w)
+        X[:, t + 1, 1] = x2 + 0.5 * (0.5 * x1 - 0.3 * x2)
+    return X, U
+
+
+def fit_fleet_gru(device="cuda", hidden: int = 8, steps: int = FIT_STEPS,
+                  n: int = N_SEQS, seed: int = 0):
+    """The example's GRU: ``gru_dynamics(2, 1, hidden)`` fitted
+    teacher-forced on n plant sequences of SEQ_LEN steps.  Returns (the
+    GRUDynamics bundle, params, mse)."""
+    gd = gru_dynamics(x_dim=2, u_dim=1, hidden=hidden)
+    X, U = plant_sequences(seed, n)
+    params, mse = fit_gru_on_sequences(
+        gd, torch.as_tensor(X, device=device),
+        torch.as_tensor(U, device=device), steps=steps, lr=FIT_LR,
+        generator=torch.Generator().manual_seed(seed))
+    return gd, params, mse
+
+
+def make_fleet_rnn_mpc(gd, device="cuda", H: int = 100,
+                       max_iter: int = 60) -> NMPC:
+    """Track TARGET with the physical head of the lifted state; box on the
+    physical block, loose bounds on the hidden one; direct integrator."""
+    target = torch.tensor(TARGET, device=device)
+    cost = StageCost(stage=gd.head_objective(
+        lambda x, u: torch.sum((x - target) ** 2)))
+    box = gd.box(states_constraint=[[-1.0, 1.0], [-1.0, 1.0]],
+                 control_constraint=[[-1.0, 1.0]])
+    return NMPC(gd.model, cost, [box], H=H, DT=DT, integrator="direct",
+                config=IPConfig(max_iter=max_iter), device=device)
+
+
+def fleet_starts(gd, B: int, seed: int = 0, device="cuda"):
+    """(B, 2 + hidden) lifted starts: x0 ~ U(-0.5, 0.5)², zero hidden."""
+    rng = np.random.default_rng(seed)
+    x0s = torch.as_tensor(rng.uniform(-0.5, 0.5, (B, 2)).astype(np.float32),
+                          device=device)
+    return gd.lift(x0s)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--cpu", action="store_true")
+    ap.add_argument("--batch", type=int, default=16384)
+    ap.add_argument("--H", type=int, default=100)
+    ap.add_argument("--hidden", type=int, default=8)
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--fit-steps", type=int, default=FIT_STEPS)
+    ap.add_argument("--mesh", type=int, default=0)
+    args = ap.parse_args(argv)
+    if args.mesh:
+        raise NotImplementedError(
+            "--mesh: multi-device solves are ROADMAP Queue 1 #14")
+    device = "cpu" if args.cpu else "cuda"
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    H, B = args.H, args.batch
+    t0 = time.perf_counter()
+    gd, params, mse = fit_fleet_gru(device, args.hidden, args.fit_steps)
+    sync()
+    print(f"GRU fitted: teacher-forced mse={mse:.2e} "
+          f"({time.perf_counter() - t0:.1f}s)")
+    mpc = make_fleet_rnn_mpc(gd, device, H=H)
+    print(f"kkt={mpc.kkt_backend}  B={B}  H={H}  "
+          f"lifted state={gd.model.dims.x}")
+
+    z0s = fleet_starts(gd, B, device=device)
+    t0 = time.perf_counter()
+    carry, res = mpc.next_batch(z0s, params=params)
+    sync()
+    print(f"cold fleet solve: {time.perf_counter() - t0:.1f}s  converged "
+          f"{int(res.converged.sum())}/{B}")
+
+    carry, res = mpc.next_batch(res.x[:, 0], params=params, carry=carry)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        carry, res = mpc.next_batch(res.x[:, 0], params=params, carry=carry)
+    sync()
+    dt = (time.perf_counter() - t0) / max(args.steps, 1)
+    print(f"warm fleet step: {dt * 1e3:.0f}ms -> {B / dt:,.0f} solves/s  "
+          f"(converged {int(res.converged.sum())}/{B})")
+    print(f"10ms real-time budget: a {B}-fleet re-plan takes "
+          f"{dt * 1e3:.0f}ms on one card; per-solve amortized "
+          f"{dt / B * 1e6:.1f}µs")
+
+
+if __name__ == "__main__":
+    main()

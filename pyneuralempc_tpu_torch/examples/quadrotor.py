@@ -1,16 +1,17 @@
 """Quadrotor fleet MPC: 12-state / 4-input dynamics, H=50, thousands of
 initial conditions solved as one batch.
 
-The port's copy of the JAX package's ``examples/quadrotor.py`` (its ODE
-model; the ``--mlp`` surrogate variant needs the normalised surrogate fit,
-ROADMAP Queue 1 #6b).  State: position p(3), velocity v(3), attitude (roll,
-pitch, yaw), body rates ω(3).  Controls: four rotor thrusts (N).  Each
-problem steers one initial condition to hover at the origin under thrust
-limits, with a stage cost and a terminal cost (a declared
-:class:`StageCost`) and box bounds.
+The port's copy of the JAX package's ``examples/quadrotor.py``: the true
+ODE, or with ``--mlp`` a 2x256 tanh MLP surrogate fitted to it with
+standardised inputs and targets and (sin, cos) attitude features
+(:func:`..models.train.fit_normalized_surrogate`).  State: position p(3),
+velocity v(3), attitude (roll, pitch, yaw), body rates ω(3).  Controls:
+four rotor thrusts (N).  Each problem steers one initial condition to
+hover at the origin under thrust limits, with a stage cost and a terminal
+cost (a declared :class:`StageCost`) and box bounds.
 
 Run: python -m pyneuralempc_tpu_torch.examples.quadrotor [--cpu]
-     [--batch N] [--H H]
+     [--batch N] [--H H] [--mlp]
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 from ..api.controller import NMPC
 from ..core.problem import Box, StageCost
 from ..models.base import torch_dynamics
+from ..models.train import fit_normalized_surrogate
 from ..solve.interior_point import IPConfig
 
 M, G = 0.5, 9.81
@@ -109,11 +111,34 @@ def quad_x0s(rng: np.random.Generator, B: int,
     return x0s
 
 
+def quad_features(x):
+    """Surrogate features: the attitude as (sin, cos) per Euler angle, the
+    rest as it is (15 features)."""
+    ang = x[:, 6:9]
+    return torch.cat([x[:, :6], torch.sin(ang), torch.cos(ang), x[:, 9:12]],
+                     dim=1)
+
+
+def fit_quad_mlp(device="cuda", n: int = 262144, steps: int = 15000,
+                 batch: int = 8192, seed: int = 0):
+    """The ``--mlp`` surrogate: the JAX example's normalised fit (hidden
+    [256, 256], x in ±1.5, thrusts in [0, 3]).  Returns (model, params,
+    rel_mse)."""
+    gen = torch.Generator().manual_seed(seed)
+    return fit_normalized_surrogate(
+        quad_f(), gen, x_dim=12, u_dim=4, hidden=[256, 256], n=n,
+        x_range=(-1.5, 1.5), u_range=(0.0, 3.0), steps=steps, lr=1e-3,
+        batch=batch, feature_map=quad_features, feature_dim=15,
+        name="quad_mlp", device=device)
+
+
 def make_quadrotor_mpc(device="cuda", H: int = 50, DT: float = 0.02,
-                       max_iter: int = 80) -> NMPC:
-    """The quadrotor NMPC: true ODE, RK4, exact Hessians, Riccati KKT."""
-    truth = torch_dynamics(quad_f(), x_dim=12, u_dim=4)
-    return NMPC(truth, quad_cost(), [quad_box()], H=H, DT=DT,
+                       max_iter: int = 80, model=None) -> NMPC:
+    """The quadrotor NMPC: RK4, exact Hessians, Riccati KKT; the true ODE
+    unless ``model`` (a surrogate) is given."""
+    if model is None:
+        model = torch_dynamics(quad_f(), x_dim=12, u_dim=4)
+    return NMPC(model, quad_cost(), [quad_box()], H=H, DT=DT,
                 integrator="rk4", config=IPConfig(max_iter=max_iter),
                 device=device)
 
@@ -124,14 +149,20 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--mlp", action="store_true")
     ap.add_argument("--H", type=int, default=50)
+    ap.add_argument("--fit-n", type=int, default=262144,
+                    help="--mlp: transitions sampled")
+    ap.add_argument("--fit-steps", type=int, default=15000,
+                    help="--mlp: Adam steps")
     args = ap.parse_args(argv)
-    if args.mlp:
-        raise NotImplementedError(
-            "--mlp needs the normalised surrogate fit "
-            "(fit_normalized_surrogate), ROADMAP Queue 1 #6b")
     device = "cpu" if args.cpu else "cuda"
     H, DT, B = args.H, 0.02, args.batch
-    mpc = make_quadrotor_mpc(device, H=H, DT=DT)
+    model = params = None
+    if args.mlp:
+        model, params, rel_mse = fit_quad_mlp(
+            device, n=args.fit_n, steps=args.fit_steps,
+            batch=min(8192, args.fit_n))
+        print(f"surrogate fitted: normalized mse={rel_mse:.2e}")
+    mpc = make_quadrotor_mpc(device, H=H, DT=DT, model=model)
     print("kkt backend:", mpc.kkt_backend)
 
     def sync():
@@ -141,16 +172,16 @@ def main(argv=None):
     x0s = torch.as_tensor(quad_x0s(np.random.default_rng(0), B, rates=True),
                           device=device)
     t0 = time.perf_counter()
-    carry, res = mpc.next_batch(x0s)
+    carry, res = mpc.next_batch(x0s, params=params)
     sync()
     print(f"cold batched solve ({B} scenarios): "
           f"{time.perf_counter() - t0:.1f}s  converged "
           f"{int(res.converged.sum())}/{B}")
 
-    carry2, _ = mpc.next_batch(x0s * 0.98, carry=carry)
+    carry2, _ = mpc.next_batch(x0s * 0.98, params=params, carry=carry)
     sync()
     t0 = time.perf_counter()
-    _, res3 = mpc.next_batch(x0s * 0.96, carry=carry2)
+    _, res3 = mpc.next_batch(x0s * 0.96, params=params, carry=carry2)
     sync()
     t_warm = time.perf_counter() - t0
     print(f"warm re-plan: {t_warm * 1e3:.0f}ms -> {B / t_warm:.0f} solves/s"

@@ -4,6 +4,11 @@ PyTorch counterpart of ``pyneuralempc_tpu/models/mlp.py``: an MLP over the
 concatenated ``[x, u, tvp, p]`` features whose weights are an explicit list
 of ``{"w": (in, out), "b": (out,)}`` tensors threaded through the solver as
 runtime data.  All H stages run as one batched matmul chain.
+
+Compute dtype: weights are stored in float32; ``compute_dtype=torch.bfloat16``
+runs each layer's matmul in bf16 (its input and weights rounded to bf16) and
+hands float32 on to the activation and the next layer; the solver's own
+linear algebra stays float32 regardless.
 """
 
 from __future__ import annotations
@@ -42,12 +47,21 @@ def mlp_init(generator: torch.Generator, sizes: Sequence[int],
     return params
 
 
-def mlp_apply(params, feats, activations: Tuple[str, ...]):
-    """Apply the MLP to (T, in_dim) features as one batched matmul chain."""
-    h = feats
+def mlp_apply(params, feats, activations: Tuple[str, ...],
+              compute_dtype=torch.float32):
+    """Apply the MLP to (T, in_dim) features as one batched matmul chain,
+    each matmul in ``compute_dtype`` with a float32 result."""
+    if compute_dtype == torch.float32:
+        h = feats
+        for layer, act in zip(params, activations):
+            h = _ACTIVATIONS[act](h @ layer["w"] + layer["b"])
+        return h
+    h = feats.to(torch.float32)
     for layer, act in zip(params, activations):
-        h = _ACTIVATIONS[act](h @ layer["w"] + layer["b"])
-    return h
+        z = torch.matmul(h.to(compute_dtype), layer["w"].to(compute_dtype))
+        b = layer["b"].to(compute_dtype).to(torch.float32)
+        h = _ACTIVATIONS[act](z.to(torch.float32) + b)
+    return h.to(feats.dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,15 +69,18 @@ class MLPDynamics(DynamicsModel):
     """MLP over concatenated ``[x, u, tvp, p]`` features.
 
     ``hidden``: hidden layer widths; ``activation`` applies to all hidden
-    layers, the output layer is linear.
+    layers, the output layer is linear; ``compute_dtype`` is the matmuls'
+    dtype (see the module docstring).
     """
 
     hidden: Tuple[int, ...] = ()
     activation: str = "tanh"
+    compute_dtype: torch.dtype = torch.float32
 
     @staticmethod
     def make(x_dim: int, u_dim: int, hidden: Sequence[int],
              p_dim: int = 0, tvp_dim: int = 0, activation: str = "tanh",
+             compute_dtype: torch.dtype = torch.float32,
              name: str = "mlp") -> "MLPDynamics":
         dims = Dims(x_dim, u_dim, p_dim, tvp_dim)
         hidden = tuple(int(h) for h in hidden)
@@ -75,10 +92,11 @@ class MLPDynamics(DynamicsModel):
                 feats.append(tvp)
             if p is not None and dims.p:
                 feats.append(p.expand(x.shape[0], dims.p))
-            return mlp_apply(params, torch.cat(feats, dim=-1), activations)
+            return mlp_apply(params, torch.cat(feats, dim=-1), activations,
+                             compute_dtype)
 
         return MLPDynamics(fn=fn, dims=dims, name=name, hidden=hidden,
-                           activation=activation)
+                           activation=activation, compute_dtype=compute_dtype)
 
     @property
     def layer_sizes(self) -> Tuple[int, ...]:

@@ -181,7 +181,8 @@ def make_solver(nlp: NLP, config: IPConfig = IPConfig(),
                 direction=None) -> Callable:
     """Build ``solve(rt, w0, lam0=None, zl0=None, zu0=None, mu0=None) ->
     IPResult`` for a BATCH of problems: ``w0`` is (B, n), ``rt["x0"]``
-    (B, nx), and ``p``/``tvp``/``params`` in ``rt`` are shared.
+    (B, nx); ``p``/``tvp``/``params`` in ``rt`` are shared, except those
+    that ``rt["_per_member"]`` names, which lead with B.
 
     ``direction``: KKT backend factory ``(nlp, cfg) -> fn`` with the split
     ``prepare``/``solve_blocks`` protocol (:func:`.riccati.
@@ -209,13 +210,17 @@ def make_solver(nlp: NLP, config: IPConfig = IPConfig(),
     _carry_blocks = cfg.polish_iters > 0
 
     # ---- per-member NLP functions, batched with vmap.  The runtime dict
-    # splits into per-member entries (x0, _s_obj) and shared ones. ----
+    # splits into per-member entries (x0, _s_obj and whichever of p, tvp,
+    # params ``_per_member`` names) and shared ones. ----
     def _vm(fn, rt, *args):
-        shared = {k: rt.get(k) for k in ("p", "tvp", "params")}
+        """``fn(*args_i, rt_i)`` for every member i."""
+        keys = ("x0", "_s_obj") + tuple(rt.get("_per_member", ()))
+        own = {k: rt[k] for k in keys if rt.get(k) is not None}
+        shared = {k: v for k, v in rt.items() if k not in own}
 
-        def one(x0, s_obj, *a):
-            return fn(*a, dict(shared, x0=x0, _s_obj=s_obj))
-        return vmap(one)(rt["x0"], rt["_s_obj"], *args)
+        def one(mine, *a):
+            return fn(*a, dict(shared, **mine))
+        return vmap(one)(own, *args)
 
     def obj1(w, rt1):
         return rt1["_s_obj"] * nlp.objective(w, rt1)
@@ -632,8 +637,7 @@ def make_solver(nlp: NLP, config: IPConfig = IPConfig(),
         if cfg.auto_scale:
             # Ipopt gradient-based objective scaling: J scaled so its
             # initial gradient has max magnitude <= scale_gmax
-            g0 = vmap(lambda w, x0: grad(nlp.objective)(
-                w, dict(rt, x0=x0)))(w0, rt["x0"])
+            g0 = _vm(lambda w, rt1: grad(nlp.objective)(w, rt1), rt, w0)
             rt["_s_obj"] = cfg.scale_gmax / torch.clamp(
                 g0.abs().amax(-1), min=cfg.scale_gmax)
         else:
@@ -650,8 +654,7 @@ def make_solver(nlp: NLP, config: IPConfig = IPConfig(),
         err, c = state.err, state.c_res
         converged = state.converged | (err <= cfg.tol)
         theta_inf = c.abs().amax(-1)
-        objective = vmap(lambda w, x0: nlp.objective(w, dict(rt, x0=x0)))(
-            state.w, rt["x0"])
+        objective = _vm(nlp.objective, rt, state.w)
         return IPResult(w=state.w, lam=state.lam, zl=state.zl, zu=state.zu,
                         mu=state.mu, converged=converged,
                         iterations=state.it,

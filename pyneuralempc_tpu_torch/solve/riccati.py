@@ -94,7 +94,8 @@ def make_riccati_direction(nlp: NLP, cfg) -> Callable:
     (the expensive per-stage autodiff, once per iteration) and
     ``direction.solve_blocks`` (an rhs-only re-solve).  All arguments are
     batch-first; ``rt`` holds the batched ``x0`` (B, nx) and the optional
-    per-member ``_s_obj`` (B,) beside the shared ``p``/``tvp``/``params``.
+    per-member ``_s_obj`` (B,) beside ``p``/``tvp``/``params``, shared or,
+    where ``rt["_per_member"]`` names them, leading with B.
     """
     if not eligible(nlp):
         raise ValueError(
@@ -149,14 +150,6 @@ def make_riccati_direction(nlp: NLP, cfg) -> Callable:
         tvp_b = None if tvp_t is None else tvp_t[None, :]
         return phi(x[None, :], u[None, :], p, tvp_b, params)[0]
 
-    def over_stages(fn, tvp, Bn, *per_stage):
-        """vmap ``fn(*per_stage_rows, tvp_t)`` over the B·H stages."""
-        flat = [a.reshape((Bn * H,) + a.shape[2:]) for a in per_stage]
-        if tvp is None:
-            return vmap(lambda *a: fn(*a, None))(*flat)
-        tvp_f = tvp.expand(Bn, H, tvp.shape[-1]).reshape(-1, tvp.shape[-1])
-        return vmap(fn)(*flat, tvp_f)
-
     def stage_blocks(w, lam, rt):
         """Per-stage A, B (dynamics Jacobians), G (defect curvature), M
         (cost Hessian plus stage-constraint curvature), each (B, H, ·, ·);
@@ -167,8 +160,43 @@ def make_riccati_direction(nlp: NLP, cfg) -> Callable:
         xprev = shift_states(rt["x0"], X)
         lam_t = lam[:, : H * nx].reshape(Bn, H, nx)
         tvp, p, params = rt["tvp"], rt["p"], rt.get("params")
+        # the inputs each member has its own of (p (B, np), tvp (B, H,
+        # ntvp), params leading with B); shared ones are closed over
+        own = {k: rt[k] for k in rt.get("_per_member", ())}
 
-        def per_stage(x_t, u_t, lam_row, tvp_t):
+        def over_members(fn, *args):
+            """vmap ``fn(*args_i, p, tvp, params)`` over the members, each
+            with its own inputs where it has them."""
+            if not own:
+                return vmap(lambda *a: fn(*a, p, tvp, params))(*args)
+            return vmap(lambda m, *a: fn(*a, m.get("p", p),
+                                         m.get("tvp", tvp),
+                                         m.get("params", params)))(own, *args)
+
+        def over_stages(fn, *per_stage):
+            """vmap ``fn(*per_stage_rows, tvp_t, p, params)`` over the B·H
+            stages: one vmap of the flattened stages when every input is
+            shared, else a vmap over the members of one over their H
+            stages."""
+            if not own:
+                flat = [a.reshape((Bn * H,) + a.shape[2:])
+                        for a in per_stage]
+                if tvp is None:
+                    return vmap(lambda *a: fn(*a, None, p, params))(*flat)
+                tvp_f = tvp.expand(Bn, H, tvp.shape[-1]).reshape(
+                    -1, tvp.shape[-1])
+                return vmap(lambda *a: fn(*a, p, params))(*flat, tvp_f)
+
+            def member(*a):
+                *rows, p_i, tvp_i, params_i = a
+                if tvp_i is None:
+                    return vmap(lambda *r: fn(*r, None, p_i, params_i))(
+                        *rows)
+                return vmap(lambda *r: fn(*r, p_i, params_i))(
+                    *rows, tvp_i.expand(H, tvp_i.shape[-1]))
+            return over_members(member, *per_stage)
+
+        def per_stage(x_t, u_t, lam_row, tvp_t, p, params):
             def f(xu):
                 return phi1(xu[:nx], xu[nx:], p, tvp_t, params)
 
@@ -182,24 +210,26 @@ def make_riccati_direction(nlp: NLP, cfg) -> Callable:
             G, J = jacfwd(grad_and_val)(torch.cat([x_t, u_t]))
             return J[:, :nx], J[:, nx:], G
 
-        A, Bm, G = over_stages(per_stage, tvp, Bn, xprev, U, lam_t)
+        A, Bm, G = over_stages(per_stage, xprev, U, lam_t)
         A = A.reshape(Bn, H, nx, nx)
         Bm = Bm.reshape(Bn, H, nx, nu)
         G = G.reshape(Bn, H, ns, ns)
 
         if isinstance(stage_cost, StageCost):
-            def cost_block(x_n, u_t, tvp_t):
+            def cost_block(x_n, u_t, tvp_t, p, params):
                 def f(z):
                     return _call_user_fn(stage_cost.stage, z[:nx], z[nx:],
                                          p, tvp_t)
                 return torch.func.hessian(f)(torch.cat([x_n, u_t]))
 
-            M = over_stages(cost_block, tvp, Bn, X, U).reshape(Bn, H, ns, ns)
+            M = over_stages(cost_block, X, U).reshape(Bn, H, ns, ns)
             if stage_cost.terminal is not None:
-                def term(xH):
-                    return (stage_cost.terminal(xH, p) if p is not None
-                            else stage_cost.terminal(xH))
-                term_h = vmap(torch.func.hessian(term))(X[:, -1])
+                def term_hessian(xH, p, tvp, params):
+                    def term(x):
+                        return (stage_cost.terminal(x, p) if p is not None
+                                else stage_cost.terminal(x))
+                    return torch.func.hessian(term)(xH)
+                term_h = over_members(term_hessian, X[:, -1])
                 M = M.clone()
                 M[:, -1, :nx, :nx] += term_h
         else:
@@ -209,7 +239,7 @@ def make_riccati_direction(nlp: NLP, cfg) -> Callable:
             # term lands in the last block by itself).
             steps = torch.arange(H, device=w.device)
 
-            def blocks_of(X1, U1):
+            def blocks_of(X1, U1, p, tvp, params):
                 def restricted(t, z):
                     at_t = (steps == t)[:, None]
 
@@ -220,7 +250,7 @@ def make_riccati_direction(nlp: NLP, cfg) -> Callable:
                     return torch.func.hessian(f)(z)
                 return vmap(restricted)(steps, torch.cat([X1, U1], -1))
 
-            M = vmap(blocks_of)(X, U)
+            M = over_members(blocks_of, X, U)
         # objective auto-scaling (interior_point.make_solver): the cost
         # curvature must match the scaled gradient in r_tilde
         s_obj = rt.get("_s_obj")
@@ -237,7 +267,7 @@ def make_riccati_direction(nlp: NLP, cfg) -> Callable:
             nu_rows = lam[:, H * nx + s["row_off"]:
                           H * nx + s["row_off"] + H * r].reshape(Bn, H, r)
 
-            def pc_one(x_n, u_t, nu_t, tvp_t, _pc=pc):
+            def pc_one(x_n, u_t, nu_t, tvp_t, p, params, _pc=pc):
                 def gfun(z):
                     return torch.atleast_1d(_call_user_fn(
                         _pc.stage, z[:nx], z[nx:], p, tvp_t))
@@ -250,7 +280,7 @@ def make_riccati_direction(nlp: NLP, cfg) -> Callable:
                 # jacfwd of a row linear in z comes back as float64
                 return Jg.to(z.dtype), Cv.to(z.dtype)
 
-            Jg, Cv = over_stages(pc_one, tvp, Bn, X, U, nu_rows)
+            Jg, Cv = over_stages(pc_one, X, U, nu_rows)
             M = M + Cv.reshape(Bn, H, ns, ns)
             Jgs.append(Jg.reshape(Bn, H, r, ns))
 
@@ -259,12 +289,14 @@ def make_riccati_direction(nlp: NLP, cfg) -> Callable:
         # blocks: the Gauss-Newton border (module docstring).
         Jqs = []
         for tp in traj_pcs:
-            def gfun_q(z, _pc=tp["pc"]):
-                Xz = z[: H * nx].reshape(H, nx)
-                Uz = z[H * nx:].reshape(H, nu)
-                return torch.atleast_1d(_call_user_fn(
-                    _pc.fn, Xz, Uz, p, tvp)).reshape(-1)
-            Jqs.append(vmap(jacrev(gfun_q))(w[:, :n_primal]).to(w.dtype))
+            def jac_q(z, p, tvp, params, _pc=tp["pc"]):
+                def gfun_q(zz):
+                    Xz = zz[: H * nx].reshape(H, nx)
+                    Uz = zz[H * nx:].reshape(H, nu)
+                    return torch.atleast_1d(_call_user_fn(
+                        _pc.fn, Xz, Uz, p, tvp)).reshape(-1)
+                return jacrev(gfun_q)(z)
+            Jqs.append(over_members(jac_q, w[:, :n_primal]).to(w.dtype))
         return A, Bm, G, M, Jgs, Jqs
 
     def prepare(w, lam, rt):

@@ -113,8 +113,9 @@ def test_unported_features_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.NMPC(model, lambda x, u: torch.sum(u) + x[0, 0] * x[-1, 0],
                H=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_mpc(4).next_batch(torch.zeros(2, 2), p=torch.zeros(2, 3))
+    # per-member p must lead with the batch size
+    with pytest.raises(ValueError, match="batch size"):
+        torch_mpc(4).next_batch(torch.zeros(2, 2), p=torch.zeros(3, 3))
 
 
 def test_input_checks():
@@ -152,19 +153,25 @@ def _decay_models(H_=10):
 
 def test_next_batch_refuses_per_member_params():
     """params whose every tensor leads with the batch size are per member
-    in the JAX package (its ``_baxis_tree`` rule); the port refuses them,
-    naming ROADMAP Queue 1 #6b, instead of solving them as shared.  Shared
-    scalar params still solve and match the JAX package."""
+    (the JAX package's ``_baxis_tree`` rule): the port solves them as the
+    JAX package does, one model per member, and shared scalar params still
+    solve as shared.  (Per-member params were refused, naming ROADMAP
+    Queue 1 #6b, until the port took them.)"""
     jm, tm = _decay_models()
     xs = np.full((2, 2), 1.0, np.float32)
     _, jper = jm.next_batch(jnp.asarray(xs),
                             params=jnp.asarray([0.5, 2.0], jnp.float32))
-    u = np.asarray(jper.u)
+    _, tper = tm.next_batch(torch.as_tensor(xs),
+                            params=torch.tensor([0.5, 2.0]))
+    u = tper.u.numpy()
     assert np.abs(u[0] - u[1]).max() > 1e-2    # equal starts, other plans
-    with pytest.raises(NotImplementedError, match="#6b"):
-        tm.next_batch(torch.as_tensor(xs),
-                      params=torch.tensor([0.5, 2.0]))
+    _compare(jper, tper)
+    np.testing.assert_array_equal(tper.iterations.numpy(),
+                                  np.asarray(jper.iterations))
+    assert bool(tper.converged.all())
     _, jres = jm.next_batch(jnp.asarray(xs), params=jnp.float32(0.5))
     _, tres = tm.next_batch(torch.as_tensor(xs), params=torch.tensor(0.5))
     _compare(jres, tres)
     assert bool(tres.converged.all())
+    # the per-member solve's first member is the shared solve at its value
+    assert np.abs(u[0] - tres.u.numpy()[0]).max() <= 1e-5

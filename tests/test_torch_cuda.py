@@ -3,8 +3,10 @@ kernel, staged at <2, 1, 1, 0> and direct, the streamed backward/forward
 pair and the general pair, each with its backward kernel's compile-time
 instance, the general pair's forward instance too, and the fused general
 kernels, staged and direct) against their plain versions and each other,
-the wrappers' checks and dispatch, and the LV, quadrotor, EQ/border
-quadrotor and budgeted LV paths on the card against the CPU.  They skip
+the wrappers' checks and dispatch, the LV, quadrotor, EQ/border
+quadrotor and budgeted LV paths on the card against the CPU, the run-time
+streamed pair at the GRU fleet's and cartpole's stages, per-member params
+and the multi-start's draws.  They skip
 without a CUDA device.  This file imports no JAX, so on the card it runs
 without the JAX package's test configuration:
 
@@ -784,3 +786,112 @@ def test_general_forward_instance_misaligned_inputs():
     for m, a, q in zip(moved, aligned, ref):
         _same_bits(m, a)
         assert _scaled_err(m, q, ok) <= STREAMED_ATOL
+
+
+# ---- the new paths' stages, per-member inputs, multi-start ----
+
+KINDS4 = ["delta0", "delta_per_problem", "negative_curvature", "local_bump"]
+
+
+@pytest.mark.parametrize("kind", KINDS4)
+@pytest.mark.parametrize("B,H,nx", [(1024, 100, 10), (1, 50, 4),
+                                    (257, 50, 4)])
+def test_runtime_pair_at_new_stages(kind, B, H, nx):
+    """The run-time streamed pair at the GRU fleet's lifted stage (10, 1),
+    H=100, and at cartpole's (4, 1), H=50 (one problem, as the swing-up
+    solves, and a batch): gains and ok flags against the plain backward,
+    the forward kernel on the same gains, the pair end to end."""
+    _card()
+    assert rk.backward_kernel(nx, 1) == "riccati_backward_kernel"
+    assert rk.kernel_plan(H, nx, 1, "cuda")["path"] == "cuda_streamed"
+    args = [torch.as_tensor(a, device="cuda")
+            for a in sweep_case(kind, B=B, H=H, nx=nx, nu=1, seed=nx)]
+    counts = (rk.BACKWARD_INSTANCE_LAUNCHES, rk.BACKWARD_LAUNCHES)
+    gains, ok = rk.riccati_backward_cuda(*args)
+    torch.cuda.synchronize()
+    assert rk.BACKWARD_INSTANCE_LAUNCHES == counts[0]
+    assert rk.BACKWARD_LAUNCHES == counts[1] + 1
+    g_ref, ok_ref = rk.riccati_backward_plain(*args)
+    assert torch.equal(ok, ok_ref)
+    assert _scaled_err(gains, g_ref, ok_ref) <= STREAMED_ATOL
+    out = rk.riccati_forward_cuda(args[0], args[1], args[6], gains)
+    same = rk.riccati_forward_plain(args[0], args[1], args[6], gains)
+    for o, r in zip(out, same):
+        assert _scaled_err(o, r, ok_ref) <= STREAMED_ATOL
+    pair = rk.riccati_sweep_streamed_cuda(*args)
+    ref = rk.riccati_sweep_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(pair[3], ref[3])
+    for o, r in zip(pair[:3], ref[:3]):
+        assert _scaled_err(o, r, ref[3]) <= STREAMED_ATOL
+
+
+def _decay_mpc(device):
+    """ẋ = −params·x + u tracking x = 0.5 with a small control cost (RK4,
+    H=10): a strongly convex problem, so f32 rounding stays small."""
+    def f(x, u, p, tvp, params):
+        return -params * x + u
+    return nempc.NMPC(nempc.DynamicsModel(fn=f, dims=nempc.Dims(2, 1, 0, 0)),
+                      lambda x, u: torch.sum((x - 0.5) ** 2)
+                      + 0.1 * torch.sum(u * u),
+                      [nempc.DomainConstraint(
+                          states_constraint=[[-2.0, 2.0]] * 2,
+                          control_constraint=[[-1.0, 1.0]])],
+                      H=10, DT=0.1, integrator="rk4", device=device)
+
+
+def test_per_member_stacked_params_equal_shared_on_card():
+    """Per-member params on the card: one value a member, every member the
+    shared value, gives the shared solve's plans (1e-5); distinct values
+    agree with the CPU port (1e-4), cold and warm, with equal masks.  (The
+    LV surrogate stacked B times: chip_smoke.py phase 4, which holds the
+    members f32 fixes only loosely to what a 1e-7 move of their start
+    does.)"""
+    _card()
+    B = 64
+    rng = np.random.default_rng(0)
+    x0s = rng.uniform(-1.0, 1.0, (B, 2)).astype(np.float32)
+    mpc = _decay_mpc("cuda")
+    xs = torch.tensor(x0s, device="cuda")
+    _, shared = mpc.next_batch(xs, params=torch.tensor(0.5, device="cuda"))
+    _, per = mpc.next_batch(xs, params=torch.full((B,), 0.5, device="cuda"))
+    assert bool(shared.converged.all())
+    assert torch.equal(per.converged, shared.converged)
+    assert float((per.u - shared.u).abs().max()) <= 1e-5
+    rates = rng.uniform(0.2, 2.0, B).astype(np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = _decay_mpc(dev)
+        prm = torch.tensor(rates, device=dev)
+        carry, cold = m.next_batch(torch.tensor(x0s, device=dev), params=prm)
+        _, warm = m.next_batch(cold.x[:, 0].contiguous(), params=prm,
+                               carry=carry)
+        out[dev] = (cold, warm)
+    for card, cpu in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(card.converged.cpu(), cpu.converged)
+        assert bool(cpu.converged.all())
+        assert float((card.u.cpu() - cpu.u).abs().max()) <= 1e-4
+
+
+def test_multi_start_draws_equal_on_card_and_cpu():
+    """The multi-start perturbations come from the caller's CPU generator:
+    the card and the CPU start from the same numbers, and cartpole's
+    multi-start (H=10, 4 starts, cut at 20 iterations) picks the same
+    winner with the same plan to 1e-4."""
+    _card()
+    from pyneuralempc_tpu_torch.api.controller import (
+        multi_start_perturbations)
+    from pyneuralempc_tpu_torch.examples import cartpole
+    a = multi_start_perturbations(torch.Generator().manual_seed(3), 4, 10, 1)
+    b = multi_start_perturbations(torch.Generator().manual_seed(3), 4, 10, 1)
+    assert a.device.type == "cpu" and torch.equal(a, b)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        mpc = cartpole.make_cartpole_mpc(dev, H=10, max_iter=20)
+        out[dev] = mpc.next_multi_start(
+            torch.tensor(cartpole.X_HANGING, device=dev), n_starts=4,
+            generator=torch.Generator().manual_seed(3), return_index=True)
+    (card, i_card), (cpu, i_cpu) = out["cuda"], out["cpu"]
+    assert i_card == i_cpu
+    assert bool(card.converged.cpu()) == bool(cpu.converged)
+    assert float((card.u.cpu() - cpu.u).abs().max()) <= 1e-4

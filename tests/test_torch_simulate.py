@@ -170,22 +170,51 @@ def test_tvp_seq_windows_reach_each_solve():
 
 
 def test_per_member_params_raise():
+    """Per-member params in closed_loop_batch (one surrogate per plant, the
+    JAX package's rule): the JAX package's closed loop on the same stacked
+    weights, and, with every member's weights the shared set's, the shared
+    run.  (They raised, naming ROADMAP Queue 1 #6b, until the port took
+    them.)"""
+    from pyneuralempc_tpu.models.mlp import MLPDynamics as JMLP
+    import jax
     sur = T.MLPDynamics.make(x_dim=2, u_dim=1, hidden=[8])
-    gen = torch.Generator().manual_seed(0)
-    p0 = sur.init_params(gen, device="cpu")
-    params = [{k: torch.stack([v, v]) for k, v in layer.items()}
-              for layer in p0]
+    p0 = sur.init_params(torch.Generator().manual_seed(0), device="cpu")
+    p1 = sur.init_params(torch.Generator().manual_seed(1), device="cpu")
+    stacked = [{k: torch.stack([a[k], b[k]]) for k in a}
+               for a, b in zip(p0, p1)]
     cost = T.StageCost(stage=lambda x, u: torch.sum(u ** 2)
                        + torch.sum((x - 0.2) ** 2))
     box = T.DomainConstraint(states_constraint=[[-2.0, 2.0]] * 2,
                              control_constraint=[[-1.0, 1.0]])
     mpc = T.NMPC(sur, cost, [box], H=5, DT=0.1, integrator="rk4",
-                 device="cpu")
+                 config=T.IPConfig(tol=1e-5), device="cpu")
     plant = tsim.plant_from_model(sur, "rk4", 0.1, params=p0)
-    with pytest.raises(NotImplementedError, match="#6b"):
-        tsim.closed_loop_batch(mpc, plant, torch.full((2, 2), 0.1), steps=2,
-                               params=params)
-    # shared params run
-    out = tsim.closed_loop_batch(mpc, plant, torch.full((2, 2), 0.1),
-                                 steps=2, params=p0)
+    x0s = torch.full((2, 2), 0.1)
+    out = tsim.closed_loop_batch(mpc, plant, x0s, steps=2, params=stacked)
     assert bool(out.converged.all()) and out.x.shape == (3, 2, 2)
+    assert float((out.u[:, 0] - out.u[:, 1]).abs().max()) > 1e-4
+
+    def jx(tree):
+        return jax.tree_util.tree_map(lambda t: jnp.asarray(t.numpy()), tree)
+    jsur = JMLP.make(x_dim=2, u_dim=1, hidden=[8])
+    jmpc = J.NMPC(jsur, J.StageCost(stage=lambda x, u: jnp.sum(u ** 2)
+                                    + jnp.sum((x - 0.2) ** 2)),
+                  [J.DomainConstraint(states_constraint=[[-2.0, 2.0]] * 2,
+                                      control_constraint=[[-1.0, 1.0]])],
+                  H=5, DT=0.1, integrator="rk4", config=J.IPConfig(tol=1e-5))
+    ref = jsim.closed_loop_batch(
+        jmpc, jsim.plant_from_model(jsur, "rk4", 0.1, params=jx(p0)),
+        jnp.asarray(x0s.numpy()), steps=2, params=jx(stacked))
+    np.testing.assert_array_equal(out.converged.numpy(),
+                                  np.asarray(ref.converged))
+    np.testing.assert_array_equal(out.iterations.numpy(),
+                                  np.asarray(ref.iterations))
+    _close(out.x, ref.x)
+    _close(out.u, ref.u)
+    # every member the shared set: the shared run
+    same = [{k: torch.stack([v, v]) for k, v in layer.items()}
+            for layer in p0]
+    a = tsim.closed_loop_batch(mpc, plant, x0s, steps=2, params=same)
+    b = tsim.closed_loop_batch(mpc, plant, x0s, steps=2, params=p0)
+    assert torch.equal(a.converged, b.converged)
+    assert float((a.u - b.u).abs().max()) <= 1e-5
