@@ -9,8 +9,9 @@ Phases (each raises, and the script exits non-zero, on failure):
    matmuls off.  No CUDA device -> exit 1 with no result.
 2. Build: nvcc compiles every kernel of the port from the checkout's
    sources (pyneuralempc_tpu_torch/csrc/*.cu and their headers: the
-   backward template two of them share, riccati_backward_fixed.cuh, and
-   the bulk-copy primitives of the fused general source, bulk_copy.cuh),
+   backward and forward templates two of them share,
+   riccati_backward_fixed.cuh and riccati_forward_fixed.cuh, and the
+   copy primitives, bulk_copy.cuh),
    one nvcc for each source, all started together; ptxas registers and
    spills are logged.
 3. Fused kernel vs plain: the fused sweep (riccati_sweep_cuda: the staged
@@ -18,8 +19,11 @@ Phases (each raises, and the script exits non-zero, on failure):
    plain PyTorch version and against the first design
    (csrc/riccati_sweep.cu, riccati_sweep_direct_cuda) at the LV path's
    shapes (B=4096, H=20, nx=2, nu=1) on four seeded cases, with its median
-   device time (the kernel's own events in a torch.profiler trace; a name
-   the trace does not hold raises), its time per wrapper call (CUDA
+   device time (the kernel's own events in a torch.profiler trace, held
+   against the same calls back to back between CUDA events: a window that
+   holds no such kernel, or reads it under 80% of that time where it is
+   the window's only kernel and the device the slower side, is traced
+   again, and raises when three do), its time per wrapper call (CUDA
    events, host work included), the plain version's time and the least
    time the card could take (bound); then both designs' device times in
    turns (riccati_sweep.cu, staged, staged, riccati_sweep.cu), warm and
@@ -30,12 +34,15 @@ Phases (each raises, and the script exits non-zero, on failure):
    flags against riccati_backward_plain, the forward kernel against
    riccati_forward_plain fed the same gains, the pair against the plain
    sweep; then the pair against the fused kernel at (2, 1).  At this shape
-   the backward entry launches its compile-time instance
-   (riccati_general_backward_fixed<12, 4, 1, 0>, the general sweep's
-   template from csrc/riccati_backward_fixed.cuh); its gains and ok flags
-   are also held against the run-time backward kernel
-   (riccati_backward_runtime_cuda) on the same inputs, and both designs
-   are timed.  Times as in 3.
+   both entries launch their compile-time instances
+   (riccati_general_backward_fixed<12, 4, 1, 0> and
+   riccati_general_forward_fixed<12, 4, 1, 0, D>, the general sweep's
+   templates from csrc/riccati_backward_fixed.cuh and
+   csrc/riccati_forward_fixed.cuh); each is also held against its run-time
+   kernel (riccati_backward_runtime_cuda, riccati_forward_runtime_cuda) on
+   the same inputs, and the two designs of each are timed in turns
+   (run-time, instance, instance, run-time), warm and with L2 flushed,
+   with ptxas's report of each.  Times as in 3.
 3c. General pair vs plain: the general backward and forward kernels
    (csrc/riccati_general.cu) at the EQ/border quadrotor path's shapes
    (B=4096, H=50, nx=12, nu=4, R=2 right-hand sides, r=1 stage equality
@@ -74,12 +81,12 @@ Phases (each raises, and the script exits non-zero, on failure):
    forward, epilogue) from its per-block clock stamps, warm and flushed;
    the staged block's problems and shared memory, and ptxas's report of
    both kernels; the streamed general pair timed at the same shape.
-3e. Run-time streamed pair at the new paths' stages: the GRU fleet's
-   lifted (10, 1) at H=100, B=16384 (the four cases drawn at B=4096 and
-   repeated 4 times on the card) and cartpole's (4, 1) at H=50 (the four
-   cases at B=4096, then the path's one problem), as 3b against the plain
-   halves and the plain sweep; timed at the paths' shapes, (4, 1) at
-   B=4096 too.
+3e. Streamed instances at the new paths' stages: the GRU fleet's lifted
+   (10, 1) at H=100, B=16384 (the four cases drawn at B=4096 and repeated
+   4 times on the card) and cartpole's (4, 1) at H=50 (the four cases at
+   B=4096, and each case's first problem alone, the path's B=1), as 3b
+   against the plain halves, the run-time kernels and the plain sweep;
+   timed as in 3b at the paths' shapes ((4, 1) at B=4096 too).
 4. LV path: trains the 2x32 tanh MLP surrogate of the Lotka-Volterra
    system on the card, builds NMPC as bench.py does, solves B=4096 cold and
    then warm re-plans, the plant advanced by the true ODE through the port's
@@ -95,8 +102,9 @@ Phases (each raises, and the script exits non-zero, on failure):
    with a terminal term, box bounds) on B=4096 starts, bench.py's protocol:
    one cold solve, one untimed warm re-plan, then timed warm re-plans, each
    from the plan's first state.  Counters as in 4: the streamed pair must
-   have launched, every backward launch through the compile-time instance,
-   and the fused kernel and the plain sweep must not have.
+   have launched, every backward and every forward launch through its
+   compile-time instance, and the run-time kernels, the fused kernel and
+   the plain sweep must not have.
 4c. EQ/border quadrotor path: the quadrotor with a zero-net-yaw-torque
    stage equality row and a horizon thrust-impulse budget row
    (pyneuralempc_tpu_torch/examples/fleet_eq.py) on B=4096 starts, 4b's
@@ -120,15 +128,15 @@ Phases (each raises, and the script exits non-zero, on failure):
 4e. GRU fleet (pyneuralempc_tpu_torch/examples/fleet_rnn.py at its full
    size, BASELINE config 5): the GRU fit on the card (3000 Adam steps on
    512 x 32 plant sequences), then B=16384 lifted (10-state) problems,
-   H=100: a cold solve, one untimed and 3 timed warm re-plans.  Counters:
-   the streamed pair alone, every backward launch through the run-time
-   kernel (no instance); at least 16368/16384 converged on every solve.
+   H=100: a cold solve, one untimed and 3 timed warm re-plans.  Counters
+   as in 4b: both instances, at (10, 1); at least 16368/16384 converged on
+   every solve.
 4f. Cartpole (pyneuralempc_tpu_torch/examples/cartpole.py, BASELINE
    config 3): the 60-step swing-up with the true dynamics, NMPC.next every
-   2 steps on the card.  Counters as in 4e.  Gates: final cos θ ≥ 0.99,
-   tip clearance ≤ 0.55 + 1e-3, forces within ±10 + 1e-4, the plant's
-   states within the box + 1e-3.  Then next_multi_start(n_starts=8) from
-   the hanging start, seed 0.
+   2 steps on the card.  Gates: final cos θ ≥ 0.99, tip clearance ≤ 0.55
+   + 1e-3, forces within ±10 + 1e-4, the plant's states within the box +
+   1e-3.  Then next_multi_start(n_starts=8) from the hanging start, seed
+   0.  Counters over all of it as in 4b: both instances, at (4, 1).
 4g. Quadrotor MLP fleet (examples/quadrotor.py --mlp): the normalised
    surrogate fit on the card at the JAX example's settings, then B=1024,
    H=50: a cold solve, one untimed and 2 timed warm re-plans.  Counters as
@@ -210,6 +218,13 @@ BINDING_SHARE = (0.05, 0.95)
 PERTURB, DETERMINED, SPREAD = 1e-7, 5e-5, 2.0
 
 
+# profiler windows traced for one timing before it counts as failed
+PROFILE_TRIES = 3
+# a profiler median under this share of the time a call takes between CUDA
+# events, where the kernel is the window's only one and the host issues a
+# call in under this share of that time, is a misread window
+EVENTS_SHARE = 0.8
+
 T_START = time.perf_counter()
 
 
@@ -268,6 +283,7 @@ def reset_counters(rk, rg):
     rk.LAUNCHES = rk.BACKWARD_LAUNCHES = rk.FORWARD_LAUNCHES = 0
     rk.STAGED_LAUNCHES = rk.DIRECT_LAUNCHES = 0
     rk.BACKWARD_INSTANCE_LAUNCHES = rk.BACKWARD_RUNTIME_LAUNCHES = 0
+    rk.FORWARD_INSTANCE_LAUNCHES = rk.FORWARD_RUNTIME_LAUNCHES = 0
     rk.PLAIN_CALLS = 0
     rg.BACKWARD_LAUNCHES = rg.FORWARD_LAUNCHES = rg.FUSED_LAUNCHES = 0
     rg.BACKWARD_INSTANCE_LAUNCHES = rg.BACKWARD_RUNTIME_LAUNCHES = 0
@@ -281,7 +297,10 @@ def counters(rk, rg):
             "backward": rk.BACKWARD_LAUNCHES,
             "backward_instance": rk.BACKWARD_INSTANCE_LAUNCHES,
             "backward_runtime": rk.BACKWARD_RUNTIME_LAUNCHES,
-            "forward": rk.FORWARD_LAUNCHES, "plain": rk.PLAIN_CALLS,
+            "forward": rk.FORWARD_LAUNCHES,
+            "forward_instance": rk.FORWARD_INSTANCE_LAUNCHES,
+            "forward_runtime": rk.FORWARD_RUNTIME_LAUNCHES,
+            "plain": rk.PLAIN_CALLS,
             "general_backward": rg.BACKWARD_LAUNCHES,
             "general_backward_instance": rg.BACKWARD_INSTANCE_LAUNCHES,
             "general_backward_runtime": rg.BACKWARD_RUNTIME_LAUNCHES,
@@ -363,53 +382,85 @@ def cuda_median_ms(fn, runs=25, warmup=3):
 def kernel_device_ms(fn, kernel_name, runs=25, strict=False, bound_ms=None):
     """Median device time of the kernels whose names hold ``kernel_name``
     (spaces ignored, so a template's arguments can be matched) over ``runs``
-    calls of ``fn``, read from a torch.profiler trace.  When the trace holds
-    no such kernel: with ``strict``, raise (a misnamed kernel must not pass
-    as a timing); else the median of ``runs`` back-to-back calls between
-    one CUDA event pair (host work included where the host is the
-    slower).  A median below ``bound_ms`` lists every event's time."""
+    calls of ``fn``, read from a torch.profiler trace, and held against the
+    same calls back to back between one CUDA event pair.  The trace keeps
+    only some of a window's kernel events (16-25 of 25 on an H100,
+    whatever the kernel), now and then none, and has read a kernel at half
+    its time between events.  So a window is traced again, up to
+    PROFILE_TRIES windows, when it holds no such kernel, or when its median
+    is under EVENTS_SHARE of the time a call between the events while the
+    kernel is the window's only one and the device the slower side (the
+    host issues a call in under EVENTS_SHARE of that time).  When no window
+    passes: with ``strict``, raise (a misnamed kernel or a misread time
+    must not pass as a timing); else the time a call between the events
+    (host work included where the host is the slower).  A median below
+    ``bound_ms`` lists every event's time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
     want = kernel_name.replace(" ", "")
-    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and want in e.name.replace(" ", "")]
-    if times:
+    events_ms, host_ms = back_to_back_ms(fn, runs)
+    device_side = host_ms < EVENTS_SHARE * events_ms
+    kept, why = [], ""
+    for tries in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        times = [e.time_range.elapsed_us() / 1e3 for e in device
+                 if want in e.name.replace(" ", "")]
+        kept.append(len(times))
+        if not times:
+            why = "no event of the kernel"
+            continue
         ms = statistics.median(times)
+        checked = device_side and len(times) == len(device)
+        if checked and ms < EVENTS_SHARE * events_ms:
+            why = (f"median {ms * 1e3:.2f} us under {EVENTS_SHARE:.0%} of "
+                   f"the {events_ms * 1e3:.2f} us a call between CUDA events")
+            continue
         how = (f"profiler, {len(times)} kernels, {min(times) * 1e3:.2f}-"
-               f"{max(times) * 1e3:.2f} us")
+               f"{max(times) * 1e3:.2f} us, events kept a window "
+               f"{kept} of {runs}; {events_ms * 1e3:.2f} us a call back to "
+               f"back between CUDA events, {host_ms * 1e3:.2f} us to issue "
+               "it, "
+               + ("checked" if checked else "not checked (" + (
+                   "the host the slower" if not device_side
+                   else "other device work in the window") + ")"))
         if bound_ms is not None and ms < bound_ms:
             how += (f"; BELOW the bound {bound_ms * 1e3:.2f} us, every "
                     f"event's time (us): "
                     + ", ".join(f"{t * 1e3:.2f}" for t in times))
         return ms, how
     if strict:
-        raise RuntimeError(f"the profiler trace holds no kernel named "
-                           f"{kernel_name!r}")
-    return (back_to_back_ms(fn, runs),
-            f"events over {runs} back-to-back calls")
+        raise RuntimeError(f"none of {PROFILE_TRIES} profiler windows times "
+                           f"{kernel_name!r} (events kept a window {kept} "
+                           f"of {runs}; last window: {why})")
+    return (events_ms, f"events over {runs} back-to-back calls (no profiler "
+                       f"window passed: events kept {kept} of {runs}; last "
+                       f"window: {why})")
 
 
 def back_to_back_ms(fn, runs=25):
     """Time of ``runs`` back-to-back calls of ``fn`` between one CUDA event
     pair, over ``runs``: the device time a call where the device is the
-    slower, host work included where the host is."""
+    slower, host work included where the host is; and the host's time to
+    issue a call."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(runs):
         fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / runs
     stop.record()
     stop.synchronize()
-    return start.elapsed_time(stop) / runs
+    return start.elapsed_time(stop) / runs, host_ms
 
 
 def kernel_entry(name, source, site, call, kernel_name, plain, nbytes,
@@ -463,9 +514,6 @@ def design_turns(designs, order, strict=True, bound_ms=None,
             ms, how = kernel_device_ms(wrap(fn), name, strict=strict,
                                        bound_ms=bound_ms)
             turns.setdefault((cache, who), []).append(ms)
-            if cache == "warm":   # the same launches between CUDA events
-                how += (f"; {back_to_back_ms(fn) * 1e3:.2f} us a call "
-                        "back to back between CUDA events")
             log(f"  turn [{cache}] {who}: {ms * 1e3:.2f} us ({how})")
             if after_turn is not None:
                 after_turn(cache, who)
@@ -576,75 +624,160 @@ def phase_kernels(rk, build_logs):
 
 
 def hold_streamed_pair(rk, kind, args, tag):
-    """The streamed pair on one seeded case against its plain halves: the
-    backward kernel's gains and ok flags against riccati_backward_plain,
-    the forward kernel against riccati_forward_plain fed the same gains,
-    the pair against the plain sweep.  Returns the gains, the plain ok flags
-    and the worst (max |diff|, max scaled diff) of the backward and of the
-    forward kernel."""
+    """The streamed pair on one seeded case against its plain halves and
+    the run-time kernels: the backward entry's gains and ok flags against
+    riccati_backward_plain and against the run-time backward kernel, the
+    forward entry against riccati_forward_plain and against the run-time
+    forward kernel, both fed the same gains, and the pair against the plain
+    sweep.  Returns {"backward", "forward": (max |diff|, max scaled diff)
+    against plain; "backward_rt", "forward_rt": the max scaled diff
+    against the run-time kernel}."""
 
     def gate(what, abs_err, scaled):
-        log(f"streamed {what} vs plain [{kind}, {tag}]: max |diff| "
-            f"{abs_err:.3e}, max |diff|/max(1,|plain|) {scaled:.3e} (limit "
-            f"{STREAMED_TOL})")
+        log(f"streamed {what} [{kind}, {tag}]: max |diff| {abs_err:.3e}, "
+            f"max |diff|/max(1,|other|) {scaled:.3e} (limit {STREAMED_TOL})")
         if not scaled <= STREAMED_TOL:
-            raise RuntimeError(f"{kind}, {tag}: streamed {what} differs from "
-                               f"plain by {scaled:.3e} > {STREAMED_TOL}")
+            raise RuntimeError(f"{kind}, {tag}: streamed {what} differs by "
+                               f"{scaled:.3e} > {STREAMED_TOL}")
 
     A, Bm, c = args[0], args[1], args[6]
     gains, ok = rk.riccati_backward_cuda(*args)
+    g_rt, ok_rt = rk.riccati_backward_runtime_cuda(*args)
     torch.cuda.synchronize()
     g_ref, ok_ref = rk.riccati_backward_plain(*args)
     check_ok(kind, ok, ok_ref)
+    check_ok(kind, ok_rt, ok_ref)
     e_bwd = errors([gains], [g_ref], ok_ref)[:2]
-    gate("backward (gains)", *e_bwd)
-    del g_ref
+    gate("backward vs plain (gains)", *e_bwd)
+    e_bwd_rt = errors([gains], [g_rt], ok_ref)[:2]
+    gate("backward vs the run-time kernel (gains)", *e_bwd_rt)
+    del g_ref, g_rt
     out = rk.riccati_forward_cuda(A, Bm, c, gains)
+    rt = rk.riccati_forward_runtime_cuda(A, Bm, c, gains)
     torch.cuda.synchronize()
     e_fwd = errors(out, rk.riccati_forward_plain(A, Bm, c, gains),
                    ok_ref)[:2]
-    gate("forward (dX, dU, dLam; same gains)", *e_fwd)
-    del out
+    gate("forward vs plain (dX, dU, dLam; same gains)", *e_fwd)
+    e_fwd_rt = errors(out, rt, ok_ref)[:2]
+    gate("forward vs the run-time kernel (same gains)", *e_fwd_rt)
+    del out, rt
     pair = rk.riccati_sweep_streamed_cuda(*args)
     torch.cuda.synchronize()
     ref = rk.riccati_sweep_plain(*args)
     check_ok(kind, pair[3], ref[3])
-    gate("pair end to end (dX, dU, dLam)",
+    gate("pair end to end vs plain (dX, dU, dLam)",
          *errors(pair[:3], ref[:3], ok_ref)[:2])
-    log(f"  [{kind}, {tag}] ok {int(ok.sum())}/{ok.numel()} (equal to plain, "
-        "as expected)")
-    return gains, ok_ref, e_bwd, e_fwd
+    log(f"  [{kind}, {tag}] ok {int(ok.sum())}/{ok.numel()} (equal to plain "
+        "and to the run-time kernel, as expected)")
+    return {"backward": e_bwd, "forward": e_fwd, "backward_rt": e_bwd_rt[1],
+            "forward_rt": e_fwd_rt[1]}
 
 
-def phase_streamed(rk):
-    """The streamed pair against its plain halves at the quadrotor path's
-    shapes, on the four cases, the backward instance against the run-time
-    backward kernel too; then the pair against the fused kernel at (2,
-    1)."""
+def worse(worst, got):
+    """``worst`` (a hold_streamed_pair result, or None) and ``got``,
+    entry by entry, the larger kept."""
+    if worst is None:
+        return got
+    return {k: (tuple(max(a, b) for a, b in zip(v, got[k]))
+                if isinstance(v, tuple) else max(v, got[k]))
+            for k, v in worst.items()}
+
+
+def abba(labels):
+    """Turns in the order a, b, ..., z, z, ..., b, a."""
+    return tuple(labels) + tuple(reversed(labels))
+
+
+def instance_entries(rk, name, args, path, build_log, plain_runs=5):
+    """Kernel-line entries of the streamed backward and forward instances on
+    ``args``: device time, wrapper call, plain version and bound as in phase
+    3, each instance with its run-time kernel timed beside it in turns
+    (run-time, instance, instance, run-time), warm and with L2 flushed.
+    ``path`` names the path whose launches
+    phase 4 fills in; ``name`` tags the entries."""
+    Bn, Hn, nx = args[6].shape
+    nu = args[1].shape[-1]
+    A, Bm, c = args[0], args[1], args[6]
+    dims = (Bn, Hn, nx, nu)
+    label = f"B={Bn}, H={Hn}, nx={nx}, nu={nu}"
+    bname, fname = rk.backward_kernel(nx, nu), rk.forward_kernel(nx, nu)
+    if not (bname.startswith("riccati_general_backward_fixed<")
+            and fname.startswith("riccati_general_forward_fixed<")):
+        raise RuntimeError(f"({nx}, {nu}) takes {bname} and {fname}, not "
+                           "the compile-time instances")
+    gains, ok = rk.riccati_backward_cuda(*args)
+    torch.cuda.synchronize()
+    bwd_call = lambda: rk.riccati_backward_cuda(*args)  # noqa: E731
+    fwd_call = lambda: rk.riccati_forward_cuda(A, Bm, c, gains)  # noqa: E731
+    entries = []
+    for half, call, kname, runtime, rt_name, plain, nbytes, flops, site in (
+            ("backward", bwd_call, bname,
+             lambda: rk.riccati_backward_runtime_cuda(*args),
+             "riccati_backward_kernel",
+             lambda: rk.riccati_backward_plain(*args),
+             rk.backward_bytes(*dims), rk.backward_flops(*dims), 468),
+            ("forward", fwd_call, fname,
+             lambda: rk.riccati_forward_runtime_cuda(A, Bm, c, gains),
+             "riccati_forward_kernel",
+             lambda: rk.riccati_forward_plain(A, Bm, c, gains),
+             rk.forward_bytes(*dims), rk.forward_flops(*dims), 488)):
+        entry = kernel_entry(
+            f"riccati_{half}{name}", "riccati_streamed.cu",
+            f"{PALLAS}:{site}", call, kname, plain, nbytes, flops, label,
+            plain_runs=plain_runs, strict=True)
+        turns = design_turns({"run-time": (runtime, rt_name),
+                              "instance": (call, kname)},
+                             abba(("run-time", "instance")),
+                             bound_ms=entry["bound_ms"])
+        mean = {k: statistics.mean(v) for k, v in turns.items()}
+        rt_call_ms = cuda_median_ms(runtime)
+        log(f"riccati_{half} at {label}: "
+            + ", ".join(f"{who} {mean['warm', who] * 1e3:.2f} us warm / "
+                        f"{mean['flushed', who] * 1e3:.2f} us L2 flushed"
+                        for who in ("run-time", "instance"))
+            + f" (device time, means of two turns each): the instance "
+              f"({kname}) takes "
+              f"{mean['warm', 'instance'] / mean['warm', 'run-time']:.2%} "
+              f"of the run-time kernel's time warm; wrapper calls "
+              f"{entry['call_ms'] * 1e3:.1f} us instance, "
+              f"{rt_call_ms * 1e3:.1f} us run-time")
+        entry.update(design=f"compile-time instance {kname}", path=path,
+                     shape=dict(zip(("B", "H", "nx", "nu"), dims)),
+                     runtime_ms=mean["warm", "run-time"],
+                     runtime_call_ms=rt_call_ms,
+                     flushed_ms=mean["flushed", "instance"],
+                     runtime_flushed_ms=mean["flushed", "run-time"],
+                     turns_ms={f"{cache}, {who}": v
+                               for (cache, who), v in turns.items()})
+        entries.append(entry)
+    bwd, fwd = entries
+    depth = rk._FORWARD_INSTANCES[nx, nu]
+    bwd["ptxas_instance"] = ptxas_report(
+        build_log, "riccati_general_backward_fixed", (nx, nu, 1, 0))
+    fwd["ptxas_instance"] = ptxas_report(
+        build_log, "riccati_general_forward_fixed", (nx, nu, 1, 0, depth))
+    fwd["depth"] = depth
+    log(f"ptxas backward instance {bname}: {bwd['ptxas_instance']}; forward "
+        f"instance {fname} ({rk.forward_ring_bytes(nx, nu, 1, 0, depth)} B "
+        f"of shared memory a block): {fwd['ptxas_instance']}")
+    pair_ms = cuda_median_ms(lambda: rk.riccati_sweep_streamed_cuda(*args))
+    log(f"streamed sweep{name} (backward + forward, one wrapper call): "
+        f"{pair_ms * 1e3:.1f} us")
+    return bwd, fwd, pair_ms
+
+
+def phase_streamed(rk, build_log):
+    """The streamed pair against its plain halves and the run-time kernels
+    at the quadrotor path's shapes, on the four cases; then the pair
+    against the fused kernel at (2, 1); then both instances timed, each
+    against its run-time kernel."""
     shape = dict(Bn=B, Hn=QH, nx=QNX, nu=QNU)
-    worst = {"backward": [0.0, 0.0], "forward": [0.0, 0.0]}
-    worst_rt = 0.0
-
+    worst = None
     for kind, seed in CASES.items():
         args = sweep_case(kind, seed, **shape)
-        gains, ok_ref, e_bwd, e_fwd = hold_streamed_pair(
-            rk, kind, args, f"B={B}, H={QH}, nx={QNX}, nu={QNU}")
-        worst["backward"] = [max(a, b) for a, b in zip(worst["backward"],
-                                                       e_bwd)]
-        worst["forward"] = [max(a, b) for a, b in zip(worst["forward"],
-                                                      e_fwd)]
-        g_rt, ok_rt = rk.riccati_backward_runtime_cuda(*args)
-        torch.cuda.synchronize()
-        check_ok(kind, ok_rt, ok_ref)
-        e = errors([gains], [g_rt], ok_ref)
-        log(f"streamed backward instance vs the run-time kernel (gains) "
-            f"[{kind}]: max |diff| {e[0]:.3e}, max scaled {e[1]:.3e} (limit "
-            f"{STREAMED_TOL})")
-        if not e[1] <= STREAMED_TOL:
-            raise RuntimeError(f"{kind}: the backward instance differs from "
-                               f"the run-time kernel by {e[1]:.3e}")
-        worst_rt = max(worst_rt, e[1])
-        del args, gains, g_rt
+        worst = worse(worst, hold_streamed_pair(
+            rk, kind, args, f"B={B}, H={QH}, nx={QNX}, nu={QNU}"))
+        del args
 
     # two CUDA designs on one function: the pair against the fused kernel
     args = sweep_case("delta0", 0)
@@ -660,46 +793,17 @@ def phase_streamed(rk):
         raise RuntimeError(f"pair and fused kernel differ by {scaled:.3e}")
 
     args = sweep_case("delta0", 0, **shape)
-    A, Bm, c = args[0], args[1], args[6]
-    gains, _ = rk.riccati_backward_cuda(*args)
-    dims = (B, QH, QNX, QNU)
-    label = f"B={B}, H={QH}, nx={QNX}, nu={QNU}"
-    instance = rk.backward_kernel(QNX, QNU)
-    if not instance.startswith("riccati_general_backward_fixed<"):
-        raise RuntimeError(f"the quadrotor stage takes {instance}, not the "
-                           "compile-time instance")
-    bwd = kernel_entry(
-        "riccati_backward", "riccati_streamed.cu", f"{PALLAS}:468",
-        lambda: rk.riccati_backward_cuda(*args), instance,
-        lambda: rk.riccati_backward_plain(*args), rk.backward_bytes(*dims),
-        rk.backward_flops(*dims), label, plain_runs=5)
-    # the other CUDA design of the same function, timed in the same run
-    rt_ms, rt_how = kernel_device_ms(
-        lambda: rk.riccati_backward_runtime_cuda(*args),
-        "riccati_backward_kernel")
-    rt_call_ms = cuda_median_ms(
-        lambda: rk.riccati_backward_runtime_cuda(*args))
-    log(f"riccati_backward: instance {bwd['ms'] * 1e3:.2f} us, run-time "
-        f"kernel {rt_ms * 1e3:.2f} us ({rt_how}; {rt_call_ms * 1e3:.1f} us "
-        f"per wrapper call) of device time at {label}: the instance takes "
-        f"{bwd['ms'] / rt_ms:.2%} of the run-time kernel's time; instance "
-        f"vs run-time gains max scaled diff {worst_rt:.3e}")
-    bwd.update(design=f"compile-time instance {instance}",
-               runtime_ms=rt_ms, runtime_call_ms=rt_call_ms,
-               max_scaled_err_vs_runtime=worst_rt)
-    fwd = kernel_entry(
-        "riccati_forward", "riccati_streamed.cu", f"{PALLAS}:488",
-        lambda: rk.riccati_forward_cuda(A, Bm, c, gains),
-        "riccati_forward_kernel",
-        lambda: rk.riccati_forward_plain(A, Bm, c, gains),
-        rk.forward_bytes(*dims), rk.forward_flops(*dims), label,
-        plain_runs=5)
-    for entry, key in ((bwd, "backward"), (fwd, "forward")):
-        entry.update(max_abs_err=worst[key][0], max_scaled_err=worst[key][1])
-    pair_ms = cuda_median_ms(lambda: rk.riccati_sweep_streamed_cuda(*args))
-    log(f"streamed sweep (backward + forward, one wrapper call): "
-        f"{pair_ms * 1e3:.1f} us")
+    bwd, fwd, pair_ms = instance_entries(rk, "", args, "quadrotor",
+                                         build_log)
+    set_worst(bwd, fwd, worst)
     return bwd, fwd, pair_ms
+
+
+def set_worst(bwd, fwd, worst):
+    """The entries' errors on the seeded cases (hold_streamed_pair's)."""
+    for entry, key in ((bwd, "backward"), (fwd, "forward")):
+        entry.update(max_abs_err=worst[key][0], max_scaled_err=worst[key][1],
+                     max_scaled_err_vs_runtime=worst[key + "_rt"])
 
 
 def general_case(kind, seed, R=QR, r=QEQ, Hn=QH):
@@ -920,8 +1024,9 @@ def phase_general(rk, rg, build_log):
         bound_ms=fwd["bound_ms"], after_turn=same_as_checked)
     mean = {k: statistics.mean(v) for k, v in turns.items()}
     rt_call_ms = cuda_median_ms(runtime)
+    depth = rk._GENERAL_FORWARD_INSTANCES[QNX, QNU, QR, QEQ]
     ptxas = ptxas_report(build_log, "riccati_general_forward_fixed",
-                         (QNX, QNU, QR, QEQ))
+                         (QNX, QNU, QR, QEQ, depth))
     rt_ptxas = ptxas_report(build_log, "riccati_general_forward_kernel", ())
     log(f"riccati_general_forward at {label}: "
         + ", ".join(f"{who} {mean['warm', who] * 1e3:.2f} us warm / "
@@ -934,9 +1039,9 @@ def phase_general(rk, rg, build_log):
           f"us run-time; instance vs run-time outputs max scaled diff "
           f"{worst_fwd_rt:.3e}; every timed instance launch checked gave "
           f"the checked outputs bit for bit")
-    log(f"ptxas forward instance (ring of {rk.FORWARD_RING} stage slots, "
-        f"{rk.forward_ring_bytes(QNX, QNU, QR, QEQ)} B of shared memory a "
-        f"block): {ptxas}; run-time kernel: {rt_ptxas}")
+    log(f"ptxas forward instance (ring of {depth} stage slots, "
+        f"{rk.forward_ring_bytes(QNX, QNU, QR, QEQ, depth)} B of shared "
+        f"memory a block): {ptxas}; run-time kernel: {rt_ptxas}")
     fwd.update(design=f"compile-time instance {fwd_instance}",
                runtime_ms=mean["warm", "run-time"], runtime_call_ms=rt_call_ms,
                flushed_ms=mean["flushed", "instance"],
@@ -1145,7 +1250,7 @@ def phase_fused_general(rk, rg, build_log):
     return entry
 
 
-# ---- phase 3e: the run-time streamed pair at the new paths' stages ----
+# ---- phase 3e: the streamed instances at the new paths' stages ----
 
 def tiled_sweep_case(kind, seed, Bn, Hn, nx, nu, tile):
     """A seeded case of Bn problems repeated ``tile`` times along the batch
@@ -1158,79 +1263,49 @@ def tiled_sweep_case(kind, seed, Bn, Hn, nx, nu, tile):
     return [a.repeat((tile,) + (1,) * (a.dim() - 1)) for a in args]
 
 
-def streamed_entries(rk, tag, args, launches_of, plain_runs=5):
-    """Kernel-line entries of the run-time backward kernel and the forward
-    kernel on ``args`` (timed as in phase 3); ``launches_of`` names the path
-    whose launches phase 4 fills in."""
-    Bn, Hn, nx = args[6].shape
-    nu = args[1].shape[-1]
-    A, Bm, c = args[0], args[1], args[6]
-    gains, _ = rk.riccati_backward_cuda(*args)
-    dims = (Bn, Hn, nx, nu)
-    label = f"B={Bn}, H={Hn}, nx={nx}, nu={nu}"
-    bwd = kernel_entry(
-        f"riccati_backward [{tag}]", "riccati_streamed.cu", f"{PALLAS}:468",
-        lambda: rk.riccati_backward_cuda(*args), "riccati_backward_kernel",
-        lambda: rk.riccati_backward_plain(*args), rk.backward_bytes(*dims),
-        rk.backward_flops(*dims), label, plain_runs=plain_runs, strict=True)
-    fwd = kernel_entry(
-        f"riccati_forward [{tag}]", "riccati_streamed.cu", f"{PALLAS}:488",
-        lambda: rk.riccati_forward_cuda(A, Bm, c, gains),
-        "riccati_forward_kernel",
-        lambda: rk.riccati_forward_plain(A, Bm, c, gains),
-        rk.forward_bytes(*dims), rk.forward_flops(*dims), label,
-        plain_runs=plain_runs, strict=True)
-    pair_ms = cuda_median_ms(lambda: rk.riccati_sweep_streamed_cuda(*args))
-    log(f"streamed sweep [{tag}] (backward + forward, one wrapper call): "
-        f"{pair_ms * 1e3:.1f} us")
-    for e in (bwd, fwd):
-        e.update(design="run-time kernel", path=launches_of,
-                 shape=dict(zip(("B", "H", "nx", "nu"), dims)))
-    return bwd, fwd, pair_ms
-
-
-def phase_streamed_new_shapes(rk):
-    """The run-time streamed pair at the GRU fleet's lifted stage (10, 1),
-    H=100, B=16384, and at cartpole's (4, 1), H=50, B=1, against the plain
-    halves and the plain sweep on the four seeded cases ((4, 1) also at
-    B=4096); then both timed at the paths' shapes, (4, 1) at B=4096 too."""
+def phase_streamed_new_shapes(rk, build_log):
+    """The streamed instances at the GRU fleet's lifted stage (10, 1),
+    H=100, B=16384, and at cartpole's (4, 1), H=50, against the plain
+    halves, the run-time kernels and the plain sweep on the four seeded
+    cases ((4, 1) at B=4096 and on each case's first problem alone, the
+    path's B=1); then both timed against the run-time kernels at the paths'
+    shapes, (4, 1) at B=4096 too."""
     out = {}
     for tag, nx, nu, Hn, b_case, tile, path in NEW_STREAMED_SHAPES:
-        if rk.backward_kernel(nx, nu) != "riccati_backward_kernel":
-            raise RuntimeError(f"({nx}, {nu}) takes "
-                               f"{rk.backward_kernel(nx, nu)}, not the "
-                               "run-time backward kernel")
+        if (nx, nu) not in rk._BACKWARD_INSTANCES or \
+                (nx, nu) not in rk._FORWARD_INSTANCES:
+            raise RuntimeError(f"({nx}, {nu}) takes {rk.backward_kernel(nx, nu)}"
+                               f" and {rk.forward_kernel(nx, nu)}, not the "
+                               "compile-time instances")
         plan = rk.kernel_plan(Hn, nx, nu, "cuda")
         if plan["path"] != "cuda_streamed":
             raise RuntimeError(f"({nx}, {nu}) at H={Hn} plans {plan}")
-        worst = {"backward": [0.0, 0.0], "forward": [0.0, 0.0]}
+        worst = None
         for kind, seed in CASES.items():
             args = tiled_sweep_case(kind, seed, b_case, Hn, nx, nu, tile)
             label = f"B={b_case * tile}, H={Hn}, nx={nx}, nu={nu}"
-            _, _, e_bwd, e_fwd = hold_streamed_pair(rk, kind, args, label)
-            for key, e in (("backward", e_bwd), ("forward", e_fwd)):
-                worst[key] = [max(a, b) for a, b in zip(worst[key], e)]
+            worst = worse(worst, hold_streamed_pair(rk, kind, args, label))
+            if path == "cartpole":
+                # the path's one problem, checked on its own
+                worst = worse(worst, hold_streamed_pair(
+                    rk, kind, [a[:1].contiguous() for a in args],
+                    f"B=1, H={Hn}, nx={nx}, nu={nu}"))
             del args
         args = tiled_sweep_case("delta0", 0, b_case, Hn, nx, nu, tile)
         if path == "cartpole":
-            # the path's one problem, checked on its own, then timed
             one = [a[:1].contiguous() for a in args]
-            _, _, e_bwd, e_fwd = hold_streamed_pair(
-                rk, "delta0", one, f"B=1, H={Hn}, nx={nx}, nu={nu}")
-            for key, e in (("backward", e_bwd), ("forward", e_fwd)):
-                worst[key] = [max(a, b) for a, b in zip(worst[key], e)]
-            big = streamed_entries(rk, f"{tag}, B={b_case}", args, path)
-            bwd, fwd, pair_ms = streamed_entries(rk, f"{tag}, B=1", one,
-                                                 path)
+            big = instance_entries(rk, f" [{tag}, B={b_case}]", args, path,
+                                   build_log)
+            bwd, fwd, pair_ms = instance_entries(rk, f" [{tag}, B=1]", one,
+                                                 path, build_log)
             for e, e_big in zip((bwd, fwd), big[:2]):
-                e.update(b4096_ms=e_big["ms"], b4096_call_ms=e_big["call_ms"],
-                         b4096_plain_ms=e_big["plain_ms"],
-                         b4096_bound_ms=e_big["bound_ms"])
+                e.update({f"b{b_case}_{k}": e_big[k] for k in (
+                    "ms", "call_ms", "plain_ms", "bound_ms", "runtime_ms",
+                    "flushed_ms", "runtime_flushed_ms")})
         else:
-            bwd, fwd, pair_ms = streamed_entries(rk, tag, args, path)
-        for entry, key in ((bwd, "backward"), (fwd, "forward")):
-            entry.update(max_abs_err=worst[key][0],
-                         max_scaled_err=worst[key][1])
+            bwd, fwd, pair_ms = instance_entries(rk, f" [{tag}]", args, path,
+                                                 build_log)
+        set_worst(bwd, fwd, worst)
         out[path] = (bwd, fwd, pair_ms)
         del args
         torch.cuda.empty_cache()
@@ -1475,18 +1550,7 @@ def phase_quadrotor(nempc, rk, rg, card, pair_ms):
         launches.append(rk.BACKWARD_LAUNCHES - n0)
         log(f"warm {step}: {times[-1] * 1e3:.1f} ms  sweeps "
             f"{launches[-1]}  " + telemetry("warm", res))
-    n = counters(rk, rg)
-    log(f"quadrotor path: streamed backward launches {n['backward']} (the "
-        f"compile-time instance {n['backward_instance']}), forward "
-        f"{n['forward']}; fused kernel {n['fused']}, general "
-        f"{n['general_backward']} / {n['general_forward']}, plain calls "
-        f"{n['plain']}")
-    if (not only_launched(n, "backward", "backward_instance", "forward")
-            or n["forward"] != n["backward"]
-            or n["backward_instance"] != n["backward"]):
-        raise RuntimeError("the quadrotor path did not go through the "
-                           "streamed pair alone, with the backward kernel's "
-                           "compile-time instance")
+    n = only_instance_pair(rk, rg, "quadrotor")
     if min(conv) < MIN_WARM_CONVERGED:
         raise RuntimeError(f"quadrotor convergence {conv} (cold, warm...) "
                            f"below {MIN_WARM_CONVERGED}/{B}")
@@ -1494,7 +1558,7 @@ def phase_quadrotor(nempc, rk, rg, card, pair_ms):
     log(f"converged: cold, then every warm step {conv}")
     report_split(nempc, mpc, carry, xs, res, times, launches[-1], pair_ms,
                  card)
-    return x0s, n["backward_instance"], n["forward"]
+    return x0s, n["backward_instance"], n["forward_instance"]
 
 
 def check_fleet_eq(tag, res, budget, yaw_residual):
@@ -1730,19 +1794,24 @@ def warm_replans(mpc, res, carry, steps, counter, params=None):
     return carry, res, conv, times, launches
 
 
-def only_runtime_pair(rk, rg, tag):
-    """The path's launches: the streamed pair alone, every backward launch
-    through the run-time kernel (the (12, 4) instance never)."""
+def only_instance_pair(rk, rg, tag):
+    """The path's launches: the streamed pair alone, every backward and
+    every forward launch through its compile-time instance (the run-time
+    kernels never)."""
     n = counters(rk, rg)
     log(f"{tag} path: streamed backward launches {n['backward']} (the "
         f"compile-time instance {n['backward_instance']}), forward "
-        f"{n['forward']}; fused {n['fused']}, general "
-        f"{n['general_backward']} / {n['general_forward']}, fused general "
-        f"{n['fused_general']}, plain calls {n['plain']}")
-    if (not only_launched(n, "backward", "forward")
-            or n["forward"] != n["backward"]):
+        f"{n['forward']} (the instance {n['forward_instance']}); run-time "
+        f"{n['backward_runtime']} / {n['forward_runtime']}; fused "
+        f"{n['fused']}, general {n['general_backward']} / "
+        f"{n['general_forward']}, fused general {n['fused_general']}, plain "
+        f"calls {n['plain']}")
+    if (not only_launched(n, "backward", "backward_instance", "forward",
+                          "forward_instance")
+            or not n["backward_instance"] == n["backward"] == n["forward"]
+            == n["forward_instance"]):
         raise RuntimeError(f"the {tag} path did not go through the streamed "
-                           "pair alone, with the run-time backward kernel")
+                           "pair alone, with both compile-time instances")
     return n
 
 
@@ -1778,7 +1847,7 @@ def phase_fleet_rnn(nempc, rk, rg, card, pair_ms):
         mpc, res, carry, RNN_WARM_STEPS, lambda: rk.BACKWARD_LAUNCHES,
         params)
     conv += warm_conv
-    n = only_runtime_pair(rk, rg, "GRU fleet")
+    n = only_instance_pair(rk, rg, "GRU fleet")
     if min(conv) < RNN_MIN_CONVERGED:
         raise RuntimeError(f"GRU fleet convergence {conv} (cold, warm...) "
                            f"below {RNN_MIN_CONVERGED}/{RNN_B}")
@@ -1804,7 +1873,7 @@ def phase_cartpole(nempc, rk, rg, card):
     t0 = time.perf_counter()
     traj, us, conv, lat = cartpole.swing_up(mpc, CP_STEPS, device="cuda")
     loop_s = time.perf_counter() - t0
-    n = only_runtime_pair(rk, rg, "cartpole")
+    loop_pairs = (rk.BACKWARD_LAUNCHES, rk.FORWARD_LAUNCHES)
     cos_final = float(np.cos(traj[-1, 2]))
     tip = float(np.abs(traj[:, 0] + cartpole.L * np.sin(traj[:, 2])).max())
     force = float(np.abs(us).max())
@@ -1831,6 +1900,7 @@ def phase_cartpole(nempc, rk, rg, card):
     x_end = torch.as_tensor(traj[-1], device="cuda")
     mpc.next(x_end)
     torch.cuda.synchronize()
+    traced0 = (rk.BACKWARD_LAUNCHES, rk.FORWARD_LAUNCHES)
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         res = mpc.next(x_end)
@@ -1839,10 +1909,25 @@ def phase_cartpole(nempc, rk, rg, card):
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    traced = (rk.BACKWARD_LAUNCHES - traced0[0],
+              rk.FORWARD_LAUNCHES - traced0[1])
+    # the path's own sweep kernels in that trace (the profiler keeps only
+    # some events: a median a launch, times the launches counted)
+    sweep_us = {}
+    for half, kname in (("backward", rk.backward_kernel(CP_NX, 1)),
+                        ("forward", rk.forward_kernel(CP_NX, 1))):
+        want = kname.replace(" ", "")
+        ts = [e.time_range.elapsed_us() for e in dev
+              if want in e.name.replace(" ", "")]
+        sweep_us[half] = statistics.median(ts) if ts else None
+        log(f"  traced re-plan, {half} instance {kname}: {len(ts)} of "
+            f"{traced[half == 'forward']} launches kept by the profiler, "
+            + (f"median {sweep_us[half]:.2f} us" if ts else "none kept"))
     log(f"[{card}] one more warm cartpole re-plan ({int(res.iterations)} "
         f"iterations, traced): {step_ms:.1f} ms, {len(dev)} device events, "
         f"{dev_ms:.1f} ms of device time -> device busy "
         f"{dev_ms / step_ms:.1%}")
+    ms0 = (rk.BACKWARD_LAUNCHES, rk.FORWARD_LAUNCHES)
 
     t0 = time.perf_counter()
     best, idx = mpc.next_multi_start(
@@ -1857,11 +1942,20 @@ def phase_cartpole(nempc, rk, rg, card):
         f"{int(best.iterations)}")
     if not bool(torch.isfinite(best.u).all()):
         raise RuntimeError("non-finite multi-start plan")
+    multi = (rk.BACKWARD_LAUNCHES - ms0[0], rk.FORWARD_LAUNCHES - ms0[1])
+    log(f"cartpole streamed launches (backward, forward): swing-up "
+        f"{loop_pairs} at B=1; the traced re-plan and its warm-up "
+        f"{(ms0[0] - loop_pairs[0], ms0[1] - loop_pairs[1])} at B=1; the "
+        f"multi-start {multi} at B={CP_STARTS}")
+    n = only_instance_pair(rk, rg, "cartpole (swing-up, the traced re-plan "
+                           "and the multi-start)")
     return n["backward"], n["forward"], {
         "loop_s": loop_s, "converged": f"{sum(conv)}/{len(conv)}",
         "cos_final": cos_final, "tip_max": tip,
         "traced_replan_ms": step_ms, "traced_device_ms": dev_ms,
         "traced_iterations": int(res.iterations),
+        "traced_sweep_us": sweep_us, "traced_launches": traced,
+        "loop_launches": loop_pairs, "multi_start_launches": multi,
         "p50_ms": float(np.median(warm) * 1e3),
         "min_ms": float(warm.min() * 1e3), "multi_start_s": ms_s,
         "multi_start_index": idx}
@@ -1903,16 +1997,7 @@ def phase_quadrotor_mlp(nempc, rk, rg, card):
         mpc, res, carry, QM_WARM_STEPS, lambda: rk.BACKWARD_LAUNCHES,
         params)
     conv += warm_conv
-    n = counters(rk, rg)
-    log(f"quadrotor MLP path: streamed backward launches {n['backward']} "
-        f"(the compile-time instance {n['backward_instance']}), forward "
-        f"{n['forward']}; plain calls {n['plain']}")
-    if (not only_launched(n, "backward", "backward_instance", "forward")
-            or n["forward"] != n["backward"]
-            or n["backward_instance"] != n["backward"]):
-        raise RuntimeError("the quadrotor MLP path did not go through the "
-                           "streamed pair alone, with the backward kernel's "
-                           "compile-time instance")
+    n = only_instance_pair(rk, rg, "quadrotor MLP")
     if min(conv) < QM_MIN_CONVERGED:
         raise RuntimeError(f"quadrotor MLP convergence {conv} (cold, "
                            f"warm...) below {QM_MIN_CONVERGED}/{QM_B}")
@@ -2155,12 +2240,11 @@ def main():
     # phases 3, 3b, 3c, 3d: kernels vs plain
     logs = {src: r.log for src, r in zip(sources, built)}
     fused = phase_kernels(rk, logs)
-    bwd, fwd, pair_ms = phase_streamed(rk)
+    bwd, fwd, pair_ms = phase_streamed(rk, logs[rk.STREAMED_SOURCE])
     gbwd, gfwd, gpair_ms = phase_general(rk, rg, logs[rk.GENERAL_SOURCE])
     gfused = phase_fused_general(rk, rg, logs[rk.GENERAL_FUSED_SOURCE])
-    # phase 3e: the run-time streamed pair at the new paths' stages
-
-    new_shapes = phase_streamed_new_shapes(rk)
+    # phase 3e: the streamed instances at the new paths' stages
+    new_shapes = phase_streamed_new_shapes(rk, logs[rk.STREAMED_SOURCE])
     rnn_bwd, rnn_fwd, rnn_pair_ms = new_shapes["fleet_rnn"]
     cp_bwd, cp_fwd, _ = new_shapes["cartpole"]
 

@@ -2,7 +2,8 @@
 // primitive in one small __device__ function: the 1-D bulk copy (the Tensor
 // Memory Accelerator's copy of a contiguous range) that completes on an
 // mbarrier, the mbarrier's init, arrival and wait, and the 4-, 8- and
-// 16-byte cp.async copies for ranges the bulk copy does not take; and the
+// 16-byte cp.async copies for ranges the bulk copy does not take, with the
+// wait on their groups; and the
 // clocks a kernel's phases are stamped with.  Keeping them here, and
 // nothing else, lets a host-side emulation of a kernel replace this header
 // with plain copies and host clocks.
@@ -79,6 +80,14 @@ __device__ __forceinline__ void copy8_async(float* dst, const float* src) {
 __device__ __forceinline__ void copy16_async(float* dst, const float* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
                :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+// Wait until at most N of the calling thread's committed cp.async groups
+// are still in flight.  N is an immediate of the instruction, so a ring's
+// depth, a template argument, sets it at any depth.
+template <int N>
+__device__ __forceinline__ void copy_wait_prior() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 __device__ __forceinline__ void copy4_wait_all() {

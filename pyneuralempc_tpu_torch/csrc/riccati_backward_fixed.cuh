@@ -12,9 +12,9 @@
 // with one right-hand side, and the same gains layout [K | k | Pbar | pbar |
 // Mxu]; E, F, h and dc are then not read).  It replaces
 // pyneuralempc_tpu/ops/pallas/riccati_kernel.py's streamed backward calls,
-// :468 (`_backward_kernel` :191-302) at (12, 4, 1, 0) and :991
-// (`_bwd_general_body` :610-787) at (12, 4, 2, 1), with the local-delta
-// Cholesky retry of `_chol_solve_retry` :158-188.
+// :468 (`_backward_kernel` :191-302) at (12, 4, 1, 0), (10, 1, 1, 0) and
+// (4, 1, 1, 0), and :991 (`_bwd_general_body` :610-787) at (12, 4, 2, 1),
+// with the local-delta Cholesky retry of `_chol_solve_retry` :158-188.
 //
 // What bounds it on an H100: bytes, ~183 us at (12, 4, 1, 0) and ~202 us at
 // (12, 4, 2, 1) for B=4096, H=50 (the sources' own notes count them).
@@ -50,14 +50,18 @@
 //    t-1's copies in flight during stage t measured slower on an H100
 //    (861.78 against 735.25 us at (12, 4, 2, 1) in one chip_smoke.py run):
 //    the 32 resident warps an SM already hide the loads' latency, and the
-//    in-flight form spilled 42 more bytes a thread.
+//    in-flight form spilled 42 more bytes a thread.  For cartpole's one
+//    warp alone on an SM, at (4, 1, 1, 0), it timed the same warm and won
+//    only with the L2 flushed, which that path's stage inputs, written
+//    just before the sweep, are not (PERF.md).
 // Shared memory a warp (FixedLayout::kFloats): at (12, 4, 2, 1) two
 // 564-float stage buffers (562 floats used) and 580 floats of scratch,
 // 6,832 bytes; at (12, 4, 1, 0) two 528-float stage buffers and 552 floats
-// of scratch, 6,432 bytes.  Either way 8 blocks of 4 warps (B=4096 in one
-// wave on 132 SMs) fit in 228 KB with the 64-register cap.  ptxas: 64
-// registers and 96 bytes of spill stores and loads a thread at (12, 4, 2,
-// 1), 92 at (12, 4, 1, 0).
+// of scratch, 6,432 bytes; 3,184 bytes at (10, 1, 1, 0) and 832 at
+// (4, 1, 1, 0).  Every way 8 blocks of 4 warps (B=4096 in one wave on 132
+// SMs) fit in 228 KB with the 64-register cap.  ptxas: 64 registers and 96
+// bytes of spill stores and loads a thread at (12, 4, 2, 1), 92 at
+// (12, 4, 1, 0) (chip_smoke.py prints every instance's report).
 
 #pragma once
 

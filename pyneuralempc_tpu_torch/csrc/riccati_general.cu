@@ -42,13 +42,15 @@
 // (12, 4, 2, 1) (riccati_general_backward_fixed, in
 // riccati_backward_fixed.cuh, which csrc/riccati_streamed.cu shares), which
 // runs a stage in 5 phases, and this run-time kernel at any other shape.
-// The forward entry likewise launches riccati_general_forward_fixed at
-// (12, 4, 2, 1).  The run-time forward kernel makes six dependent
-// device-memory round trips a stage (five warp-wide copies, then the
-// products), ~1.2 us each under load: it takes the time of its loads'
-// latency, not of their bytes.  Since only dx carries from stage to
-// stage, the instance requests each stage's inputs D stages ahead into a
-// ring of stage slots in shared memory (cp.async, 16 bytes wherever the
+// The forward entry likewise launches a compile-time instance of the
+// forward kernel at (12, 4, 2, 1) with a ring of 2 stage slots a warp
+// (riccati_general_forward_fixed, in riccati_forward_fixed.cuh, which
+// csrc/riccati_streamed.cu shares).  This run-time forward kernel makes
+// six dependent device-memory round trips a stage (five warp-wide copies,
+// then the products), ~1.2 us each under load: it takes the time of its
+// loads' latency, not of their bytes.  Since only dx carries from stage
+// to stage, the instance requests each stage's inputs D stages ahead into
+// a ring of stage slots in shared memory (cp.async, 16 bytes wherever the
 // addresses allow) and keeps dx in registers, exchanged by shuffles.
 //
 // Layouts (all float32, C-contiguous, batch first, per-rhs tensors
@@ -64,8 +66,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bulk_copy.cuh"
 #include "riccati_backward_fixed.cuh"
+#include "riccati_forward_fixed.cuh"
 
 namespace {
 
@@ -576,211 +578,6 @@ riccati_general_forward_kernel(
   }
 }
 
-// ---- the compile-time forward kernel: each warp's stage inputs streamed
-//      through a ring of stage slots, ahead of its dx chain ----
-
-// The forward instance's ring depth (FORWARD_RING in
-// ops/cuda/riccati_kernel.py).  Depths 2 and 3 timed the same within 1% on
-// the H100 (PERF.md); 2 takes the less shared memory.
-constexpr int kForwardRing = 2;
-
-// One stage slot of a warp's ring: A, B, c, Jx and the gains, each range
-// from a 16-byte boundary with room for its source's offset of 0-3 floats
-// within 16 bytes (a range sits at that offset in the slot too, so that
-// source and slot agree mod 16 and its interior goes in 16-byte copies).
-template <int NX, int NU, int R, int RE>
-struct ForwardLayout {
-  static constexpr int nA = NX * NX, nB = NX * NU, nc = R * NX;
-  static constexpr int nJ = RE * NX;
-  static constexpr int NG = NU * NX + R * NU + NX * NX + R * NX + NX * NU
-                            + RE * NX + R * RE;
-  static constexpr int oA = 0, oB = oA + up4(nA + 3), oc = oB + up4(nB + 3);
-  static constexpr int oJ = oc + up4(nc + 3);
-  static constexpr int og = oJ + (nJ > 0 ? up4(nJ + 3) : 0);
-  static constexpr int kSlot = og + up4(NG + 3);
-  // gains: [K (NU,NX) | k (R,NU) | Pbar (NX,NX) | pbar (R,NX) | Mxu (NX,NU)
-  //        | Knu (RE,NX) | knu (R,RE)]
-  static constexpr int gK = 0, gk = NU * NX, gPb = gk + R * NU;
-  static constexpr int gpb = gPb + NX * NX, gMxu = gpb + R * NX;
-  static constexpr int gKnu = gMxu + NX * NU, gknu = gKnu + RE * NX;
-  static_assert(R * NX <= 32 && NU + RE <= NX,
-                "one lane an entry of dx: R nx <= 32, nu + r <= nx");
-};
-
-// Floats of shared memory one warp of the forward instance uses:
-// kForwardRing stage slots.
-template <int NX, int NU, int R, int RE>
-__host__ __device__ constexpr int forward_ring_floats() {
-  return kForwardRing * ForwardLayout<NX, NU, R, RE>::kSlot;
-}
-
-// A float pointer's offset within its 16 bytes, in floats (0-3).
-__device__ __forceinline__ int phase16(const float* p) {
-  return static_cast<int>(reinterpret_cast<uintptr_t>(p) >> 2) & 3;
-}
-
-// n <= 3 floats whose first lies `phase` floats past a 16-byte boundary,
-// both at source and destination: 8-byte copies where both ends are
-// 8-byte aligned, 4-byte copies otherwise.  One lane.
-__device__ __forceinline__ void copy_short_async(float* dst, const float* src,
-                                                 int n, int phase) {
-  for (int e = 0; e < n;) {
-    if (((phase + e) & 1) == 0 && e + 2 <= n) {
-      copy8_async(dst + e, src + e);
-      e += 2;
-    } else {
-      copy4_async(dst + e, src + e);
-      e += 1;
-    }
-  }
-}
-
-// The N floats at src to dst16 + phase16(src) (dst16 16-byte aligned) by
-// the warp's lanes, at the widest width the addresses allow: 16-byte
-// copies from src's first 16-byte boundary, the head before it and the
-// tail after the last whole 16 bytes in 8- and 4-byte copies.  Not waited
-// on here.
-template <int N>
-__device__ __forceinline__ void ring_copy(float* dst16, const float* src,
-                                          int lane) {
-  if (N == 0) return;
-  const int m = phase16(src);
-  const int h = min((4 - m) & 3, N);     // floats before the boundary
-  const int n4 = (N - h) >> 2;
-  float* dst = dst16 + m;
-  for (int q = lane; q < n4; q += 32)
-    copy16_async(dst + h + 4 * q, src + h + 4 * q);
-  if (lane == 0) copy_short_async(dst, src, h, m);
-  if (lane == 1)
-    copy_short_async(dst + h + 4 * n4, src + h + 4 * n4, N - h - 4 * n4, 0);
-}
-
-// What riccati_general_forward_kernel computes, for one (NX, NU, R, RE)
-// fixed at compile time, the sums term for term in the same order.  One
-// warp a problem.  Only dx carries from stage to stage: A, B, c, Jx and
-// the gains never depend on it, so stage t + D's are requested as soon as
-// stage t's slot of the warp's D-slot ring is free (one cp.async group a
-// stage, waited on with D - 1 groups left in flight), and the warp waits
-// only for the slot it is about to use.  Lane ri*NX + i keeps dx[ri][i]
-// and the whole dx of its right-hand side (NX shuffles a stage); lanes
-// ri*NX + al (al < NU) compute du[ri][al] and lanes ri*NX + NU + q
-// dnu[ri][q], which the others take by shuffles.  A stage's dependent part
-// is du (NX FMAs), NU shuffles, dx' (A dx computed meanwhile, then NU
-// FMAs) and NX shuffles; dlam is off the chain.  The outputs leave from
-// the lanes that hold them, a stage's entries contiguous per problem.  At
-// most 64 registers a thread, so kMinBlocks blocks of kMaxWarps warps fit
-// an SM (17,152 B of shared memory a block at (12, 4, 2, 1)) and B = 4096
-// problems run in one wave on 132 SMs.
-template <int NX, int NU, int R, int RE>
-__global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks)
-riccati_general_forward_fixed(
-    const float* __restrict__ A, const float* __restrict__ Bm,
-    const float* __restrict__ c, const float* __restrict__ Jx,
-    const float* __restrict__ gains, float* __restrict__ dX,
-    float* __restrict__ dU, float* __restrict__ dLam,
-    float* __restrict__ dNu, int nbatch, int H) {
-  using L = ForwardLayout<NX, NU, R, RE>;
-  constexpr int D = kForwardRing;
-  extern __shared__ __align__(16) float smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kMaxWarps + warp;
-  if (b >= nbatch) return;   // the whole warp leaves; no block barrier used
-  float* ring = smem + warp * forward_ring_floats<NX, NU, R, RE>();
-  // lane -> (ri, i); the lanes past R*NX shadow lane (R-1)*NX and store
-  // nothing
-  const bool live = lane < R * NX;
-  const int ri = live ? lane / NX : R - 1;
-  const int i = live ? lane - ri * NX : 0;
-  const int base = ri * NX;                 // this rhs's first lane
-  const bool is_du = i < NU, is_dnu = !is_du && i < NU + RE;
-
-  // stage t's inputs into its slot; one group a stage, empty past H
-  auto request = [&](int t) {
-    if (t < H) {
-      float* slot = ring + (t % D) * L::kSlot;
-      const size_t st = static_cast<size_t>(b) * H + t;
-      ring_copy<L::nA>(slot + L::oA, A + st * L::nA, lane);
-      ring_copy<L::nB>(slot + L::oB, Bm + st * L::nB, lane);
-      ring_copy<L::nc>(slot + L::oc, c + st * L::nc, lane);
-      ring_copy<L::nJ>(slot + L::oJ, Jx + st * L::nJ, lane);
-      ring_copy<L::NG>(slot + L::og, gains + st * L::NG, lane);
-    }
-    __pipeline_commit();
-  };
-#pragma unroll
-  for (int t = 0; t < D; ++t) request(t);
-
-  float x[NX];           // dx[ri] of the previous stage, on every lane
-#pragma unroll
-  for (int j = 0; j < NX; ++j) x[j] = 0.0f;
-  for (int t = 0; t < H; ++t) {
-    __pipeline_wait_prior(D - 1);   // stage t's group has landed
-    __syncwarp();                   // and every lane's copies are seen
-    const size_t st = static_cast<size_t>(b) * H + t;
-    const float* slot = ring + (t % D) * L::kSlot;
-    const float* sA = slot + L::oA + phase16(A + st * L::nA);
-    const float* sB = slot + L::oB + phase16(Bm + st * L::nB);
-    const float* sc = slot + L::oc + phase16(c + st * L::nc);
-    const float* sJ = slot + L::oJ + phase16(Jx + st * L::nJ);
-    const float* sg = slot + L::og + phase16(gains + st * L::NG);
-
-    // du = K dx + k (lanes i < NU), dnu = Knu dx + knu (the next RE)
-    const float* krow = sg + L::gK + min(i, NU - 1) * NX;
-    float bias = sg[L::gk + ri * NU + min(i, NU - 1)];
-    if constexpr (RE > 0) {
-      if (!is_du) {
-        const int q = min(i - NU, RE - 1);
-        krow = sg + L::gKnu + q * NX;
-        bias = sg[L::gknu + ri * RE + q];
-      }
-    }
-    float v = 0.0f;
-#pragma unroll
-    for (int j = 0; j < NX; ++j) v += krow[j] * x[j];
-    const float own = v + bias;
-    // A dx meanwhile
-    float va = 0.0f;
-#pragma unroll
-    for (int j = 0; j < NX; ++j) va += sA[i * NX + j] * x[j];
-    float du[NU];
-#pragma unroll
-    for (int al = 0; al < NU; ++al)
-      du[al] = __shfl_sync(0xffffffffu, own, base + al);
-    float dnu[RE > 0 ? RE : 1];
-#pragma unroll
-    for (int q = 0; q < RE; ++q)
-      dnu[q] = __shfl_sync(0xffffffffu, own, base + NU + q);
-
-    // dx' = A dx + B du + c
-    float wa = 0.0f;
-#pragma unroll
-    for (int al = 0; al < NU; ++al) wa += sB[i * NU + al] * du[al];
-    const float dxn = va + wa + sc[ri * NX + i];
-#pragma unroll
-    for (int j = 0; j < NX; ++j)
-      x[j] = __shfl_sync(0xffffffffu, dxn, base + j);
-
-    // dlam = Pbar dx' + Mxu du + pbar + Jx^T dnu
-    float vl = 0.0f, wl = 0.0f, zl = 0.0f;
-#pragma unroll
-    for (int j = 0; j < NX; ++j) vl += sg[L::gPb + i * NX + j] * x[j];
-#pragma unroll
-    for (int al = 0; al < NU; ++al) wl += sg[L::gMxu + i * NU + al] * du[al];
-#pragma unroll
-    for (int q = 0; q < RE; ++q) zl += dnu[q] * sJ[q * NX + i];
-    const float dlam = vl + wl + sg[L::gpb + ri * NX + i] + zl;
-
-    if (live) {
-      dX[st * (R * NX) + lane] = dxn;
-      dLam[st * (R * NX) + lane] = dlam;
-      if (is_du) dU[st * (R * NU) + ri * NU + i] = own;
-      if (is_dnu) dNu[st * (R * RE) + ri * RE + (i - NU)] = own;
-    }
-    __syncwarp();                   // every lane is done with the slot
-    request(t + D);
-  }
-}
-
 // Checks the dims and picks the warps a block: as many as fit the device's
 // opt-in shared memory a block, at most kMaxWarps.
 cudaError_t plan_launch(int nbatch, int H, int nx, int nu, int R, int r,
@@ -851,36 +648,6 @@ cudaError_t forward_runtime(const void* A, const void* Bm, const void* c,
   return cudaGetLastError();
 }
 
-// The forward instance <NX, NU, R, RE>: kMaxWarps warps a block, the
-// shared memory carveout at its largest so that kMinBlocks blocks fit an
-// SM.
-template <int NX, int NU, int R, int RE>
-cudaError_t forward_fixed(const void* A, const void* Bm, const void* c,
-                          const void* Jx, const void* gains, void* dX,
-                          void* dU, void* dLam, void* dNu, int nbatch, int H,
-                          int device, cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (nbatch <= 0 || H <= 0) return cudaErrorInvalidValue;
-  auto kernel = riccati_general_forward_fixed<NX, NU, R, RE>;
-  const size_t smem =
-      sizeof(float) * kMaxWarps * forward_ring_floats<NX, NU, R, RE>();
-  err = reserve_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((nbatch + kMaxWarps - 1) / kMaxWarps);
-  kernel<<<grid, kMaxWarps * 32, smem, stream>>>(
-      static_cast<const float*>(A), static_cast<const float*>(Bm),
-      static_cast<const float*>(c), static_cast<const float*>(Jx),
-      static_cast<const float*>(gains), static_cast<float*>(dX),
-      static_cast<float*>(dU), static_cast<float*>(dLam),
-      static_cast<float*>(dNu), nbatch, H);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // Plain C entry points (bound with ctypes).  Each launches on `stream` of
@@ -925,20 +692,24 @@ extern "C" int riccati_general_backward_runtime_f32(
 }
 
 // riccati_general_forward_f32 likewise launches the forward instance for
-// the (nx, nu, R, r) below and the run-time kernel for any other; this list and `_GENERAL_FORWARD_INSTANCES` in
-// ops/cuda/riccati_kernel.py must agree.  The instance takes inputs at any
-// 4-byte alignment.  riccati_general_forward_runtime_f32 launches the
-// run-time kernel at any shape.
+// the (nx, nu, R, r) below, with the ring depth D named beside it, and the
+// run-time kernel for any other; this list and
+// `_GENERAL_FORWARD_INSTANCES` in ops/cuda/riccati_kernel.py (shape ->
+// depth) must agree.  Depths 2 and 3 timed the same within 1% at
+// (12, 4, 2, 1) on an H100 (PERF.md); 2 takes the less shared memory.  The
+// instance takes inputs at any 4-byte alignment.
+// riccati_general_forward_runtime_f32 launches the run-time kernel at any
+// shape.
 extern "C" int riccati_general_forward_f32(
     const void* A, const void* Bm, const void* c, const void* Jx,
     const void* gains, void* dX, void* dU, void* dLam, void* dNu, int nbatch,
     int H, int nx, int nu, int R, int r, int device, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RICCATI_GENERAL_FORWARD_CASE(NX_, NU_, R_, RE_)                     \
+#define RICCATI_GENERAL_FORWARD_CASE(NX_, NU_, R_, RE_, D_)                 \
   if (nx == NX_ && nu == NU_ && R == R_ && r == RE_)                        \
-    return static_cast<int>(forward_fixed<NX_, NU_, R_, RE_>(               \
+    return static_cast<int>(forward_fixed<NX_, NU_, R_, RE_, D_>(           \
         A, Bm, c, Jx, gains, dX, dU, dLam, dNu, nbatch, H, device, s));
-  RICCATI_GENERAL_FORWARD_CASE(12, 4, 2, 1)
+  RICCATI_GENERAL_FORWARD_CASE(12, 4, 2, 1, 2)
 #undef RICCATI_GENERAL_FORWARD_CASE
   return static_cast<int>(forward_runtime(A, Bm, c, Jx, gains, dX, dU, dLam,
                                           dNu, nbatch, H, nx, nu, R, r,

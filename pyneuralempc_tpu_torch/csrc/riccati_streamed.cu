@@ -38,13 +38,17 @@
 // warps an SM).
 //
 // The backward entry launches a compile-time instance of the backward
-// kernel at the quadrotor's (12, 4): riccati_general_backward_fixed<12, 4,
-// 1, 0>, the general sweep's template (riccati_backward_fixed.cuh, shared
-// with csrc/riccati_general.cu) at one right-hand side and no equality
-// rows, which computes this backward kernel's function with the stage's
-// widths fixed, operands reused from registers, G and M read as packed
-// triangles and four __syncwarp() phases a stage instead of ~20.  The
-// run-time kernel below takes every other (nx, nu).
+// kernel at the quadrotor's (12, 4), the GRU fleet's lifted (10, 1) and
+// cartpole's (4, 1): riccati_general_backward_fixed<NX, NU, 1, 0>,
+// the general sweep's template (riccati_backward_fixed.cuh, shared with
+// csrc/riccati_general.cu) at one right-hand side and no equality rows,
+// which computes this backward kernel's function with the stage's widths
+// fixed, operands reused from registers, G and M read as packed triangles
+// and four __syncwarp() phases a stage instead of ~20.  The forward entry
+// likewise launches riccati_general_forward_fixed<NX, NU, 1, 0, D>
+// (riccati_forward_fixed.cuh, shared too) at the same shapes: each warp's
+// stage inputs requested D stages ahead into a ring of stage slots, dx in
+// registers.  The run-time kernels below take every other (nx, nu).
 //
 // Layouts (all float32, C-contiguous, batch first):
 //   A (B,H,NX,NX)  Bm (B,H,NX,NU)  G, M (B,H,NS,NS) symmetric, of which only
@@ -58,6 +62,7 @@
 #include <stdint.h>
 
 #include "riccati_backward_fixed.cuh"
+#include "riccati_forward_fixed.cuh"
 
 namespace {
 
@@ -466,6 +471,25 @@ cudaError_t backward_runtime(const void* A, const void* Bm, const void* G,
   return cudaGetLastError();
 }
 
+// The run-time forward kernel at any (nx, nu) in range.
+cudaError_t forward_runtime(const void* A, const void* Bm, const void* c,
+                            const void* gains, void* dX, void* dU,
+                            void* dLam, int nbatch, int H, int nx, int nu,
+                            int device, cudaStream_t stream) {
+  cudaError_t err = check_args(nbatch, H, nx, nu, device);
+  if (err != cudaSuccess) return err;
+  const size_t smem = sizeof(float) * kMaxWarps * forward_floats(nx, nu);
+  err = reserve_smem(riccati_forward_kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((nbatch + kMaxWarps - 1) / kMaxWarps);
+  riccati_forward_kernel<<<grid, kMaxWarps * 32, smem, stream>>>(
+      static_cast<const float*>(A), static_cast<const float*>(Bm),
+      static_cast<const float*>(c), static_cast<const float*>(gains),
+      static_cast<float*>(dX), static_cast<float*>(dU),
+      static_cast<float*>(dLam), nbatch, H, nx, nu);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes).  Each launches on `stream` of
@@ -494,6 +518,8 @@ extern "C" int riccati_backward_f32(const void* A, const void* Bm,
         A, Bm, G, M, mx, mu, c, delta, delta, nullptr, nullptr, nullptr,    \
         gains, ok, nbatch, H, device, s));
   RICCATI_BACKWARD_CASE(12, 4)
+  RICCATI_BACKWARD_CASE(10, 1)
+  RICCATI_BACKWARD_CASE(4, 1)
 #undef RICCATI_BACKWARD_CASE
   return static_cast<int>(backward_runtime(A, Bm, G, M, mx, mu, c, delta,
                                            gains, ok, nbatch, H, nx, nu,
@@ -510,22 +536,41 @@ extern "C" int riccati_backward_runtime_f32(
       static_cast<cudaStream_t>(stream)));
 }
 
+// riccati_forward_f32 launches the compile-time instance
+// riccati_general_forward_fixed<NX, NU, 1, 0, D> for the (nx, nu) below,
+// with the ring depth D named beside each, and the run-time kernel for any
+// other; this list and `_FORWARD_INSTANCES` (shape -> depth) in
+// ops/cuda/riccati_kernel.py must agree.  Each depth was chosen by turns
+// on an H100 (PERF.md).  At one right-hand side c and the gains
+// are laid out as the general sweep's; with no equality rows the instance
+// reads no Jx and writes no dNu.  It takes inputs at any 4-byte
+// alignment.  riccati_forward_runtime_f32 launches the run-time kernel at
+// any shape, so that the two designs can be held against each other.
 extern "C" int riccati_forward_f32(const void* A, const void* Bm,
                                    const void* c, const void* gains,
                                    void* dX, void* dU, void* dLam, int nbatch,
                                    int H, int nx, int nu, int device,
                                    void* stream) {
-  cudaError_t err = check_args(nbatch, H, nx, nu, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = sizeof(float) * kMaxWarps * forward_floats(nx, nu);
-  err = reserve_smem(riccati_forward_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((nbatch + kMaxWarps - 1) / kMaxWarps);
-  riccati_forward_kernel<<<grid, kMaxWarps * 32, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(A), static_cast<const float*>(Bm),
-      static_cast<const float*>(c), static_cast<const float*>(gains),
-      static_cast<float*>(dX), static_cast<float*>(dU),
-      static_cast<float*>(dLam), nbatch, H, nx, nu);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RICCATI_FORWARD_CASE(NX_, NU_, D_)                                  \
+  if (nx == NX_ && nu == NU_)                                               \
+    return static_cast<int>(forward_fixed<NX_, NU_, 1, 0, D_>(              \
+        A, Bm, c, nullptr, gains, dX, dU, dLam, nullptr, nbatch, H, device, \
+        s));
+  RICCATI_FORWARD_CASE(12, 4, 2)
+  RICCATI_FORWARD_CASE(10, 1, 4)
+  RICCATI_FORWARD_CASE(4, 1, 8)
+#undef RICCATI_FORWARD_CASE
+  return static_cast<int>(forward_runtime(A, Bm, c, gains, dX, dU, dLam,
+                                          nbatch, H, nx, nu, device, s));
+}
+
+extern "C" int riccati_forward_runtime_f32(const void* A, const void* Bm,
+                                           const void* c, const void* gains,
+                                           void* dX, void* dU, void* dLam,
+                                           int nbatch, int H, int nx, int nu,
+                                           int device, void* stream) {
+  return static_cast<int>(forward_runtime(
+      A, Bm, c, gains, dX, dU, dLam, nbatch, H, nx, nu, device,
+      static_cast<cudaStream_t>(stream)));
 }

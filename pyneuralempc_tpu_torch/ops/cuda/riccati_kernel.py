@@ -22,7 +22,12 @@ the backward kernel (:468) and the forward kernel (:488).
   backward entry launches a compile-time instance of the general sweep's
   backward template (``csrc/riccati_backward_fixed.cuh``) at one right-hand
   side and no equality rows for the (nx, nu) in ``_BACKWARD_INSTANCES``
-  (the quadrotor's (12, 4)), and the run-time kernel for every other.
+  (the quadrotor's (12, 4), the GRU fleet's lifted (10, 1) and cartpole's
+  (4, 1)), and the run-time kernel for every other; the forward entry
+  likewise a compile-time instance of the general sweep's forward template
+  (``csrc/riccati_forward_fixed.cuh``, a ring of stage slots a warp) for
+  the (nx, nu) in ``_FORWARD_INSTANCES`` (the same three), and the
+  run-time kernel for every other.
 
 Beside them:
 
@@ -35,22 +40,24 @@ Beside them:
   :func:`riccati_forward_cuda`, :func:`riccati_sweep_streamed_cuda` — check
   their inputs, allocate outputs and scratch, launch on PyTorch's current
   stream.
-* :func:`riccati_backward_runtime_cuda` — the run-time backward kernel at
-  any shape, the instance's too, and :func:`riccati_sweep_direct_cuda` —
-  ``csrc/riccati_sweep.cu`` at any horizon, so that ``chip_smoke.py`` and
-  the card tests can hold the two designs of each against each other.
-  The solver never calls them.
+* :func:`riccati_backward_runtime_cuda`, :func:`riccati_forward_runtime_cuda`
+  — the run-time streamed kernels at any shape, the instances' too, and
+  :func:`riccati_sweep_direct_cuda` — ``csrc/riccati_sweep.cu`` at any
+  horizon, so that ``chip_smoke.py`` and the card tests can hold the two
+  designs of each against each other.  The solver never calls them.
 * :func:`riccati_sweep` — the dispatch the solver calls, on
   :func:`kernel_plan`.  It never drops a CUDA tensor to a plain version.
 
 ``LAUNCHES`` counts fused launches (``STAGED_LAUNCHES`` those of the
 staged kernel, ``DIRECT_LAUNCHES`` those of ``csrc/riccati_sweep.cu``),
 ``BACKWARD_LAUNCHES`` and ``FORWARD_LAUNCHES`` the streamed pair's
-(``BACKWARD_INSTANCE_LAUNCHES`` the backward launches that took the
-compile-time instance, ``BACKWARD_RUNTIME_LAUNCHES`` those of
-:func:`riccati_backward_runtime_cuda`),
-and ``PLAIN_CALLS`` calls of a plain version (a whole plain sweep counts
-once), so a run can show which path it took.
+(``BACKWARD_INSTANCE_LAUNCHES`` and ``FORWARD_INSTANCE_LAUNCHES`` the
+launches of each that took the compile-time instance;
+``BACKWARD_RUNTIME_LAUNCHES`` and ``FORWARD_RUNTIME_LAUNCHES`` those of
+:func:`riccati_backward_runtime_cuda` and
+:func:`riccati_forward_runtime_cuda`), and ``PLAIN_CALLS`` calls of a
+plain version (a whole plain sweep counts once), so a run can show which
+path it took.
 
 All functions take batch-first tensors: A (B,H,nx,nx), B (B,H,nx,nu),
 G and M (B,H,ns,ns) symmetric, mx (B,H,nx), mu (B,H,nu), c (B,H,nx),
@@ -77,9 +84,17 @@ _LOCAL_DELTAS = (0.0, 1e-6, 1e-4)
 _INSTANCES = frozenset({(2, 1)})
 # (nx, nu) pairs for which csrc/riccati_streamed.cu's backward entry launches
 # the compile-time instance riccati_general_backward_fixed<nx, nu, 1, 0>
-# (its C entry point's list): the quadrotor fleet's stage.  Every other
-# shape takes the run-time backward kernel.
-_BACKWARD_INSTANCES = frozenset({(12, 4)})
+# (its C entry point's list): the quadrotor fleets' stage, the GRU fleet's
+# lifted stage and cartpole's.  Every other shape takes the run-time
+# backward kernel.
+_BACKWARD_INSTANCES = frozenset({(12, 4), (10, 1), (4, 1)})
+# (nx, nu) -> ring depth D for which csrc/riccati_streamed.cu's forward
+# entry launches the compile-time instance riccati_general_forward_fixed<nx,
+# nu, 1, 0, D> (its C entry point's list); every other shape takes the
+# run-time forward kernel.  Each depth was chosen by turns on an H100
+# (PERF.md; eight blocks of four warps an SM cap the depth at 3 at
+# (12, 4)).
+_FORWARD_INSTANCES = {(12, 4): 2, (10, 1): 4, (4, 1): 8}
 # Stage widths csrc/riccati_streamed.cu takes: one lane per state row in
 # the forward kernel; nu <= 16 is the reference kernel's own cap.
 STREAMED_MAX_NX = 32
@@ -104,13 +119,13 @@ _STAGED_INSTANCES = _GENERAL_INSTANCES | {(nx, nu, 1, 0)
 # EQ/border quadrotor fleet's stage.  Every other shape takes the run-time
 # backward kernel.
 _GENERAL_BACKWARD_INSTANCES = frozenset({(12, 4, 2, 1)})
-# (nx, nu, R, r) tuples for which csrc/riccati_general.cu's forward entry
-# launches its compile-time instance riccati_general_forward_fixed (its C
-# entry point's list): the EQ/border quadrotor fleet's stage.  The
-# instance streams each warp's stage inputs through a ring of FORWARD_RING
-# stage slots in shared memory (kForwardRing in the source).
-_GENERAL_FORWARD_INSTANCES = frozenset({(12, 4, 2, 1)})
-FORWARD_RING = 2
+# (nx, nu, R, r) -> ring depth D for which csrc/riccati_general.cu's
+# forward entry launches its compile-time instance
+# riccati_general_forward_fixed<nx, nu, R, r, D> (its C entry point's
+# list): the EQ/border quadrotor fleet's stage.  The instance streams each
+# warp's stage inputs through a ring of D stage slots in shared memory
+# (depths 2 and 3 timed the same there; 2 takes the less memory).
+_GENERAL_FORWARD_INSTANCES = {(12, 4, 2, 1): 2}
 # Problems (warps) a block of the streamed kernels (kMaxWarps).
 STREAMED_WARPS = 4
 # csrc/riccati_general_fused.cu's two kernels.  The staged kernel's block
@@ -131,6 +146,8 @@ BACKWARD_LAUNCHES = 0   # streamed backward launches by riccati_backward_cuda
 BACKWARD_INSTANCE_LAUNCHES = 0   # of them, the compile-time instance's
 BACKWARD_RUNTIME_LAUNCHES = 0    # riccati_backward_runtime_cuda's
 FORWARD_LAUNCHES = 0    # streamed forward launches by riccati_forward_cuda
+FORWARD_INSTANCE_LAUNCHES = 0    # of them, the compile-time instance's
+FORWARD_RUNTIME_LAUNCHES = 0     # riccati_forward_runtime_cuda's
 PLAIN_CALLS = 0         # calls of a plain version
 
 SOURCE = "riccati_sweep.cu"
@@ -200,6 +217,16 @@ def backward_kernel(nx: int, nu: int) -> str:
     return "riccati_backward_kernel"
 
 
+def forward_kernel(nx: int, nu: int) -> str:
+    """The kernel that csrc/riccati_streamed.cu's forward entry launches at
+    this shape, as a profiler names it: the compile-time instance, with its
+    template arguments (its ring depth last), or the run-time kernel."""
+    D = _FORWARD_INSTANCES.get((nx, nu))
+    if D is not None:
+        return f"riccati_general_forward_fixed<{nx}, {nu}, 1, 0, {D}>"
+    return "riccati_forward_kernel"
+
+
 def general_backward_kernel(nx: int, nu: int, R: int, r: int) -> str:
     """The kernel that csrc/riccati_general.cu's backward entry launches at
     this shape: the compile-time instance or the run-time kernel."""
@@ -212,25 +239,25 @@ def general_forward_kernel(nx: int, nu: int, R: int, r: int) -> str:
     """The kernel that csrc/riccati_general.cu's forward entry launches at
     this shape, as a profiler names it: the compile-time instance, with its
     template arguments, or the run-time kernel."""
-    if (nx, nu, R, r) in _GENERAL_FORWARD_INSTANCES:
-        return f"riccati_general_forward_fixed<{nx}, {nu}, {R}, {r}>"
+    D = _GENERAL_FORWARD_INSTANCES.get((nx, nu, R, r))
+    if D is not None:
+        return f"riccati_general_forward_fixed<{nx}, {nu}, {R}, {r}, {D}>"
     return "riccati_general_forward_kernel"
 
 
 def forward_slot_floats(nx: int, nu: int, R: int, r: int) -> int:
     """Floats of one stage slot of the forward instance's ring
-    (``ForwardLayout::kSlot`` in csrc/riccati_general.cu): A, B, c, Jx and
-    the gains, each from a 16-byte boundary of the slot with room for its
-    source's offset of 0-3 floats within 16 bytes."""
+    (``ForwardLayout::kSlot`` in csrc/riccati_forward_fixed.cuh): A, B, c,
+    Jx and the gains, each from a 16-byte boundary of the slot with room
+    for its source's offset of 0-3 floats within 16 bytes."""
     return sum(_round4(n + 3) for n in (
         nx * nx, nx * nu, R * nx, r * nx, gain_width(nx, nu, R, r)) if n)
 
 
-def forward_ring_bytes(nx: int, nu: int, R: int, r: int) -> int:
+def forward_ring_bytes(nx: int, nu: int, R: int, r: int, depth: int) -> int:
     """Dynamic shared memory of a block of the forward instance: its
-    STREAMED_WARPS warps' rings of FORWARD_RING stage slots each."""
-    return 4 * STREAMED_WARPS * FORWARD_RING * forward_slot_floats(
-        nx, nu, R, r)
+    STREAMED_WARPS warps' rings of ``depth`` stage slots each."""
+    return 4 * STREAMED_WARPS * depth * forward_slot_floats(nx, nu, R, r)
 
 
 def kernel_plan(H: int, nx: int, nu: int, device, R: int = 1,
@@ -701,11 +728,7 @@ def riccati_backward_runtime_cuda(A, B, G, M, mx, mu, c, delta):
     return gains, ok
 
 
-def riccati_forward_cuda(A, B, c, gains):
-    """Launch the streamed forward kernel of ``csrc/riccati_streamed.cu``
-    on CUDA tensors (no fallback).  Returns ``(dX, dU, dLam)`` as
-    :func:`riccati_forward_plain` does."""
-    global FORWARD_LAUNCHES
+def _forward_launch(entry, A, B, c, gains):
     if c.dim() != 3:
         raise ValueError(f"c must be (B, H, nx), got {tuple(c.shape)}")
     Bn, H, nx = c.shape
@@ -716,7 +739,7 @@ def riccati_forward_cuda(A, B, c, gains):
     if Bn == 0 or H == 0:
         raise ValueError("the CUDA sweeps need B >= 1 and H >= 1")
     _require_streamed(nx, nu)
-    fn = _entry(STREAMED_SOURCE, "riccati_forward_f32", 7)
+    fn = _entry(STREAMED_SOURCE, entry, 7)
     dev = c.device
     dX = torch.empty((Bn, H, nx), dtype=torch.float32, device=dev)
     dU = torch.empty((Bn, H, nu), dtype=torch.float32, device=dev)
@@ -724,9 +747,33 @@ def riccati_forward_cuda(A, B, c, gains):
     err = fn(A.data_ptr(), B.data_ptr(), c.data_ptr(), gains.data_ptr(),
              dX.data_ptr(), dU.data_ptr(), dLam.data_ptr(), Bn, H, nx, nu,
              dev.index or 0, _stream(dev))
-    _raise_on(err, "riccati_forward", Bn, H, nx, nu)
+    _raise_on(err, entry, Bn, H, nx, nu)
+    return (dX, dU, dLam), (nx, nu)
+
+
+def riccati_forward_cuda(A, B, c, gains):
+    """Launch the streamed forward kernel of ``csrc/riccati_streamed.cu``
+    on CUDA tensors (no fallback): the compile-time instance at the shapes
+    of ``_FORWARD_INSTANCES``, the run-time kernel at any other.  Returns
+    ``(dX, dU, dLam)`` as :func:`riccati_forward_plain` does.  Inputs that
+    do not start on a 16-byte boundary are copied in narrower pieces, never
+    refused."""
+    global FORWARD_LAUNCHES, FORWARD_INSTANCE_LAUNCHES
+    out, shape = _forward_launch("riccati_forward_f32", A, B, c, gains)
     FORWARD_LAUNCHES += 1
-    return dX, dU, dLam
+    if shape in _FORWARD_INSTANCES:
+        FORWARD_INSTANCE_LAUNCHES += 1
+    return out
+
+
+def riccati_forward_runtime_cuda(A, B, c, gains):
+    """:func:`riccati_forward_cuda` with the run-time forward kernel at
+    every shape.  Not on the solver's path: it lets one run hold the
+    instance against the run-time kernel and time both."""
+    global FORWARD_RUNTIME_LAUNCHES
+    out, _ = _forward_launch("riccati_forward_runtime_f32", A, B, c, gains)
+    FORWARD_RUNTIME_LAUNCHES += 1
+    return out
 
 
 def riccati_sweep_streamed_cuda(A, B, G, M, mx, mu, c, delta):

@@ -4,10 +4,9 @@ pair and the general pair, each with its backward kernel's compile-time
 instance, the general pair's forward instance too, and the fused general
 kernels, staged and direct) against their plain versions and each other,
 the wrappers' checks and dispatch, the LV, quadrotor, EQ/border
-quadrotor and budgeted LV paths on the card against the CPU, the run-time
-streamed pair at the GRU fleet's and cartpole's stages, per-member params
-and the multi-start's draws.  They skip
-without a CUDA device.  This file imports no JAX, so on the card it runs
+quadrotor and budgeted LV paths on the card against the CPU, the streamed
+instances at the GRU fleet's and cartpole's stages, per-member params and
+the multi-start's draws.  They skip without a CUDA device.  This file imports no JAX, so on the card it runs
 without the JAX package's test configuration:
 
     python -m pytest --noconftest -o addopts="" tests/test_torch_cuda.py -q
@@ -752,7 +751,7 @@ def test_general_forward_instance_matches_plain_and_runtime(kind, H):
     forward kernel fed the same gains, and the launch counters."""
     _card()
     assert rk.general_forward_kernel(12, 4, 2, 1) == \
-        "riccati_general_forward_fixed<12, 4, 2, 1>"
+        "riccati_general_forward_fixed<12, 4, 2, 1, 2>"
     ins, ok = _forward_inputs(kind, 257, H, seed=H)
     n0 = (rg.FORWARD_LAUNCHES, rg.FORWARD_INSTANCE_LAUNCHES,
           rg.FORWARD_RUNTIME_LAUNCHES)
@@ -797,33 +796,96 @@ KINDS4 = ["delta0", "delta_per_problem", "negative_curvature", "local_bump"]
 @pytest.mark.parametrize("B,H,nx", [(1024, 100, 10), (1, 50, 4),
                                     (257, 50, 4)])
 def test_runtime_pair_at_new_stages(kind, B, H, nx):
-    """The run-time streamed pair at the GRU fleet's lifted stage (10, 1),
-    H=100, and at cartpole's (4, 1), H=50 (one problem, as the swing-up
-    solves, and a batch): gains and ok flags against the plain backward,
-    the forward kernel on the same gains, the pair end to end."""
+    """The streamed pair at the GRU fleet's lifted stage (10, 1), H=100, and
+    at cartpole's (4, 1), H=50 (one problem, as the swing-up solves, and a
+    batch), where both entries launch their compile-time instances: gains
+    and ok flags against the plain backward and the run-time backward
+    kernel, the forward instance against the plain forward and the run-time
+    forward kernel on the same gains, the pair end to end; the counters."""
     _card()
-    assert rk.backward_kernel(nx, 1) == "riccati_backward_kernel"
+    assert (nx, 1) in rk._BACKWARD_INSTANCES
+    assert rk.backward_kernel(nx, 1).startswith(
+        "riccati_general_backward_fixed<")
+    assert rk.forward_kernel(nx, 1).startswith(
+        "riccati_general_forward_fixed<")
     assert rk.kernel_plan(H, nx, 1, "cuda")["path"] == "cuda_streamed"
     args = [torch.as_tensor(a, device="cuda")
             for a in sweep_case(kind, B=B, H=H, nx=nx, nu=1, seed=nx)]
-    counts = (rk.BACKWARD_INSTANCE_LAUNCHES, rk.BACKWARD_LAUNCHES)
+
+    def counts():
+        return (rk.BACKWARD_LAUNCHES, rk.BACKWARD_INSTANCE_LAUNCHES,
+                rk.BACKWARD_RUNTIME_LAUNCHES, rk.FORWARD_LAUNCHES,
+                rk.FORWARD_INSTANCE_LAUNCHES, rk.FORWARD_RUNTIME_LAUNCHES)
+
+    n0 = counts()
     gains, ok = rk.riccati_backward_cuda(*args)
-    torch.cuda.synchronize()
-    assert rk.BACKWARD_INSTANCE_LAUNCHES == counts[0]
-    assert rk.BACKWARD_LAUNCHES == counts[1] + 1
-    g_ref, ok_ref = rk.riccati_backward_plain(*args)
-    assert torch.equal(ok, ok_ref)
-    assert _scaled_err(gains, g_ref, ok_ref) <= STREAMED_ATOL
+    g_rt, ok_rt = rk.riccati_backward_runtime_cuda(*args)
     out = rk.riccati_forward_cuda(args[0], args[1], args[6], gains)
+    rt = rk.riccati_forward_runtime_cuda(args[0], args[1], args[6], gains)
+    torch.cuda.synchronize()
+    assert counts() == tuple(a + 1 for a in n0)
+    g_ref, ok_ref = rk.riccati_backward_plain(*args)
+    assert torch.equal(ok, ok_ref) and torch.equal(ok_rt, ok_ref)
+    assert _scaled_err(gains, g_ref, ok_ref) <= STREAMED_ATOL
+    assert _scaled_err(gains, g_rt, ok_ref) <= STREAMED_ATOL
     same = rk.riccati_forward_plain(args[0], args[1], args[6], gains)
-    for o, r in zip(out, same):
+    for o, r, q in zip(out, same, rt):
         assert _scaled_err(o, r, ok_ref) <= STREAMED_ATOL
+        assert _scaled_err(o, q, ok_ref) <= STREAMED_ATOL
     pair = rk.riccati_sweep_streamed_cuda(*args)
     ref = rk.riccati_sweep_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(pair[3], ref[3])
     for o, r in zip(pair[:3], ref[:3]):
         assert _scaled_err(o, r, ref[3]) <= STREAMED_ATOL
+
+
+@pytest.mark.parametrize("kind", KINDS4)
+@pytest.mark.parametrize("H", [50, 7])
+def test_streamed_forward_instance_at_the_quadrotor_stage(kind, H):
+    """At (12, 4) the streamed forward entry launches its compile-time
+    instance: against the plain forward and the run-time forward kernel fed
+    the same gains, launch to launch bit for bit, and the counters."""
+    _card()
+    args = [torch.as_tensor(a, device="cuda")
+            for a in sweep_case(kind, B=257, H=H, nx=12, nu=4, seed=H)]
+    gains, ok = rk.riccati_backward_plain(*args)
+    ins = (args[0], args[1], args[6], gains)
+    n0 = (rk.FORWARD_LAUNCHES, rk.FORWARD_INSTANCE_LAUNCHES,
+          rk.FORWARD_RUNTIME_LAUNCHES)
+    outs = [rk.riccati_forward_cuda(*ins) for _ in range(2)]
+    rt = rk.riccati_forward_runtime_cuda(*ins)
+    torch.cuda.synchronize()
+    assert (rk.FORWARD_LAUNCHES, rk.FORWARD_INSTANCE_LAUNCHES,
+            rk.FORWARD_RUNTIME_LAUNCHES) == (n0[0] + 2, n0[1] + 2, n0[2] + 1)
+    ref = rk.riccati_forward_plain(*ins)
+    for out in outs:
+        for o, r, q in zip(out, rt, ref):
+            assert _scaled_err(o, q, ok) <= STREAMED_ATOL
+            assert _scaled_err(o, r, ok) <= STREAMED_ATOL
+        for o, first in zip(out, outs[0]):
+            _same_bits(o, first)
+
+
+@pytest.mark.parametrize("nx,nu", sorted(rk._FORWARD_INSTANCES))
+def test_streamed_instances_repeat_at_any_alignment(nx, nu):
+    """At each instance's shape the backward instance gives its gains and ok
+    flags launch to launch bit for bit, and the forward instance fed inputs
+    4 bytes off a 16-byte boundary gives the aligned inputs' outputs."""
+    _card()
+    H = 100 if nx == 10 else 50
+    args = [torch.as_tensor(a, device="cuda") for a in sweep_case(
+        "delta_per_problem", B=129, H=H, nx=nx, nu=nu, seed=3)]
+    gains, ok = rk.riccati_backward_cuda(*args)
+    again, ok2 = rk.riccati_backward_cuda(*args)
+    _same_bits(again, gains)
+    assert torch.equal(ok2, ok)
+    ins = (args[0], args[1], args[6], gains)
+    out = rk.riccati_forward_cuda(*ins)
+    moved = rk.riccati_forward_cuda(*[_misaligned(a) for a in ins])
+    torch.cuda.synchronize()
+    for m, q in zip(moved, out):
+        _same_bits(m, q)
 
 
 def _decay_mpc(device):

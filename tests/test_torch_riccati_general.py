@@ -366,22 +366,27 @@ def test_general_direction_matches_jax():
 # ---- the forward kernel's compile-time instance ----
 
 def test_forward_instances_match_the_c_entry_point():
-    """The forward entry's list of compile-time instances is exactly
-    _GENERAL_FORWARD_INSTANCES: the EQ/border quadrotor fleet's stage; the
-    source's ring depth is FORWARD_RING, and the entry takes no depth."""
+    """The forward entry's list of compile-time instances, each with its
+    ring depth, is exactly _GENERAL_FORWARD_INSTANCES: the EQ/border
+    quadrotor fleet's stage at depth 2; the kernel is defined once, in the
+    shared header csrc/riccati_forward_fixed.cuh, and the entry takes no
+    depth."""
     text = SOURCE.read_text()
+    header = (SOURCE.parent / "riccati_forward_fixed.cuh").read_text()
     cases = re.findall(r"^\s*RICCATI_GENERAL_FORWARD_CASE\((\d+), (\d+), "
-                       r"(\d+), (\d+)\)\s*$", text, re.M)
-    assert {tuple(map(int, t)) for t in cases} == \
+                       r"(\d+), (\d+), (\d+)\)\s*$", text, re.M)
+    assert {tuple(map(int, t[:4])): int(t[4]) for t in cases} == \
         rk._GENERAL_FORWARD_INSTANCES
     assert len(cases) == len(rk._GENERAL_FORWARD_INSTANCES)
-    assert rk._GENERAL_FORWARD_INSTANCES == {(12, 4, 2, 1)}
-    assert f"constexpr int kForwardRing = {rk.FORWARD_RING};" in text
-    assert text.count("riccati_general_forward_fixed<NX, NU, R, RE>") == 1
+    assert rk._GENERAL_FORWARD_INSTANCES == {(12, 4, 2, 1): 2}
+    assert '#include "riccati_forward_fixed.cuh"' in text
+    assert "riccati_general_forward_fixed<NX, NU, R, RE, D>" in header
+    assert not re.search(r"^riccati_general_forward_fixed\(", text, re.M)
     entry = text[text.index('int riccati_general_forward_f32('):]
     assert "int ring" not in entry[:entry.index("{")]
+    assert "int depth" not in entry[:entry.index("{")]
     assert 'extern "C" int riccati_general_forward_runtime_f32(' in text
-    assert re.search(r"^riccati_general_forward_fixed\(", text, re.M)
+    assert re.search(r"^riccati_general_forward_fixed\(", header, re.M)
     assert re.search(r"^riccati_general_forward_kernel\(", text, re.M)
 
 
@@ -389,12 +394,12 @@ def test_forward_instances_match_the_c_entry_point():
                                    (12, 4, 1, 0), (12, 4, 1, 4),
                                    (4, 2, 2, 1), (32, 16, 65, 2)])
 def test_general_forward_kernel_rule(shape):
-    """The instance, named with its template arguments, at (12, 4, 2, 1);
-    the run-time kernel at any other shape; neither name holds the
-    other."""
+    """The instance, named with its template arguments (its ring depth
+    last), at (12, 4, 2, 1); the run-time kernel at any other shape; neither
+    name holds the other."""
     name = rk.general_forward_kernel(*shape)
     if shape == (12, 4, 2, 1):
-        assert name == "riccati_general_forward_fixed<12, 4, 2, 1>"
+        assert name == "riccati_general_forward_fixed<12, 4, 2, 1, 2>"
     else:
         assert name == "riccati_general_forward_kernel"
     names = ["riccati_general_forward_kernel",
@@ -412,9 +417,11 @@ def test_forward_ring_bytes_hand_worked():
     wave on 132 SMs) fit an SM's 228 KB."""
     assert rk.gain_width(12, 4, 2, 1) == 286
     assert rk.forward_slot_floats(12, 4, 2, 1) == 536
-    assert rk.FORWARD_RING == 2
-    assert rk.forward_ring_bytes(12, 4, 2, 1) == 17_152
-    assert 8 * (rk.forward_ring_bytes(12, 4, 2, 1) + 1024) <= 228 * 1024
+    depth = rk._GENERAL_FORWARD_INSTANCES[12, 4, 2, 1]
+    assert depth == 2
+    assert rk.forward_ring_bytes(12, 4, 2, 1, depth) == 17_152
+    assert 8 * (rk.forward_ring_bytes(12, 4, 2, 1, depth) + 1024) <= \
+        228 * 1024
     # no Jx at r = 0: its range takes no room
     assert rk.forward_slot_floats(12, 4, 2, 0) == 148 + 52 + 28 + 276
 

@@ -1,0 +1,192 @@
+"""The streamed plain pair's compile-time instances: the C entry points'
+case lists against the Python lists that name them (shapes and ring
+depths), the forward template's one home in a header both sources
+include, its ring's shared memory, the kernels' names, and the new
+wrappers' refusals on the CPU; then the plain halves against
+the JAX package's scan reference at the GRU fleet's and cartpole's stages
+and horizons, the shapes the new instances take.  The instances
+themselves are held against the plain versions and the run-time kernels
+on a card by tests/test_torch_cuda.py and chip_smoke.py."""
+
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pyneuralempc_tpu.solve.riccati import riccati_sweep_ref
+from pyneuralempc_tpu_torch.ops.cuda import riccati_kernel as rk
+from pyneuralempc_tpu_torch.ops.cuda.sweep_cases import sweep_case
+
+import _torch_threads  # noqa: F401  (one torch thread)
+
+CSRC = Path(__file__).resolve().parents[1] / "pyneuralempc_tpu_torch" / "csrc"
+STREAMED = (CSRC / rk.STREAMED_SOURCE).read_text()
+GENERAL = (CSRC / rk.GENERAL_SOURCE).read_text()
+HEADER = (CSRC / "riccati_forward_fixed.cuh").read_text()
+PLAIN_INSTANCES = {(12, 4), (10, 1), (4, 1)}
+SMEM_PER_SM = 228 * 1024     # an H100 SM's shared memory
+SMEM_RESERVED = 1024         # the runtime's reserve a block
+
+
+def _cases(macro, text, n):
+    return [tuple(map(int, t)) for t in re.findall(
+        rf"^\s*{macro}\(" + ", ".join([r"(\d+)"] * n) + r"\)\s*$", text,
+        re.M)]
+
+
+def test_forward_instances_match_the_c_entry_point():
+    """riccati_forward_f32's list names each instance's ring depth, and is
+    exactly _FORWARD_INSTANCES (shape -> depth): the quadrotor's, the GRU
+    fleet's and cartpole's stages."""
+    cases = _cases("RICCATI_FORWARD_CASE", STREAMED, 3)
+    assert {(nx, nu): d for nx, nu, d in cases} == rk._FORWARD_INSTANCES
+    assert len(cases) == len(rk._FORWARD_INSTANCES)
+    assert set(rk._FORWARD_INSTANCES) == PLAIN_INSTANCES
+    entry = STREAMED[STREAMED.index('int riccati_forward_f32('):]
+    assert "int depth" not in entry[:entry.index("{")]
+    assert 'extern "C" int riccati_forward_runtime_f32(' in STREAMED
+
+
+def test_general_backward_instances_as_before():
+    """The general backward entry keeps its one instance, (12, 4, 2, 1), and
+    both entries launch the backward template at the same four template
+    arguments: neither takes a run-time switch or depth."""
+    cases = _cases("RICCATI_GENERAL_BACKWARD_CASE", GENERAL, 4)
+    assert cases == [(12, 4, 2, 1)]
+    assert rk._GENERAL_BACKWARD_INSTANCES == {(12, 4, 2, 1)}
+    assert "backward_fixed<NX_, NU_, R_, RE_>(" in GENERAL
+    assert "backward_fixed<NX_, NU_, 1, 0>(" in STREAMED
+    for entry in re.findall(r'extern "C" int (\w+)\(', STREAMED):
+        assert entry in {"riccati_backward_f32", "riccati_backward_runtime_f32",
+                         "riccati_forward_f32", "riccati_forward_runtime_f32"}
+
+
+def test_general_forward_instances_as_before():
+    """The general forward entry keeps its one instance, (12, 4, 2, 1) at
+    depth 2."""
+    cases = _cases("RICCATI_GENERAL_FORWARD_CASE", GENERAL, 5)
+    assert cases == [(12, 4, 2, 1, 2)]
+    assert rk._GENERAL_FORWARD_INSTANCES == {(12, 4, 2, 1): 2}
+
+
+def test_forward_template_lives_in_one_header():
+    """riccati_general_forward_fixed, its layout, copies and launcher are
+    defined in csrc/riccati_forward_fixed.cuh alone, which both streamed
+    sources include."""
+    for text in (STREAMED, GENERAL):
+        assert '#include "riccati_forward_fixed.cuh"' in text
+    defs = (r"^riccati_general_forward_fixed\(", r"^struct ForwardLayout \{",
+            r"^cudaError_t forward_fixed\(",
+            r"^__device__ __forceinline__ void ring_copy\(",
+            r"^__device__ __forceinline__ int phase16\(",
+            r"^__device__ __forceinline__ void copy_short_async\(",
+            r"^__host__ __device__ constexpr int forward_ring_floats\(")
+    for d in defs:
+        assert len(re.findall(d, HEADER, re.M)) == 1, d
+        for text in (STREAMED, GENERAL):
+            assert not re.search(d, text, re.M), d
+    assert "template <int NX, int NU, int R, int RE, int D>" in HEADER
+    assert "kForwardRing" not in HEADER + STREAMED + GENERAL
+
+
+@pytest.mark.parametrize("nx,nu,floats", [(12, 4, 476), (10, 1, 272),
+                                          (4, 1, 68)])
+def test_forward_slot_floats_hand_worked(nx, nu, floats):
+    """One stage slot at one right-hand side and no equality rows: A, B, c
+    and the gains, each with 3 floats of room for its source's offset,
+    rounded to 16 bytes (at (4, 1): 20 + 8 + 8 + 32)."""
+    assert rk.forward_slot_floats(nx, nu, 1, 0) == floats
+
+
+@pytest.mark.parametrize("shape", sorted(PLAIN_INSTANCES))
+def test_each_ring_fits_eight_blocks(shape):
+    """At its depth (and at the cap) a block of four warps' rings leaves
+    room for eight blocks an SM, as __launch_bounds__(128, 8) asks; the
+    next depth past the cap would not."""
+    nx, nu = shape
+    cap = {(12, 4): 3, (10, 1): 6, (4, 1): 25}[shape]
+    for depth in (rk._FORWARD_INSTANCES[shape], cap):
+        assert depth <= cap
+        assert 8 * (rk.forward_ring_bytes(nx, nu, 1, 0, depth)
+                    + SMEM_RESERVED) <= SMEM_PER_SM
+    assert 8 * (rk.forward_ring_bytes(nx, nu, 1, 0, cap + 1)
+                + SMEM_RESERVED) > SMEM_PER_SM
+
+
+@pytest.mark.parametrize("nx,nu", [(12, 4), (10, 1), (4, 1), (4, 2),
+                                   (12, 10), (32, 16)])
+def test_forward_kernel_rule(nx, nu):
+    """The forward instance, named with its template arguments (its ring
+    depth last), at the instances' shapes; the run-time kernel at any
+    other; no name holds another, across shapes and the general
+    instance."""
+    name = rk.forward_kernel(nx, nu)
+    if (nx, nu) in PLAIN_INSTANCES:
+        d = rk._FORWARD_INSTANCES[nx, nu]
+        assert name == f"riccati_general_forward_fixed<{nx}, {nu}, 1, 0, {d}>"
+    else:
+        assert name == "riccati_forward_kernel"
+    names = ["riccati_forward_kernel", "riccati_general_forward_kernel",
+             rk.general_forward_kernel(12, 4, 2, 1)]
+    names += [rk.forward_kernel(a, b) for a, b in sorted(PLAIN_INSTANCES)]
+    for a in names:
+        for b in names:
+            assert a == b or a.replace(" ", "") not in b.replace(" ", "")
+
+
+def test_new_wrappers_refuse_cpu_tensors():
+    """The run-time forward wrapper and the forward wrapper at an instance's
+    shape launch only on CUDA tensors; a refused call moves no counter."""
+    t = [torch.as_tensor(a) for a in sweep_case("delta0", B=2, H=3, nx=4,
+                                                 nu=1)]
+    gains, _ = rk.riccati_backward_plain(*t)
+    fwd = (t[0], t[1], t[6], gains)
+
+    def counts():
+        return (rk.FORWARD_LAUNCHES, rk.FORWARD_INSTANCE_LAUNCHES,
+                rk.FORWARD_RUNTIME_LAUNCHES,
+                rk.BACKWARD_LAUNCHES, rk.BACKWARD_INSTANCE_LAUNCHES,
+                rk.BACKWARD_RUNTIME_LAUNCHES)
+
+    n0 = counts()
+    with pytest.raises(ValueError, match="CUDA device"):
+        rk.riccati_forward_runtime_cuda(*fwd)
+    with pytest.raises(ValueError, match="CUDA device"):
+        rk.riccati_forward_cuda(*fwd)
+    with pytest.raises(ValueError, match="CUDA device"):
+        rk.riccati_backward_runtime_cuda(*t)
+    with pytest.raises(ValueError, match="CUDA device"):
+        rk.riccati_backward_cuda(*t)
+    assert counts() == n0
+
+
+SPLIT_TOL = 2e-4    # tests/test_pallas_kernel.py's quadrotor-dims tolerance
+
+
+@pytest.mark.parametrize("nx,H", [(10, 100), (4, 50)])
+@pytest.mark.parametrize("kind", ["delta0", "delta_per_problem",
+                                  "negative_curvature", "local_bump"])
+def test_plain_halves_match_reference_at_path_horizons(kind, nx, H):
+    """At the GRU fleet's lifted (10, 1), H=100 and cartpole's (4, 1), H=50
+    (the stages and horizons the new instances take on the card),
+    riccati_backward_plain then riccati_forward_plain against the JAX
+    package's scan reference (vmapped) on the seeded cases: ok flags
+    equal, outputs of the ok problems within SPLIT_TOL·max(1, |ref|)."""
+    args = sweep_case(kind, B=4, H=H, nx=nx, nu=1, seed=nx)
+    t = [torch.as_tensor(a) for a in args]
+    gains, ok = rk.riccati_backward_plain(*t)
+    out = rk.riccati_forward_plain(t[0], t[1], t[6], gains)
+    ref = jax.vmap(riccati_sweep_ref)(*[jnp.asarray(a) for a in args])
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(ref[3]))
+    want = [True, False, True, False] if kind == "negative_curvature" else [
+        True] * 4
+    assert ok.tolist() == want
+    m = ok.numpy()
+    for o, r in zip(out, ref[:3]):
+        r = np.asarray(r)[m]
+        err = np.abs(o.numpy()[m] - r) / np.maximum(1.0, np.abs(r))
+        assert err.max() <= SPLIT_TOL, err.max()
