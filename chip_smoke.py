@@ -20,10 +20,11 @@ Phases (each raises, and the script exits non-zero, on failure):
    (csrc/riccati_sweep.cu, riccati_sweep_direct_cuda) at the LV path's
    shapes (B=4096, H=20, nx=2, nu=1) on four seeded cases, with its median
    device time (the kernel's own events in a torch.profiler trace, held
-   against the same calls back to back between CUDA events: a window that
-   holds no such kernel, or reads it under 80% of that time where it is
-   the window's only kernel and the device the slower side, is traced
-   again, and raises when three do), its time per wrapper call (CUDA
+   against the same calls back to back between CUDA events, queued behind
+   a spin so that the host's pace opens no gap between them: a window that
+   holds no such kernel, or reads it under 80% of that time less an empty
+   launch's where it is the window's only kernel, is traced again, and
+   raises when five do), its time per wrapper call (CUDA
    events, host work included), the plain version's time and the least
    time the card could take (bound); then both designs' device times in
    turns (riccati_sweep.cu, staged, staged, riccati_sweep.cu), warm and
@@ -86,7 +87,17 @@ Phases (each raises, and the script exits non-zero, on failure):
    4 times on the card) and cartpole's (4, 1) at H=50 (the four cases at
    B=4096, and each case's first problem alone, the path's B=1), as 3b
    against the plain halves, the run-time kernels and the plain sweep;
-   timed as in 3b at the paths' shapes ((4, 1) at B=4096 too).
+   timed as in 3b at the paths' shapes ((4, 1) at B=4096 too).  Then the
+   wide fleet's (12, 10) at H=50, B=4096 (the cases drawn at B=1024 and
+   repeated 4 times): the backward entry takes the run-time kernel there
+   (the backward template needs nu | 32), the forward entry its instance
+   riccati_general_forward_fixed<12, 10, 1, 0, D>; both against the plain
+   halves and the plain sweep, the forward instance bit for bit against
+   the run-time forward kernel and against its other candidate depth
+   (a second build of riccati_streamed.cu at W_ALT_DEPTH, from the same
+   source with that one case edited); both timed, the instance in turns
+   against the run-time forward kernel and against the other depth, warm
+   and with L2 flushed.
 4. LV path: trains the 2x32 tanh MLP surrogate of the Lotka-Volterra
    system on the card, builds NMPC as bench.py does, solves B=4096 cold and
    then warm re-plans, the plant advanced by the true ODE through the port's
@@ -142,6 +153,29 @@ Phases (each raises, and the script exits non-zero, on failure):
    H=50: a cold solve, one untimed and 2 timed warm re-plans.  Counters as
    in 4b; at least 994/1024 converged on every solve; the cold plans
    approach hover.
+4h. Wide fleet (pyneuralempc_tpu_torch/examples/fleet_wide.py, the JAX
+   package's tools/fleet_wide_tpu.py: 12 states, 10 thrusts, H=50, RK4,
+   B=4096, not cut): a cold solve, one untimed and 2 timed warm re-plans.
+   Counters: the streamed pair alone, every backward launch the run-time
+   kernel and every forward launch the instance; at least 4092/4096
+   converged on every solve.
+4i. Solver options on the LV fleet (phase 4's surrogate, B=4096):
+   mu_strategy "monotone" (phase 4's rule again, for a like protocol),
+   "adaptive" and "mehrotra", a cold solve and 1 untimed and 1 timed warm
+   re-plans each, through the staged fused kernel alone; the cold plans
+   against phase 4's monotone cold plans on the members both converged:
+   at the same solution (the objectives within 1e-6 relative) |du| <=
+   1e-4 (the NLP is not convex: the others stopped at another local
+   solution, counted).  The converged counts (cold, every warm re-plan)
+   and the members at the same solution are held to the JAX package's own
+   on this fleet, less 0.5% of B (tests/measure_torch_mu_strategies.py:
+   adaptive 4096, 4096, 4085; Mehrotra 3986, 4082, 3907), and the
+   converged counts to 4092 where the JAX package reaches it.  The sweeps
+   a lockstep iteration against monotone's.
+4j. Import: phase 4's surrogate copied into an nn.Sequential(Linear,
+   Tanh, ...) on the card and loaded back by load_torch_mlp (no h5py
+   needed): one cold solve at B=4096 gives phase 4's cold plans to 1e-6
+   with the same converged mask.
 5. Card vs CPU: 16 LV problems, 16 quadrotor problems, 16 EQ/border
    quadrotor problems and 16 budgeted LV problems solved on the card and on
    the CPU, and the budgeted fleet's closed loop (B=16, steps=4) on both;
@@ -150,7 +184,11 @@ Phases (each raises, and the script exits non-zero, on failure):
    in 120, and two unconverged nonconvex iterate paths part by f32
    rounding after ~30) and a converging cartpole re-plan, 16 quadrotor MLP
    problems, and the cartpole multi-start's winner (cut at 20 iterations)
-   and its index.
+   and its index; 16 wide fleet problems; 16 LV problems under each of
+   mu_strategy "adaptive" and "mehrotra" and polish_fresh=True, and 16
+   under hessian="gauss_newton": equal masks, the converged members'
+   plans held as the budgeted ones are (below), the iterates of members
+   that take all 60 iterations unconverged not compared.
    The budgeted comparisons hold to the 1e-4 gates the members whose CPU
    answer is fixed to them: with the floor binding, feed moved between
    stages at constant Σu is tie-broken only by the 1e-4·Σu² term, and some
@@ -219,11 +257,15 @@ PERTURB, DETERMINED, SPREAD = 1e-7, 5e-5, 2.0
 
 
 # profiler windows traced for one timing before it counts as failed
-PROFILE_TRIES = 3
-# a profiler median under this share of the time a call takes between CUDA
-# events, where the kernel is the window's only one and the host issues a
-# call in under this share of that time, is a misread window
+PROFILE_TRIES = 5
+# a profiler median under this share of the device time a call takes
+# between CUDA events (less an empty launch's), where the kernel is the
+# window's only one and the calls were queued behind a spin, is a misread
+# window
 EVENTS_SHARE = 0.8
+# the spin queued ahead of those calls holds the device for this many times
+# the host's time to issue them, at least SPIN_MIN_MS and at most SPIN_MAX_MS
+SPIN_SHARE, SPIN_MIN_MS, SPIN_MAX_MS = 4.0, 1.0, 200.0
 
 T_START = time.perf_counter()
 
@@ -256,6 +298,39 @@ QM_B, QM_WARM_STEPS = 1024, 2
 QM_MIN_CONVERGED = 994             # 97%
 # phase 4: per-member params give the shared solve's plans to this
 PER_MEMBER_DU = 1e-5
+# phases 3e and 4h: the wide fleet (examples/fleet_wide.py, the JAX
+# package's tools/fleet_wide_tpu.py) at its full size: stage (12, 10),
+# H=50, B=4096; seeded kernel cases drawn at W_CASE_B and repeated
+W_H, W_NX, W_NU, W_CASE_B = 50, 12, 10, 1024
+W_WARM_STEPS = 2
+# the forward instance's other candidate ring depth at (12, 10), built as a
+# second library of riccati_streamed.cu for the turns (at depth 2 eight
+# blocks of four warps fit an SM, at 3 six)
+W_ALT_DEPTH = 3
+# phase 4i: the solver options on the LV fleet (phase 4's surrogate); the
+# small-batch options' batch
+OPT_WARM_STEPS = 1
+OPT_SMALL_B = 16
+# phase 4i: the surrogate's NLP is not convex, and two μ rules can stop at
+# different local solutions of one member's problem, objectives up to a
+# few % apart, both converged.  A member whose objective agrees with the
+# monotone solve's to SAME_SOLUTION (relative) is at the same solution and
+# held to CARD_VS_CPU_DU in its plan.  The counts are held to the JAX
+# package's own on this fleet (tests/measure_torch_mu_strategies.py, on
+# the CPU, with the same eager fit): members converged cold, converged on
+# its first warm re-plan, and at the same solution as its monotone cold
+# solve; the card may fall short of each by MU_SLACK of B (f32 parts a few
+# members' iterate paths), and of the converged counts never below
+# MIN_WARM_CONVERGED where the reference reaches it.  Mehrotra's
+# predictor-corrector has fat tails from a cold start (the JAX package's
+# IPConfig says so): 110 of 4096 members take all 60 iterations there.
+SAME_SOLUTION = 1e-6
+MU_REFERENCE = {"monotone": {"cold": 4096, "warm": 4096, "same": 4096},
+                "adaptive": {"cold": 4096, "warm": 4096, "same": 4085},
+                "mehrotra": {"cold": 3986, "warm": 4082, "same": 3907}}
+MU_SLACK = 0.005
+# phase 4j: the state_dict-imported surrogate's plans against phase 4's
+IMPORT_DU = 1e-6
 
 
 def log(*a):
@@ -383,24 +458,23 @@ def kernel_device_ms(fn, kernel_name, runs=25, strict=False, bound_ms=None):
     """Median device time of the kernels whose names hold ``kernel_name``
     (spaces ignored, so a template's arguments can be matched) over ``runs``
     calls of ``fn``, read from a torch.profiler trace, and held against the
-    same calls back to back between one CUDA event pair.  The trace keeps
-    only some of a window's kernel events (16-25 of 25 on an H100,
-    whatever the kernel), now and then none, and has read a kernel at half
-    its time between events.  So a window is traced again, up to
-    PROFILE_TRIES windows, when it holds no such kernel, or when its median
-    is under EVENTS_SHARE of the time a call between the events while the
-    kernel is the window's only one and the device the slower side (the
-    host issues a call in under EVENTS_SHARE of that time).  When no window
-    passes: with ``strict``, raise (a misnamed kernel or a misread time
-    must not pass as a timing); else the time a call between the events
-    (host work included where the host is the slower).  A median below
-    ``bound_ms`` lists every event's time."""
+    device time of the same calls back to back between one CUDA event pair,
+    queued behind a spin so that the host's pace opens no gap between them.
+    The trace keeps only some of a window's kernel events (16-25 of 25 on an
+    H100, whatever the kernel), now and then none.  So a window is traced
+    again, up to PROFILE_TRIES windows, when it holds no such kernel, or when
+    its median is under EVENTS_SHARE of the events' time a call less an
+    empty launch's, while the kernel is the window's only one and the host
+    queued every call before the spin ended.  When no window passes: with
+    ``strict``, raise (a misnamed kernel or a misread time must not pass as
+    a timing); else the events' time a call (host work included where the
+    host did not queue the calls in time).  A median below ``bound_ms``
+    lists every event's time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     want = kernel_name.replace(" ", "")
-    events_ms, host_ms = back_to_back_ms(fn, runs)
-    device_side = host_ms < EVENTS_SHARE * events_ms
+    events_ms, floor_ms, host_ms, queued = back_to_back_ms(fn, runs)
     kept, why = [], ""
     for tries in range(1, PROFILE_TRIES + 1):
         with profile(activities=[ProfilerActivity.CPU,
@@ -417,18 +491,20 @@ def kernel_device_ms(fn, kernel_name, runs=25, strict=False, bound_ms=None):
             why = "no event of the kernel"
             continue
         ms = statistics.median(times)
-        checked = device_side and len(times) == len(device)
-        if checked and ms < EVENTS_SHARE * events_ms:
+        checked = queued and len(times) == len(device)
+        if checked and ms < EVENTS_SHARE * (events_ms - floor_ms):
             why = (f"median {ms * 1e3:.2f} us under {EVENTS_SHARE:.0%} of "
-                   f"the {events_ms * 1e3:.2f} us a call between CUDA events")
+                   f"the {events_ms * 1e3:.2f} us a call between CUDA "
+                   f"events less {floor_ms * 1e3:.2f} us an empty launch")
             continue
         how = (f"profiler, {len(times)} kernels, {min(times) * 1e3:.2f}-"
                f"{max(times) * 1e3:.2f} us, events kept a window "
                f"{kept} of {runs}; {events_ms * 1e3:.2f} us a call back to "
-               f"back between CUDA events, {host_ms * 1e3:.2f} us to issue "
-               "it, "
+               f"back between CUDA events behind a spin, "
+               f"{floor_ms * 1e3:.2f} us an empty launch, "
+               f"{host_ms * 1e3:.2f} us to issue a call, "
                + ("checked" if checked else "not checked (" + (
-                   "the host the slower" if not device_side
+                   "the host issued past the spin" if not queued
                    else "other device work in the window") + ")"))
         if bound_ms is not None and ms < bound_ms:
             how += (f"; BELOW the bound {bound_ms * 1e3:.2f} us, every "
@@ -444,23 +520,59 @@ def kernel_device_ms(fn, kernel_name, runs=25, strict=False, bound_ms=None):
                        f"window: {why})")
 
 
-def back_to_back_ms(fn, runs=25):
-    """Time of ``runs`` back-to-back calls of ``fn`` between one CUDA event
-    pair, over ``runs``: the device time a call where the device is the
-    slower, host work included where the host is; and the host's time to
-    issue a call."""
-    fn()
-    torch.cuda.synchronize()
+_SPIN_CYCLES_PER_MS = []
+
+
+def spin_cycles_per_ms():
+    """torch.cuda._sleep's cycles a millisecond on this card, read once
+    from a 1e7-cycle spin between CUDA events."""
+    if not _SPIN_CYCLES_PER_MS:
+        torch.cuda._sleep(1000)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10 ** 7)
+        stop.record()
+        stop.synchronize()
+        _SPIN_CYCLES_PER_MS.append(1e7 / start.elapsed_time(stop))
+    return _SPIN_CYCLES_PER_MS[0]
+
+
+def queued_ms(fn, runs, host_ms):
+    """The time a call of ``runs`` calls of ``fn`` between one CUDA event
+    pair, queued behind a spin of SPIN_SHARE times ``host_ms`` a call; and
+    whether
+    the host had queued them all before the device reached the first event
+    (where not, the time holds the host's)."""
+    spin_ms = min(max(SPIN_SHARE * host_ms * runs, SPIN_MIN_MS), SPIN_MAX_MS)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(spin_ms * spin_cycles_per_ms()))
     start.record()
+    for _ in range(runs):
+        fn()
+    stop.record()
+    queued = not start.query()
+    stop.synchronize()
+    return start.elapsed_time(stop) / runs, queued
+
+
+def back_to_back_ms(fn, runs=25):
+    """For ``runs`` back-to-back calls of ``fn``: the time a call between
+    CUDA events with the calls queued behind a spin (the device's time where
+    the host queued them all in time); an empty launch's time, so queued;
+    the host's time to issue a call; and whether the host queued the calls
+    in time."""
+    fn()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(runs):
         fn()
     host_ms = (time.perf_counter() - t0) * 1e3 / runs
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / runs, host_ms
+    torch.cuda.synchronize()
+    events_ms, queued = queued_ms(fn, runs, host_ms)
+    floor_ms, _ = queued_ms(lambda: torch.cuda._sleep(0), runs, host_ms)
+    return events_ms, floor_ms, host_ms, queued
 
 
 def kernel_entry(name, source, site, call, kernel_name, plain, nbytes,
@@ -1312,15 +1424,177 @@ def phase_streamed_new_shapes(rk, build_log):
     return out
 
 
+def same_bits(a, b):
+    """Equal element for element, NaN where the other is NaN (a problem
+    whose factorisation failed may carry NaN through its stages)."""
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def alt_depth_source(rk, build):
+    """riccati_streamed.cu with the (12, 10) forward instance at
+    W_ALT_DEPTH, written into the build directory (its headers found
+    through -I): the other candidate depth, for the turns."""
+    depth = rk._FORWARD_INSTANCES[W_NX, W_NU]
+    case = f"RICCATI_FORWARD_CASE({W_NX}, {W_NU}, {depth})"
+    text = (build.CSRC_DIR / rk.STREAMED_SOURCE).read_text()
+    if text.count(case) != 1:
+        raise RuntimeError(f"{rk.STREAMED_SOURCE} does not list {case}")
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = build.BUILD_DIR / f"riccati_streamed_wide_d{W_ALT_DEPTH}.cu"
+    path.write_text(text.replace(
+        case, f"RICCATI_FORWARD_CASE({W_NX}, {W_NU}, {W_ALT_DEPTH})"))
+    return path, ("-I", str(build.CSRC_DIR))
+
+
+def library_forward(lib_path):
+    """``riccati_forward_f32`` of another build of riccati_streamed.cu,
+    called as riccati_forward_cuda calls its own (no counter moves)."""
+    import ctypes
+    fn = ctypes.CDLL(str(lib_path)).riccati_forward_f32
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(A, Bm, c, gains):
+        Bn, Hn, nx = c.shape
+        nu = Bm.shape[-1]
+        dX, dLam = torch.empty_like(c), torch.empty_like(c)
+        dU = c.new_empty((Bn, Hn, nu))
+        err = fn(A.data_ptr(), Bm.data_ptr(), c.data_ptr(), gains.data_ptr(),
+                 dX.data_ptr(), dU.data_ptr(), dLam.data_ptr(), Bn, Hn, nx,
+                 nu, c.device.index or 0,
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"the depth-{W_ALT_DEPTH} forward instance's "
+                               f"launch failed: CUDA error {err}")
+        return dX, dU, dLam
+    return call
+
+
+def phase_streamed_wide(rk, build_log, alt_forward, alt_log):
+    """Phase 3e at the wide fleet's stage (12, 10), H=50, B=4096: the
+    run-time backward kernel (the backward template cannot take nu=10) and
+    the forward instance against the plain halves and the plain sweep on
+    the four seeded cases; the forward instance bit for bit against the
+    run-time forward kernel and against its other candidate depth; then
+    both timed, the instance in turns against the run-time forward kernel
+    and against its other depth."""
+    nx, nu, Hn = W_NX, W_NU, W_H
+    plan = rk.kernel_plan(Hn, nx, nu, "cuda")
+    bname, fname = plan.get("backward_kernel"), plan.get("forward_kernel")
+    alt_name = f"riccati_general_forward_fixed<{nx}, {nu}, 1, 0, {W_ALT_DEPTH}>"
+    log(f"wide stage: sweep plan {plan}")
+    if (plan["path"] != "cuda_streamed" or bname != "riccati_backward_kernel"
+            or not fname.startswith(
+                f"riccati_general_forward_fixed<{nx}, {nu}, 1, 0, ")):
+        raise RuntimeError(f"({nx}, {nu}) plans {plan}")
+    label = f"B={B}, H={Hn}, nx={nx}, nu={nu}"
+    worst = None
+    for kind, seed in CASES.items():
+        args = tiled_sweep_case(kind, seed, W_CASE_B, Hn, nx, nu,
+                                B // W_CASE_B)
+        worst = worse(worst, hold_streamed_pair(rk, kind, args, label))
+        gains, _ = rk.riccati_backward_cuda(*args)
+        ins = (args[0], args[1], args[6], gains)
+        out = rk.riccati_forward_cuda(*ins)
+        rt = rk.riccati_forward_runtime_cuda(*ins)
+        alt = alt_forward(*ins)
+        torch.cuda.synchronize()
+        if not all(same_bits(o, r) and same_bits(o, a)
+                   for o, r, a in zip(out, rt, alt)):
+            raise RuntimeError(f"{kind}: the forward instance at ({nx}, "
+                               f"{nu}) differs from the run-time forward "
+                               "kernel or from its other depth")
+        log(f"  [{kind}, {label}] forward instance == run-time forward "
+            f"kernel == depth {W_ALT_DEPTH}, bit for bit")
+        del args, gains, ins, out, rt, alt
+
+    args = tiled_sweep_case("delta0", 0, W_CASE_B, Hn, nx, nu, B // W_CASE_B)
+    A, Bm, c = args[0], args[1], args[6]
+    dims = (B, Hn, nx, nu)
+    gains, _ = rk.riccati_backward_cuda(*args)
+    torch.cuda.synchronize()
+    bwd = kernel_entry(
+        "riccati_backward [wide]", "riccati_streamed.cu", f"{PALLAS}:468",
+        lambda: rk.riccati_backward_cuda(*args), bname,
+        lambda: rk.riccati_backward_plain(*args), rk.backward_bytes(*dims),
+        rk.backward_flops(*dims), label, plain_runs=3, strict=True)
+    fwd_call = lambda: rk.riccati_forward_cuda(A, Bm, c, gains)  # noqa: E731
+    fwd = kernel_entry(
+        "riccati_forward [wide]", "riccati_streamed.cu", f"{PALLAS}:488",
+        fwd_call, fname, lambda: rk.riccati_forward_plain(A, Bm, c, gains),
+        rk.forward_bytes(*dims), rk.forward_flops(*dims), label,
+        plain_runs=3, strict=True)
+    turns = design_turns(
+        {"run-time": (lambda: rk.riccati_forward_runtime_cuda(A, Bm, c,
+                                                              gains),
+                      "riccati_forward_kernel"),
+         "instance": (fwd_call, fname)},
+        abba(("run-time", "instance")), bound_ms=fwd["bound_ms"])
+    mean = {k: statistics.mean(v) for k, v in turns.items()}
+    depth = rk._FORWARD_INSTANCES[nx, nu]
+    d_turns = design_turns(
+        {f"D={depth}": (fwd_call, fname),
+         f"D={W_ALT_DEPTH}": (lambda: alt_forward(A, Bm, c, gains),
+                              alt_name)},
+        abba((f"D={W_ALT_DEPTH}", f"D={depth}")), bound_ms=fwd["bound_ms"])
+    d_mean = {k: statistics.mean(v) for k, v in d_turns.items()}
+    log(f"riccati_forward at {label}: run-time "
+        f"{mean['warm', 'run-time'] * 1e3:.2f} / "
+        f"{mean['flushed', 'run-time'] * 1e3:.2f} us, instance "
+        f"{mean['warm', 'instance'] * 1e3:.2f} / "
+        f"{mean['flushed', 'instance'] * 1e3:.2f} us (warm / L2 flushed, "
+        "means of two turns); ring depths "
+        + ", ".join(f"{who} {d_mean['warm', who] * 1e3:.2f} / "
+                    f"{d_mean['flushed', who] * 1e3:.2f} us"
+                    for who in (f"D={depth}", f"D={W_ALT_DEPTH}")))
+    fwd.update(design=f"compile-time instance {fname}", path="fleet_wide",
+               shape=dict(zip(("B", "H", "nx", "nu"), dims)),
+               runtime_ms=mean["warm", "run-time"],
+               flushed_ms=mean["flushed", "instance"],
+               runtime_flushed_ms=mean["flushed", "run-time"],
+               depth=depth,
+               turns_ms={f"{cache}, {who}": v
+                         for (cache, who), v in turns.items()},
+               depth_turns_ms={f"{cache}, {who}": v
+                               for (cache, who), v in d_turns.items()},
+               ptxas_instance=ptxas_report(
+                   build_log, "riccati_general_forward_fixed",
+                   (nx, nu, 1, 0, depth)),
+               ptxas_alt_depth=ptxas_report(
+                   alt_log, "riccati_general_forward_fixed",
+                   (nx, nu, 1, 0, W_ALT_DEPTH)),
+               ring_bytes=rk.forward_ring_bytes(nx, nu, 1, 0, depth))
+    bwd.update(design="the run-time kernel (riccati_backward_kernel)",
+               path="fleet_wide", shape=fwd["shape"],
+               ptxas_runtime=ptxas_report(build_log,
+                                          "riccati_backward_kernel", ()))
+    log(f"ptxas: run-time backward {bwd['ptxas_runtime']}; forward "
+        f"instance D={depth} ({fwd['ring_bytes']} B a block) "
+        f"{fwd['ptxas_instance']}; D={W_ALT_DEPTH} "
+        f"({rk.forward_ring_bytes(nx, nu, 1, 0, W_ALT_DEPTH)} B a block) "
+        f"{fwd['ptxas_alt_depth']}")
+    pair_ms = cuda_median_ms(lambda: rk.riccati_sweep_streamed_cuda(*args))
+    log(f"streamed sweep [wide] (backward + forward, one wrapper call): "
+        f"{pair_ms * 1e3:.1f} us")
+    set_worst(bwd, fwd, worst)
+    del args, gains
+    torch.cuda.empty_cache()
+    return bwd, fwd, pair_ms
+
+
 # ---- phases 4, 4b, 4c: main paths ----
 
-def make_controller(nempc, device):
-    surrogate = nempc.MLPDynamics.make(x_dim=2, u_dim=1, hidden=[32, 32])
+def make_controller(nempc, device, model=None, **options):
+    """bench.py's LV controller on ``device``: the 2x32 tanh surrogate (or
+    ``model``), with IPConfig ``options`` on top of bench.py's."""
+    surrogate = model or nempc.MLPDynamics.make(x_dim=2, u_dim=1,
+                                                hidden=[32, 32])
     box = nempc.DomainConstraint(states_constraint=[[-1.0, 1.0],
                                                     [-1.0, 0.35]],
                                  control_constraint=[[0.0, 1.2]])
     cfg = nempc.IPConfig(tol=1e-5, polish_iters=5, polish_mu=1e-9,
-                         warm_z_corridor=1e2, warm_mu=3e-4)
+                         warm_z_corridor=1e2, warm_mu=3e-4, **options)
     return nempc.NMPC(surrogate,
                       lambda x, u: 1.1 * torch.sum(u) + REG * torch.sum(u * u),
                       [box], H=H, DT=DT, integrator="rk4", config=cfg,
@@ -1422,7 +1696,7 @@ def phase_main_path(nempc, rk, rg, card):
     carry, res = mpc.next_batch(xs, params=params)
     torch.cuda.synchronize()
     log(f"cold B={B}: {time.perf_counter() - t0:.2f} s  "
-        + telemetry("cold", res))
+        + telemetry("cold", res) + f"  sweeps {rk.LAUNCHES}")
     cold = res
     times, conv, launches = [], [], []
     for step in range(WARM_STEPS):
@@ -1503,7 +1777,7 @@ def phase_main_path(nempc, rk, rg, card):
             and int(determined.sum()) >= B // 2):
         raise RuntimeError("per-member params do not give the shared "
                            "solve's plans")
-    return params, x0s, n["fused_staged"]
+    return params, x0s, n["fused_staged"], cold
 
 
 def phase_quadrotor(nempc, rk, rg, card, pair_ms):
@@ -2013,6 +2287,188 @@ def phase_quadrotor_mlp(nempc, rk, rg, card):
     return model, params, x0s, n["backward"], split
 
 
+# ---- phases 4h, 4i, 4j: the wide fleet, the solver options, an import ----
+
+def phase_fleet_wide(nempc, rk, rg, card, pair_ms):
+    """Phase 4h: the wide fleet (examples/fleet_wide.py at its full size,
+    B=4096, H=50, (12, 10)): a cold solve, one untimed and W_WARM_STEPS
+    timed warm re-plans, each from the plan's first state."""
+    from pyneuralempc_tpu_torch.examples.fleet_wide import (
+        make_fleet_wide_mpc, wide_x0s)
+
+    mpc = make_fleet_wide_mpc("cuda", H=W_H)
+    log(f"wide fleet: kkt backend {mpc.kkt_backend}; sweep plan: "
+        f"{rk.kernel_plan(W_H, W_NX, W_NU, 'cuda')}")
+    x0s = wide_x0s(np.random.default_rng(0), B)
+    reset_counters(rk, rg)
+    t0 = time.perf_counter()
+    carry, res = mpc.next_batch(torch.as_tensor(x0s, device="cuda"))
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    it = res.iterations.float()
+    log(f"wide fleet cold B={B}, H={W_H}: {cold_s:.2f} s  "
+        + telemetry("cold", res) + "  (the JAX package's TPU record, "
+        "tools/fleet_wide_tpu.log: 4096/4096, iterations max 30, mean "
+        "9.22)")
+    conv = [int(res.converged.sum())]
+    cold_iters = (int(it.max()), float(it.mean()))
+    check_plan(res, W_H, W_NX, W_NU)
+    carry, res, warm_conv, times, launches = warm_replans(
+        mpc, res, carry, W_WARM_STEPS, lambda: rk.BACKWARD_LAUNCHES)
+    conv += warm_conv
+    n = counters(rk, rg)
+    log(f"wide fleet path: streamed backward launches {n['backward']} (the "
+        f"run-time kernel; instances {n['backward_instance']}), forward "
+        f"{n['forward']} (the instance {n['forward_instance']}); fused "
+        f"{n['fused']}, general {n['general_backward']} / "
+        f"{n['general_forward']}, fused general {n['fused_general']}, "
+        f"plain calls {n['plain']}")
+    if (not only_launched(n, "backward", "forward", "forward_instance")
+            or not n["backward"] == n["forward"] == n["forward_instance"]):
+        raise RuntimeError("the wide fleet did not go through the run-time "
+                           "backward kernel and the forward instance alone")
+    if min(conv) < MIN_WARM_CONVERGED:
+        raise RuntimeError(f"wide fleet convergence {conv} (cold, warm...) "
+                           f"below {MIN_WARM_CONVERGED}/{B}")
+    check_plan(res, W_H, W_NX, W_NU)
+    it = res.iterations.float()
+    log(f"converged: cold, then every warm step {conv}; last warm "
+        f"iterations max {int(it.max())}, mean {float(it.mean()):.2f}")
+    split = report_split(nempc, mpc, carry, res.x[:, 0].contiguous(), res,
+                         times, launches[-1], pair_ms, card)
+    split.update(cold_s=cold_s, converged=conv, cold_iterations=cold_iters)
+    return x0s, n["backward"], n["forward_instance"], split
+
+
+def same_solution_gate(tag, res, mono, min_same):
+    """``res`` against phase 4's monotone cold plans, on the members both
+    converged: at the same solution (objectives within SAME_SOLUTION,
+    relative) the plans within CARD_VS_CPU_DU, and at least ``min_same``
+    members there; the others (another local solution) are counted."""
+    both = res.converged & mono.converged
+    rel = ((res.objective - mono.objective).abs()
+           / mono.objective.abs().clamp(min=1.0))
+    same = both & (rel <= SAME_SOLUTION)
+    other = both & ~same
+    du = (res.u - mono.u).abs().amax(dim=(1, 2))
+    du_same = float(du[same].max()) if bool(same.any()) else 0.0
+    rel_other = float(rel[other].max()) if bool(other.any()) else 0.0
+    lower = int((other & (res.objective < mono.objective)).sum())
+    log(f"  {tag} vs monotone (phase 4's cold plans): both converged "
+        f"{int(both.sum())}/{B}; at the same solution {int(same.sum())} "
+        f"(at least {min_same}), max |du| {du_same:.3e} (limit "
+        f"{CARD_VS_CPU_DU}); at another local solution {int(other.sum())}, "
+        f"max |du| {float(du[other].max()) if bool(other.any()) else 0.0:.3e},"
+        f" objectives up to {rel_other:.3e} apart, {lower} of them lower "
+        "than monotone's")
+    if not (du_same <= CARD_VS_CPU_DU and int(same.sum()) >= min_same):
+        raise RuntimeError(f"{tag}: plans do not reach the monotone "
+                           "solve's solutions")
+    return {"same": int(same.sum()), "other": int(other.sum()),
+            "du_same": du_same, "rel_other": rel_other,
+            "other_lower": lower}
+
+
+def phase_options(nempc, rk, rg, params, x0s, mono):
+    """Phase 4i: mu_strategy "monotone" (phase 4's solve again, for a like
+    protocol), "adaptive" and "mehrotra" on the LV fleet (phase 4's
+    surrogate, B=4096): a cold solve and one untimed and OPT_WARM_STEPS
+    timed warm re-plans each, through the staged fused kernel alone, the
+    converged counts and plans against phase 4's monotone cold plans held
+    to the JAX package's own on this fleet (MU_REFERENCE); the sweeps a
+    lockstep iteration."""
+    out = {}
+    xs = torch.as_tensor(x0s, device="cuda")
+    for strategy in ("monotone", "adaptive", "mehrotra"):
+        mpc = make_controller(nempc, "cuda", mu_strategy=strategy)
+        reset_counters(rk, rg)
+        t0 = time.perf_counter()
+        carry, res = mpc.next_batch(xs, params=params)
+        torch.cuda.synchronize()
+        cold_s, sweeps = time.perf_counter() - t0, rk.LAUNCHES
+        per_it = sweeps / int(res.iterations.max())
+        log(f"LV fleet, mu_strategy={strategy!r}, cold B={B}: {cold_s:.2f} s"
+            f"  " + telemetry("cold", res) + f"  sweeps {sweeps}: "
+            f"{per_it:.2f} a lockstep iteration")
+        ref = MU_REFERENCE[strategy]
+        slack = int(MU_SLACK * B)
+        floor = {k: (MIN_WARM_CONVERGED if ref[k] >= MIN_WARM_CONVERGED
+                     else ref[k] - slack) for k in ("cold", "warm")}
+        conv = [int(res.converged.sum())]
+        gate = same_solution_gate(f"mu_strategy={strategy!r}", res, mono,
+                                  ref["same"] - slack)
+        carry, res, warm_conv, times, launches = warm_replans(
+            mpc, res, carry, OPT_WARM_STEPS, lambda: rk.LAUNCHES, params)
+        conv += warm_conv
+        n = counters(rk, rg)
+        if (not only_launched(n, "fused", "fused_staged")
+                or n["fused_staged"] != n["fused"]):
+            raise RuntimeError(f"mu_strategy={strategy!r}: the LV path did "
+                               "not go through the staged fused kernel "
+                               "alone")
+        log(f"  converged: cold, then every warm step {conv} (at least "
+            f"{floor['cold']}, then {floor['warm']}; the JAX package on "
+            f"the CPU: {ref['cold']}, then {ref['warm']})")
+        if conv[0] < floor["cold"] or min(conv[1:]) < floor["warm"]:
+            raise RuntimeError(f"mu_strategy={strategy!r}: convergence "
+                               f"{conv} below {floor['cold']} / "
+                               f"{floor['warm']} of {B}")
+        check_plan(res, H, 2, 1)
+        p50 = statistics.median(times)
+        log(f"  warm p50 "
+            f"{p50 * 1e3:.1f} ms ({B / p50:,.0f} solves/s), sweeps a warm "
+            f"re-plan {launches}")
+        out[strategy] = dict(gate, cold_s=cold_s, cold_sweeps=sweeps,
+                             sweeps_per_iteration=per_it, converged=conv,
+                             warm_p50_ms=p50 * 1e3, warm_sweeps=launches)
+    return out
+
+
+def phase_import(nempc, rk, rg, params, x0s, mono):
+    """Phase 4j: phase 4's surrogate copied into an nn.Sequential(Linear,
+    Tanh, ...) on the card, loaded back by load_torch_mlp (the tensors stay
+    on the card; no h5py), and one cold solve at B=4096: its plans are
+    phase 4's cold plans."""
+    try:
+        import h5py  # noqa: F401
+        has_h5py = True
+    except ImportError:
+        has_h5py = False
+    sizes = [params[0]["w"].shape[0]] + [p["w"].shape[1] for p in params]
+    mods = []
+    for i, (fi, fo) in enumerate(zip(sizes[:-1], sizes[1:])):
+        mods.append(torch.nn.Linear(fi, fo))
+        if i < len(params) - 1:
+            mods.append(torch.nn.Tanh())
+    net = torch.nn.Sequential(*mods).to("cuda")
+    with torch.no_grad():
+        for lin, layer in zip(net[::2], params):
+            lin.weight.copy_(layer["w"].T)
+            lin.bias.copy_(layer["b"])
+    model, loaded = nempc.load_torch_mlp(net.state_dict(), x_dim=2, u_dim=1)
+    if not all(t.device.type == "cuda" for layer in loaded
+               for t in layer.values()):
+        raise RuntimeError("load_torch_mlp moved the card's tensors")
+    mpc = make_controller(nempc, "cuda", model=model)
+    reset_counters(rk, rg)
+    t0 = time.perf_counter()
+    _, res = mpc.next_batch(torch.as_tensor(x0s, device="cuda"),
+                            params=loaded)
+    torch.cuda.synchronize()
+    du = float((res.u - mono.u).abs().max())
+    same = bool(torch.equal(res.converged, mono.converged))
+    log(f"imported surrogate (nn.Sequential {sizes} -> load_torch_mlp, h5py "
+        f"{'present' if has_h5py else 'absent'}), cold B={B}: "
+        f"{time.perf_counter() - t0:.2f} s  " + telemetry("cold", res)
+        + f"; against phase 4's cold plans: max |du| {du:.3e} (limit "
+        f"{IMPORT_DU}), converged masks equal: {same}")
+    n = counters(rk, rg)
+    if not (du <= IMPORT_DU and same and n["fused_staged"] > 0):
+        raise RuntimeError("the imported surrogate's plans are not phase "
+                           "4's")
+    return {"du": du, "h5py": has_h5py}
+
+
 # ---- phase 5: card vs CPU ----
 
 def card_vs_cpu(tag, solve, iterations=False):
@@ -2130,6 +2586,80 @@ def phase_card_vs_cpu_new(gd, rnn_params, z0s, qm_model, qm_params,
         raise RuntimeError("the multi-start winners differ")
 
 
+def phase_card_vs_cpu_wide_options(nempc, params, x0s, w_x0s):
+    """The wide fleet's 16 cold solves, and the solver options on 16 LV
+    members (adaptive and mehrotra; polish_fresh=True at OPT_SMALL_B;
+    hessian="gauss_newton", its converged members' plans held as the
+    budgeted fleet's; converged counts logged), on the card and on the
+    CPU."""
+    from pyneuralempc_tpu_torch.examples.fleet_wide import make_fleet_wide_mpc
+
+    card_vs_cpu(
+        f"wide fleet, H={W_H}, {N_CARD_VS_CPU} cold solves",
+        lambda dev: make_fleet_wide_mpc(dev, H=W_H).next_batch(
+            torch.as_tensor(w_x0s[:N_CARD_VS_CPU], device=dev))[1])
+
+    def lv(dev, n, **options):
+        return make_controller(nempc, dev, **options).next_batch(
+            torch.as_tensor(x0s[:n], device=dev),
+            params=[{k: v.to(dev) for k, v in layer.items()}
+                    for layer in params])[1]
+
+    for options in ({"mu_strategy": "adaptive"}, {"mu_strategy": "mehrotra"},
+                    {"polish_fresh": True}):
+        n = (N_CARD_VS_CPU if "mu_strategy" in options else OPT_SMALL_B)
+        out = card_vs_cpu(f"LV, {options}, {n} cold solves",
+                          lambda dev: lv(dev, n, **options))
+        log(f"  converged {int(out['cuda'].converged.sum())}/{n} on the "
+            f"card, {int(out['cpu'].converged.sum())}/{n} on the CPU")
+
+    # Gauss-Newton curvature converges linearly: some members take all 60
+    # iterations unconverged, their iterates no solution and parting by up
+    # to ~0.5 when the start moves by 1e-7, and a few converged plans move
+    # by ~1e-2.  So the masks are held equal, the converged members' plans
+    # as the budgeted fleet's (fixed by f32: 1e-4; flat: 1e-4 + SPREAD x
+    # their move), the unconverged members' iterates not at all
+    def gn(dev, eps):
+        return make_controller(nempc, dev, hessian="gauss_newton").next_batch(
+            torch.as_tensor(x0s[:N_CARD_VS_CPU] + np.float32(eps),
+                            device=dev),
+            params=[{k: v.to(dev) for k, v in layer.items()}
+                    for layer in params])[1]
+
+    def du(a, b):
+        return (a.u.cpu() - b.u).abs().amax(dim=(1, 2))
+
+    card, cpu = gn("cuda", 0.0), gn("cpu", 0.0)
+    moved = torch.zeros(N_CARD_VS_CPU)
+    same_iters = torch.ones(N_CARD_VS_CPU, dtype=torch.bool)
+    for eps in (PERTURB, -PERTURB):
+        alt = gn("cpu", eps)
+        moved = torch.maximum(moved, du(alt, cpu))
+        same_iters &= alt.iterations == cpu.iterations
+    conv = cpu.converged
+    fixed = conv & (moved <= DETERMINED) & same_iters
+    d = du(card, cpu)
+    limit = torch.where(fixed, torch.tensor(CARD_VS_CPU_DU),
+                        CARD_VS_CPU_DU + SPREAD * moved)
+    same = bool(torch.equal(card.converged.cpu(), conv))
+    iters = bool(torch.equal(card.iterations.cpu()[fixed],
+                             cpu.iterations[fixed]))
+    flat = torch.nonzero(conv & ~fixed).flatten().tolist()
+    log(f"card vs CPU (LV, hessian='gauss_newton', {N_CARD_VS_CPU} cold "
+        f"solves): converged {int(card.converged.sum())}/{N_CARD_VS_CPU} on "
+        f"the card, {int(conv.sum())} on the CPU, masks equal: {same}; "
+        f"{int(fixed.sum())} converged members fixed by f32, max |du| "
+        f"{float(d[fixed].max()) if bool(fixed.any()) else 0.0:.3e} on them "
+        f"(limit {CARD_VS_CPU_DU}), iterations equal on them: {iters}; "
+        f"converged and flat: {flat}, moved "
+        f"{[float(moved[i]) for i in flat]}, card vs CPU "
+        f"{[float(d[i]) for i in flat]} (limit {CARD_VS_CPU_DU} + {SPREAD} x "
+        "moved)")
+    if not (same and iters and bool((d <= limit)[conv].all())):
+        raise RuntimeError("hessian='gauss_newton': card and CPU solves "
+                           "differ")
+
+
 def phase_card_vs_cpu(nempc, params, x0s, q_x0s, eq_x0s):
     from pyneuralempc_tpu_torch.api.simulate import closed_loop_batch
     from pyneuralempc_tpu_torch.examples.fleet_eq import make_fleet_eq_mpc
@@ -2225,11 +2755,18 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     log("TF32 off for matmuls and cuDNN (full f32)")
 
-    # phase 2: build, one nvcc for each source, all at once
+    # phase 2: build, one nvcc for each source, all at once (and the wide
+    # forward instance's other candidate depth, for the turns)
     t0 = time.perf_counter()
     sources = (rk.SOURCE, rk.STREAMED_SOURCE, rk.GENERAL_SOURCE,
                rk.GENERAL_FUSED_SOURCE)
-    built = build.build_all([build.CSRC_DIR / s for s in sources])
+    alt_source = alt_depth_source(rk, build)
+    built = build.build_all([build.CSRC_DIR / s for s in sources]
+                            + [alt_source])
+    *built, alt_built = built
+    log(f"built {alt_source[0].name} (the wide forward instance at depth "
+        f"{W_ALT_DEPTH}) -> {alt_built.path.name} in "
+        f"{alt_built.seconds:.1f} s")
     for src, r in zip(sources, built):
         log(f"built {src} -> {r.path.name} in {r.seconds:.1f} s")
         for line in r.log.splitlines():
@@ -2247,9 +2784,13 @@ def main():
     new_shapes = phase_streamed_new_shapes(rk, logs[rk.STREAMED_SOURCE])
     rnn_bwd, rnn_fwd, rnn_pair_ms = new_shapes["fleet_rnn"]
     cp_bwd, cp_fwd, _ = new_shapes["cartpole"]
+    w_bwd, w_fwd, w_pair_ms = phase_streamed_wide(
+        rk, logs[rk.STREAMED_SOURCE], library_forward(alt_built.path),
+        alt_built.log)
 
-    # phases 4-4g, 6: main paths and their numbers
-    params, x0s, fused["launches"] = phase_main_path(nempc, rk, rg, card)
+    # phases 4-4j, 6: main paths and their numbers
+    params, x0s, fused["launches"], mono = phase_main_path(nempc, rk, rg,
+                                                          card)
     q_x0s, bwd["launches"], fwd["launches"] = phase_quadrotor(
         nempc, rk, rg, card, pair_ms)
     eq_x0s, gbwd["launches"], gfwd["launches"] = phase_fleet_eq(
@@ -2264,15 +2805,23 @@ def main():
      qm_split) = phase_quadrotor_mlp(nempc, rk, rg, card)
     bwd["quadrotor_mlp_instance_launches"] = bwd["quadrotor_mlp_launches"]
     fwd["quadrotor_mlp_launches"] = bwd["quadrotor_mlp_launches"]
+    w_x0s, w_bwd["launches"], w_fwd["launches"], w_split = phase_fleet_wide(
+        nempc, rk, rg, card, w_pair_ms)
+    options = phase_options(nempc, rk, rg, params, x0s, mono)
+    imported = phase_import(nempc, rk, rg, params, x0s, mono)
 
     # phase 5: card vs CPU
     phase_card_vs_cpu(nempc, params, x0s, q_x0s, eq_x0s)
     phase_card_vs_cpu_new(gd, rnn_params, z0s, qm_model, qm_params, qm_x0s)
+    phase_card_vs_cpu_wide_options(nempc, params, x0s, w_x0s)
     log(f"paths: GRU fleet {json.dumps(rnn_split)}; cartpole "
-        f"{json.dumps(cp_run)}; quadrotor MLP {json.dumps(qm_split)}")
+        f"{json.dumps(cp_run)}; quadrotor MLP {json.dumps(qm_split)}; wide "
+        f"fleet {json.dumps(w_split)}; solver options "
+        f"{json.dumps(options)}; import {json.dumps(imported)}")
 
     print(json.dumps({"kernels": [fused, bwd, fwd, gbwd, gfwd, gfused,
-                                  rnn_bwd, rnn_fwd, cp_bwd, cp_fwd]}))
+                                  rnn_bwd, rnn_fwd, cp_bwd, cp_fwd, w_bwd,
+                                  w_fwd]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

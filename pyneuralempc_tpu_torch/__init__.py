@@ -13,7 +13,9 @@ thrusts, H=50), :mod:`.examples.fleet_eq` the same fleet with a stage
 equality row and a horizon budget row, :mod:`.examples.fleet_rnn` a fleet
 with GRU dynamics (the hidden state lifted into the MPC state, H=100) and
 :mod:`.examples.cartpole` the cartpole swing-up with a nonlinear
-tip-clearance row.
+tip-clearance row, and :mod:`.examples.fleet_wide` a 10-rotor fleet (12
+states, 10 thrusts).  Trained networks load from Keras .h5 files or torch
+state_dicts (:mod:`.models.importers`).
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``.
@@ -45,6 +47,9 @@ from .core.structure import SeparableObjective, probe_stage_separable
 from .core.transcription import NLP, transcribe
 from .models.base import DynamicsModel, torch_dynamics
 from .models.convert import mlp_params_from_numpy, params_from_numpy
+from .models.importers import (load_keras_gru_h5, load_keras_h5,
+                               load_keras_h5_rolling, load_keras_lstm_h5,
+                               load_torch_mlp)
 from .models.mlp import MLPDynamics, mlp_apply, mlp_init
 from .models.rolling import RollingWindow, rolling_mlp, rolling_window
 from .models.rnn import (GRUDynamics, LSTMDynamics, StackedLSTMDynamics,
@@ -71,7 +76,9 @@ __all__ = [
     "SeparableObjective", "probe_stage_separable", "NLP", "transcribe",
     "DynamicsModel", "torch_dynamics", "mlp_params_from_numpy",
     "params_from_numpy", "MLPDynamics", "mlp_apply", "mlp_init",
-    "RollingWindow", "rolling_mlp", "rolling_window", "GRUDynamics",
+    "RollingWindow", "rolling_mlp", "rolling_window", "load_keras_h5",
+    "load_keras_lstm_h5", "load_keras_gru_h5", "load_keras_h5_rolling",
+    "load_torch_mlp", "GRUDynamics",
     "LSTMDynamics", "StackedLSTMDynamics", "gru_dynamics", "lstm_dynamics",
     "keras_gru_dynamics", "stacked_lstm_dynamics", "fit_gru_on_sequences",
     "fit_surrogate", "fit_normalized_surrogate", "sample_transitions",

@@ -13,8 +13,9 @@
 // gains layout [K | k | Pbar | pbar | Mxu], dX, dU, dLam as (B, H, 1, .);
 // Jx and dNu are then not read or written).  It replaces
 // pyneuralempc_tpu/ops/pallas/riccati_kernel.py's streamed forward calls,
-// :488 (`_forward_kernel` :305-337) at (12, 4, 1, 0), (10, 1, 1, 0) and
-// (4, 1, 1, 0), and :1024 (`_fwd_general_body` :790-847) at (12, 4, 2, 1).
+// :488 (`_forward_kernel` :305-337) at (12, 4, 1, 0), (10, 1, 1, 0),
+// (4, 1, 1, 0) and (12, 10, 1, 0), and :1024 (`_fwd_general_body`
+// :790-847) at (12, 4, 2, 1).
 //
 // What bounds it on an H100: bytes (~119 us at (12, 4, 1, 0) and ~140 us
 // at (12, 4, 2, 1) for B=4096, H=50; ~532 us at (10, 1, 1, 0) for
@@ -32,8 +33,8 @@
 // latency, and a deeper ring costs shared memory; at one warp on one SM
 // only the ring's depth does.  __launch_bounds__(128, 8) keeps eight
 // blocks of four warps an SM (B = 4096 in one wave on 132 SMs), which caps
-// D at 3, 6 and 25 at (12, 4, 1, 0), (10, 1, 1, 0) and (4, 1, 1, 0) (228 KB
-// less 1 KB a block, over 4 warps' slots).
+// D at 3, 6, 25 and 2 at (12, 4, 1, 0), (10, 1, 1, 0), (4, 1, 1, 0) and
+// (12, 10, 1, 0) (228 KB less 1 KB a block, over 4 warps' slots).
 
 #pragma once
 

@@ -46,9 +46,12 @@
 // fixed, operands reused from registers, G and M read as packed triangles
 // and four __syncwarp() phases a stage instead of ~20.  The forward entry
 // likewise launches riccati_general_forward_fixed<NX, NU, 1, 0, D>
-// (riccati_forward_fixed.cuh, shared too) at the same shapes: each warp's
-// stage inputs requested D stages ahead into a ring of stage slots, dx in
-// registers.  The run-time kernels below take every other (nx, nu).
+// (riccati_forward_fixed.cuh, shared too) at the same shapes and at the
+// wide fleet's (12, 10): each warp's stage inputs requested D stages ahead
+// into a ring of stage slots, dx in registers.  The backward template
+// cannot take (12, 10) (its lane maps need nu | 32), so the run-time
+// backward kernel does.  The run-time kernels below take every other
+// (nx, nu).
 //
 // Layouts (all float32, C-contiguous, batch first):
 //   A (B,H,NX,NX)  Bm (B,H,NX,NU)  G, M (B,H,NS,NS) symmetric, of which only
@@ -560,6 +563,7 @@ extern "C" int riccati_forward_f32(const void* A, const void* Bm,
   RICCATI_FORWARD_CASE(12, 4, 2)
   RICCATI_FORWARD_CASE(10, 1, 4)
   RICCATI_FORWARD_CASE(4, 1, 8)
+  RICCATI_FORWARD_CASE(12, 10, 2)
 #undef RICCATI_FORWARD_CASE
   return static_cast<int>(forward_runtime(A, Bm, c, gains, dX, dU, dLam,
                                           nbatch, H, nx, nu, device, s));

@@ -34,45 +34,57 @@ ARM, KTAU = 0.17, 0.016   # arm length, yaw-torque/thrust ratio
 F_HOVER = M * G / 4.0
 
 
+def rigid_body(x, T, tau, M, J):
+    """Continuous-time rigid-body dynamics on (T, 12) states: position p(3),
+    velocity v(3), attitude (roll, pitch, yaw; ZYX Euler), body rates ω(3),
+    driven by the total thrust ``T`` (·, 1) along the body z-axis and the
+    body torques ``tau`` (·, 3); mass ``M``, inertia ``J`` = (JX, JY,
+    JZ)."""
+    JX, JY, JZ = J
+    v = x[:, 3:6]
+    phi, th, psi = x[:, 6:7], x[:, 7:8], x[:, 8:9]
+    om = x[:, 9:12]
+    p_, q_, r_ = om[:, 0:1], om[:, 1:2], om[:, 2:3]
+
+    sph, cph = torch.sin(phi), torch.cos(phi)
+    sth, cth = torch.sin(th), torch.cos(th)
+    sps, cps = torch.sin(psi), torch.cos(psi)
+
+    # body z-axis in world frame (ZYX euler)
+    zb = torch.cat([cph * sth * cps + sph * sps,
+                    cph * sth * sps - sph * cps,
+                    cph * cth], dim=1)
+    acc = (T / M) * zb - torch.cat(
+        [torch.zeros_like(T), torch.zeros_like(T),
+         torch.full_like(T, G)], dim=1)
+
+    # euler kinematics
+    tth = sth / torch.clamp(cth, min=1e-3)
+    dphi = p_ + sph * tth * q_ + cph * tth * r_
+    dth = cph * q_ - sph * r_
+    dpsi = (sph * q_ + cph * r_) / torch.clamp(cth, min=1e-3)
+
+    tau_x, tau_y, tau_z = tau[:, 0:1], tau[:, 1:2], tau[:, 2:3]
+    dom = torch.cat(
+        [(tau_x - (JZ - JY) * q_ * r_) / JX,
+         (tau_y - (JX - JZ) * p_ * r_) / JY,
+         (tau_z - (JY - JX) * p_ * q_) / JZ], dim=1)
+
+    return torch.cat([v, acc, torch.cat([dphi, dth, dpsi], dim=1), dom],
+                     dim=1)
+
+
 def quad_f():
     """Continuous-time rigid-body dynamics ``f(x, u)`` on (T, 12), (T, 4)."""
 
     def f(x, u):
-        v = x[:, 3:6]
-        phi, th, psi = x[:, 6:7], x[:, 7:8], x[:, 8:9]
-        om = x[:, 9:12]
-        p_, q_, r_ = om[:, 0:1], om[:, 1:2], om[:, 2:3]
-
-        T = torch.sum(u, dim=1, keepdim=True)
-        sph, cph = torch.sin(phi), torch.cos(phi)
-        sth, cth = torch.sin(th), torch.cos(th)
-        sps, cps = torch.sin(psi), torch.cos(psi)
-
-        # body z-axis in world frame (ZYX euler)
-        zb = torch.cat([cph * sth * cps + sph * sps,
-                        cph * sth * sps - sph * cps,
-                        cph * cth], dim=1)
-        acc = (T / M) * zb - torch.cat(
-            [torch.zeros_like(T), torch.zeros_like(T),
-             torch.full_like(T, G)], dim=1)
-
-        # euler kinematics
-        tth = sth / torch.clamp(cth, min=1e-3)
-        dphi = p_ + sph * tth * q_ + cph * tth * r_
-        dth = cph * q_ - sph * r_
-        dpsi = (sph * q_ + cph * r_) / torch.clamp(cth, min=1e-3)
-
         # torques from differential thrust (x config)
-        tau_x = ARM * (u[:, 1:2] - u[:, 3:4])
-        tau_y = ARM * (u[:, 2:3] - u[:, 0:1])
-        tau_z = KTAU * (u[:, 0:1] - u[:, 1:2] + u[:, 2:3] - u[:, 3:4])
-        dom = torch.cat(
-            [(tau_x - (JZ - JY) * q_ * r_) / JX,
-             (tau_y - (JX - JZ) * p_ * r_) / JY,
-             (tau_z - (JY - JX) * p_ * q_) / JZ], dim=1)
-
-        return torch.cat([v, acc, torch.cat([dphi, dth, dpsi], dim=1), dom],
-                         dim=1)
+        tau = torch.cat([ARM * (u[:, 1:2] - u[:, 3:4]),
+                         ARM * (u[:, 2:3] - u[:, 0:1]),
+                         KTAU * (u[:, 0:1] - u[:, 1:2] + u[:, 2:3]
+                                 - u[:, 3:4])], dim=1)
+        return rigid_body(x, torch.sum(u, dim=1, keepdim=True), tau, M,
+                          (JX, JY, JZ))
 
     return f
 

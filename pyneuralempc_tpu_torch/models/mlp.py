@@ -25,7 +25,9 @@ from .base import DynamicsModel
 _ACTIVATIONS = {
     "tanh": torch.tanh,
     "relu": torch.relu,
-    "gelu": torch.nn.functional.gelu,
+    # jax.nn.gelu's default, the tanh approximation (torch's default, the
+    # exact erf form, differs by up to 4.7e-4)
+    "gelu": lambda x: torch.nn.functional.gelu(x, approximate="tanh"),
     "swish": torch.nn.functional.silu,
     "sigmoid": torch.sigmoid,
     "linear": lambda x: x,

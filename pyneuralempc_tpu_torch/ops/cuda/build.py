@@ -68,20 +68,23 @@ def nvcc_command(nvcc: str, source: Path, out: Path,
     return [nvcc, *flags, "-o", str(out), str(source)]
 
 
-def build_all(sources: Sequence[Path]) -> List[BuildResult]:
+def build_all(sources: Sequence) -> List[BuildResult]:
     """Build every source that is not built already, one ``nvcc`` for each,
-    all started together.  Raises with nvcc's output if a build fails
-    (after every build has ended)."""
+    all started together.  A source is a path, or a (path, extra nvcc
+    flags) pair.  Raises with nvcc's output if a build fails (after every
+    build has ended)."""
     results: List[BuildResult] = [None] * len(sources)
     running = []
-    for n, source in enumerate(sources):
-        out = library_path(source)
+    for n, item in enumerate(sources):
+        source, extra = item if isinstance(item, tuple) else (item, ())
+        flags = NVCC_FLAGS + tuple(extra)
+        out = library_path(source, flags)
         if out.exists():
             results[n] = BuildResult(out, 0.0, "")
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        proc = subprocess.Popen(nvcc_command(find_nvcc(), source, tmp),
+        proc = subprocess.Popen(nvcc_command(find_nvcc(), source, tmp, flags),
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running.append((n, source, out, tmp, proc, time.perf_counter()))

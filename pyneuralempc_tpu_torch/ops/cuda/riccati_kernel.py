@@ -26,8 +26,8 @@ the backward kernel (:468) and the forward kernel (:488).
   (4, 1)), and the run-time kernel for every other; the forward entry
   likewise a compile-time instance of the general sweep's forward template
   (``csrc/riccati_forward_fixed.cuh``, a ring of stage slots a warp) for
-  the (nx, nu) in ``_FORWARD_INSTANCES`` (the same three), and the
-  run-time kernel for every other.
+  the (nx, nu) in ``_FORWARD_INSTANCES`` (the same three and the wide
+  fleet's (12, 10)), and the run-time kernel for every other.
 
 Beside them:
 
@@ -90,11 +90,12 @@ _INSTANCES = frozenset({(2, 1)})
 _BACKWARD_INSTANCES = frozenset({(12, 4), (10, 1), (4, 1)})
 # (nx, nu) -> ring depth D for which csrc/riccati_streamed.cu's forward
 # entry launches the compile-time instance riccati_general_forward_fixed<nx,
-# nu, 1, 0, D> (its C entry point's list); every other shape takes the
-# run-time forward kernel.  Each depth was chosen by turns on an H100
-# (PERF.md; eight blocks of four warps an SM cap the depth at 3 at
-# (12, 4)).
-_FORWARD_INSTANCES = {(12, 4): 2, (10, 1): 4, (4, 1): 8}
+# nu, 1, 0, D> (its C entry point's list): the three stages above and the
+# wide fleet's (12, 10), which the backward template cannot take.  Every
+# other shape takes the run-time forward kernel.  Each depth was chosen by
+# turns on an H100 (PERF.md; eight blocks of four warps an SM cap the
+# depth at 3 at (12, 4) and at 2 at (12, 10)).
+_FORWARD_INSTANCES = {(12, 4): 2, (10, 1): 4, (4, 1): 8, (12, 10): 2}
 # Stage widths csrc/riccati_streamed.cu takes: one lane per state row in
 # the forward kernel; nu <= 16 is the reference kernel's own cap.
 STREAMED_MAX_NX = 32
@@ -317,6 +318,8 @@ def kernel_plan(H: int, nx: int, nu: int, device, R: int = 1,
                               f"{nu}): {how}"}
         if _streamed_fits(nx, nu):
             return {"path": "cuda_streamed",
+                    "backward_kernel": backward_kernel(nx, nu),
+                    "forward_kernel": forward_kernel(nx, nu),
                     "reason": f"csrc/{STREAMED_SOURCE} takes nx={nx}, "
                               f"nu={nu} at run time"}
     return {"path": "unsupported",

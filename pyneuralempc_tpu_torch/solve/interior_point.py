@@ -51,11 +51,23 @@ class IPConfig:
     """Solver configuration.  Fields and defaults are the JAX package's
     (see its ``IPConfig`` for the measurements behind each default).
 
-    Not ported yet, and raising ``NotImplementedError``:
-    ``mu_strategy`` "adaptive"/"mehrotra" and ``hessian``
-    "objective"/"gauss_newton" (ROADMAP Queue 1 #5b), ``record=True`` and
-    ``debug=True`` (ROADMAP Queue 1 #15), ``kkt="dense"`` (ROADMAP Queue 1
-    #10).
+    ``mu_strategy``: "monotone" (Fiacco-McCormick), "adaptive" (the LOQO
+    centrality rule: μ = σ · the average complementarity, σ set by the
+    worst pair) or "mehrotra" (predictor-corrector: an affine predictor on
+    the same stage blocks, σ = (μ_aff / avg)³, and the second-order Δs∘Δz
+    terms in the corrector's right-hand side; one more sweep a Newton
+    step).  ``hessian``: "exact", or "objective" / "gauss_newton", which
+    drop the defect and stage-constraint curvature from the stage blocks
+    (the Jacobians then take one forward-mode pass, no reverse pass).
+    ``gn_reg`` is the dense backend's curvature floor for the non-exact
+    modes; the Riccati backend has no use for it, so it is carried and
+    read nowhere until the dense backend lands (ROADMAP Queue 1 #10).
+    ``polish_fresh`` re-derives the stage blocks at the converged point
+    before the polish steps instead of reusing the last iteration's.
+
+    Not ported yet, and raising ``NotImplementedError``: ``record=True``
+    and ``debug=True`` (ROADMAP Queue 1 #15), ``kkt="dense"`` (ROADMAP
+    Queue 1 #10), ``kkt="riccati_pscan"`` (ROADMAP Queue 1 #14).
     """
 
     max_iter: int = 60
@@ -81,10 +93,13 @@ class IPConfig:
     polish_iters: int = 0          # fixed centering steps at polish_mu
     polish_mu: float = 1e-8
     warm_z_corridor: float = 1e2   # warm-start bound-dual re-centering
+    polish_fresh: bool = False     # fresh stage blocks for the polish
     delta_c: float = 1e-8          # dual regularisation of the equality
                                    # rows of the Riccati general path
     nu_init: float = 1.0           # merit penalty initial value
-    hessian: str = "exact"
+    hessian: str = "exact"         # "exact" | "objective" | "gauss_newton"
+    gn_reg: float = 1e-6           # curvature floor of the non-exact modes
+                                   # (dense backend only)
     kkt: str = "auto"              # "auto" | "riccati"
     auto_scale: bool = True        # gradient-based objective scaling
     scale_gmax: float = 100.0
@@ -98,11 +113,6 @@ class IPConfig:
             raise ValueError(f"unknown mu_strategy {self.mu_strategy!r}")
         if self.kkt not in ("auto", "riccati", "dense", "riccati_pscan"):
             raise ValueError(f"unknown kkt backend {self.kkt!r}")
-        if self.hessian != "exact" or self.mu_strategy != "monotone":
-            raise NotImplementedError(
-                f"hessian={self.hessian!r}, mu_strategy="
-                f"{self.mu_strategy!r}: only the exact Hessian and the "
-                "monotone μ rule are ported (ROADMAP Queue 1 #5b)")
         if self.kkt == "dense":
             raise NotImplementedError(
                 "kkt='dense': the dense backend is ROADMAP Queue 1 #10")
@@ -200,14 +210,16 @@ def make_solver(nlp: NLP, config: IPConfig = IPConfig(),
     has_lb = torch.isfinite(lb)
     has_ub = torch.isfinite(ub)
     n_bounds = float(max(int(has_lb.sum()) + int(has_ub.sum()), 1))
+    n_act = float(max(int((has_lb | has_ub).sum()), 1))   # bounded entries
     bl = torch.where(has_lb, lb, -torch.inf)
     bu = torch.where(has_ub, ub, torch.inf)
 
     direction_fn = direction(nlp, cfg)
     prep_fn = direction_fn.prepare
     solve_blocks_fn = direction_fn.solve_blocks
-    # the polish phase re-solves with the last iteration's blocks
-    _carry_blocks = cfg.polish_iters > 0
+    # the polish phase re-solves with the last iteration's blocks, unless
+    # it derives fresh ones at the converged point
+    _carry_blocks = cfg.polish_iters > 0 and not cfg.polish_fresh
 
     # ---- per-member NLP functions, batched with vmap.  The runtime dict
     # splits into per-member entries (x0, _s_obj and whichever of p, tvp,
@@ -370,14 +382,28 @@ def make_solver(nlp: NLP, config: IPConfig = IPConfig(),
         sl, su = slacks(w)
         g, c, ATlam = state.g, state.c_res, state.ATlam
 
-        # monotone μ rule
-        err_mu = kkt_error(w, lam, zl, zu, g, ATlam, c, mu)
-        shrink = err_mu <= cfg.kappa_eps * mu
-        mu = torch.where(
-            shrink,
-            torch.clamp(torch.minimum(cfg.kappa_mu * mu, mu ** cfg.theta_mu),
-                        min=cfg.tol / 10.0),
-            mu)
+        # μ rule; every reduction runs over a member's own entries (dim
+        # -1), never over the batch
+        if cfg.mu_strategy == "adaptive":
+            # LOQO centrality rule: μ = σ · the average complementarity,
+            # σ set by how far the worst pair is off centre
+            comp = (torch.where(has_lb, zl * sl, 0.0)
+                    + torch.where(has_ub, zu * su, 0.0))
+            avg = comp.sum(-1) / n_act
+            min_c = torch.where(has_lb | has_ub, comp, torch.inf).amin(-1)
+            xi = torch.clamp(min_c / torch.clamp(avg, min=1e-12), 1e-6, 1.0)
+            sigma = 0.1 * torch.clamp(0.05 * (1.0 - xi) / xi, max=2.0) ** 3
+            mu = torch.clamp(sigma * avg, cfg.tol / 10.0, cfg.mu_init)
+        elif cfg.mu_strategy == "monotone":
+            err_mu = kkt_error(w, lam, zl, zu, g, ATlam, c, mu)
+            shrink = err_mu <= cfg.kappa_eps * mu
+            mu = torch.where(
+                shrink,
+                torch.clamp(torch.minimum(cfg.kappa_mu * mu,
+                                          mu ** cfg.theta_mu),
+                            min=cfg.tol / 10.0),
+                mu)
+        # "mehrotra": μ comes from the predictor below
 
         # feasibility-restoration watchdog: no relative θ progress for
         # cfg.watchdog iterations while infeasible -> this iteration's
@@ -405,8 +431,34 @@ def make_solver(nlp: NLP, config: IPConfig = IPConfig(),
         def resolve_kkt(r2, c2, retry=True):
             return solve_blocks_fn(blocks, Sigma, r2, c2, retry=retry)
 
-        r_tilde = (g + ATlam - torch.where(has_lb, _col(mu) / sl, 0.0)
-                   + torch.where(has_ub, _col(mu) / su, 0.0))
+        # the barrier terms μ (less Mehrotra's second-order Δs∘Δz
+        # corrections) over each bound's slack
+        mu_l = mu_u = _col(mu)
+        if cfg.mu_strategy == "mehrotra":
+            # affine predictor: the same blocks, a μ = 0 right-hand side
+            dw_a, _, ok_a = resolve_kkt(g + ATlam, c)
+            dzl_a = torch.where(has_lb, -zl - (zl / sl) * dw_a, 0.0)
+            dzu_a = torch.where(has_ub, (zu / su) * dw_a - zu, 0.0)
+            a_p = _col(ftb_tau(sl, su, dw_a, 1.0))
+            a_d = _col(torch.clamp(torch.minimum(dual_cap(zl, dzl_a, 1.0),
+                                                 dual_cap(zu, dzu_a, 1.0)),
+                                   max=1.0))
+            comp_now = (torch.where(has_lb, sl * zl, 0.0)
+                        + torch.where(has_ub, su * zu, 0.0))
+            comp_aff = (torch.where(has_lb, (sl + a_p * dw_a)
+                                    * (zl + a_d * dzl_a), 0.0)
+                        + torch.where(has_ub, (su - a_p * dw_a)
+                                      * (zu + a_d * dzu_a), 0.0))
+            avg = comp_now.sum(-1) / n_bounds
+            mu_aff = comp_aff.sum(-1) / n_bounds
+            sigma = torch.clamp((mu_aff / torch.clamp(avg, min=1e-12)) ** 3,
+                                0.0, 1.0)
+            mu = torch.clamp(sigma * avg, cfg.tol / 10.0, cfg.mu_init)
+            # the corrections apply where the predictor's solve succeeded
+            mu_l = _col(mu) - torch.where(_col(ok_a), dw_a * dzl_a, 0.0)
+            mu_u = _col(mu) - torch.where(_col(ok_a), -dw_a * dzu_a, 0.0)
+        r_tilde = (g + ATlam - torch.where(has_lb, mu_l / sl, 0.0)
+                   + torch.where(has_ub, mu_u / su, 0.0))
         r_tilde = torch.where(_col(restore), 0.0, r_tilde)
         dw, dlam, ok = resolve_kkt(r_tilde, c)
         # when even the top δ fails: scaled steepest descent on the barrier
@@ -424,8 +476,8 @@ def make_solver(nlp: NLP, config: IPConfig = IPConfig(),
         dw = torch.where(_col(restore), dw * _col(scale_r), dw)
         dlam = torch.where(_col(restore), 0.0, dlam)
 
-        dzl = torch.where(has_lb, _col(mu) / sl - zl - (zl / sl) * dw, 0.0)
-        dzu = torch.where(has_ub, (zu / su) * dw - zu + _col(mu) / su, 0.0)
+        dzl = torch.where(has_lb, mu_l / sl - zl - (zl / sl) * dw, 0.0)
+        dzu = torch.where(has_ub, (zu / su) * dw - zu + mu_u / su, 0.0)
 
         # --- fraction-to-boundary step caps ---
         tau = torch.clamp(1.0 - mu, min=cfg.tau_min)
@@ -561,11 +613,13 @@ def make_solver(nlp: NLP, config: IPConfig = IPConfig(),
     def polish(state: IPState, rt) -> IPState:
         """Fixed extra centering at μ = polish_mu: strips the O(μ_floor)
         barrier bias from the converged point.  Each step is an rhs-only
-        re-solve with the carried (one step stale) stage blocks, full steps
+        re-solve with the carried (one step stale) stage blocks, or with
+        blocks derived at the converged point (``polish_fresh``), full steps
         under the fraction-to-boundary cap; a final rollback guard keeps
         the polished point only where the μ=0 KKT error did not degrade."""
         mu_p = cfg.polish_mu
-        blocks = state.blocks
+        blocks = (state.blocks if _carry_blocks
+                  else prep_fn(state.w, state.lam, rt))
         tau = torch.full_like(state.mu, cfg.tau_min)
         # f32-representable slack floor: lb + 1e-10 rounds to lb in f32
         fl = torch.where(has_lb, lb + 2e-7 * torch.clamp(lb.abs(), min=1.0),

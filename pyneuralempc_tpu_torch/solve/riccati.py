@@ -110,6 +110,10 @@ def make_riccati_direction(nlp: NLP, cfg) -> Callable:
     phi = step_fn(spec.model, spec.integrator, spec.DT)
     stage_cost = spec.objective
     dev = nlp.lower.device
+    # "objective" / "gauss_newton" drop the defect and stage-constraint
+    # curvature (G and Cv zero); the Riccati path has no dense W for
+    # cfg.gn_reg to floor
+    exact = cfg.hessian == "exact"
 
     # ---- static constraint-layout metadata (numpy, build time) ----
     # Rows of C after the defects follow spec order; the slack segment of w
@@ -200,6 +204,13 @@ def make_riccati_direction(nlp: NLP, cfg) -> Callable:
             def f(xu):
                 return phi1(xu[:nx], xu[nx:], p, tvp_t, params)
 
+            xu = torch.cat([x_t, u_t])
+            if not exact:
+                # objective-only / Gauss-Newton curvature: no defect
+                # curvature, so no reverse pass
+                J = jacfwd(f)(xu)
+                return J[:, :nx], J[:, nx:], J.new_zeros((ns, ns))
+
             # forward-over-reverse: one jacfwd pass of the vjp gives the
             # defect curvature G = ∇²(λᵀΦ) and, as the tangent of the
             # primal output, the Jacobian J = ∂Φ
@@ -207,7 +218,7 @@ def make_riccati_direction(nlp: NLP, cfg) -> Callable:
                 v, vjp_fn = vjp(f, z)
                 return vjp_fn(lam_row)[0], v
 
-            G, J = jacfwd(grad_and_val)(torch.cat([x_t, u_t]))
+            G, J = jacfwd(grad_and_val)(xu)
             return J[:, :nx], J[:, nx:], G
 
         A, Bm, G = over_stages(per_stage, xprev, U, lam_t)
@@ -258,7 +269,8 @@ def make_riccati_direction(nlp: NLP, cfg) -> Callable:
             M = M * s_obj.reshape(-1, 1, 1, 1)
 
         # Stage-constraint blocks: the Jacobian J_g = ∂g/∂(x_{t+1}, u_t)
-        # and the curvature ν_tᵀ∇²g_t by the same jacfwd-over-vjp.  The
+        # and (exact mode) the curvature ν_tᵀ∇²g_t by the same
+        # jacfwd-over-vjp.  The
         # curvature joins M AFTER the s_obj scaling: it is Lagrangian
         # curvature, not objective.  ν_t covers all of the stage's rows.
         Jgs = []
@@ -276,6 +288,9 @@ def make_riccati_direction(nlp: NLP, cfg) -> Callable:
                     v, vjp_fn = vjp(gfun, zz)
                     return vjp_fn(nu_t)[0], v
                 z = torch.cat([x_n, u_t])
+                if not exact:
+                    Jg = jacfwd(gfun)(z)
+                    return Jg.to(z.dtype), z.new_zeros((ns, ns))
                 Cv, Jg = jacfwd(grad_and_val)(z)
                 # jacfwd of a row linear in z comes back as float64
                 return Jg.to(z.dtype), Cv.to(z.dtype)

@@ -92,8 +92,8 @@ def test_next_single_problem_matches_jax(surrogate):
 
 
 def test_unported_features_raise():
-    for kw in ({"mu_strategy": "adaptive"}, {"hessian": "gauss_newton"},
-               {"record": True}, {"kkt": "dense"}, {"debug": True}):
+    for kw in ({"record": True}, {"kkt": "dense"}, {"debug": True},
+               {"kkt": "riccati_pscan"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.IPConfig(**kw)
     with pytest.raises(ValueError):

@@ -888,6 +888,73 @@ def test_streamed_instances_repeat_at_any_alignment(nx, nu):
         _same_bits(m, q)
 
 
+@pytest.mark.parametrize("kind", KINDS4)
+@pytest.mark.parametrize("H", [50, 7])
+def test_wide_pair_at_12_10(kind, H):
+    """The wide fleet's stage (12, 10): the backward entry takes the
+    run-time kernel (the template needs nu | 32), the forward entry its
+    compile-time instance.  Gains and ok flags against the plain backward,
+    the forward instance against the plain forward and bit for bit against
+    the run-time forward kernel on the same gains, the pair end to end, and
+    the counters."""
+    _card()
+    assert rk.backward_kernel(12, 10) == "riccati_backward_kernel"
+    assert rk.forward_kernel(12, 10).startswith(
+        "riccati_general_forward_fixed<12, 10, 1, 0, ")
+    args = [torch.as_tensor(a, device="cuda")
+            for a in sweep_case(kind, B=257, H=H, nx=12, nu=10, seed=H)]
+
+    def counts():
+        return (rk.BACKWARD_LAUNCHES, rk.BACKWARD_INSTANCE_LAUNCHES,
+                rk.FORWARD_LAUNCHES, rk.FORWARD_INSTANCE_LAUNCHES,
+                rk.FORWARD_RUNTIME_LAUNCHES)
+
+    n0 = counts()
+    gains, ok = rk.riccati_backward_cuda(*args)
+    ins = (args[0], args[1], args[6], gains)
+    out = rk.riccati_forward_cuda(*ins)
+    rt = rk.riccati_forward_runtime_cuda(*ins)
+    torch.cuda.synchronize()
+    assert counts() == (n0[0] + 1, n0[1], n0[2] + 1, n0[3] + 1, n0[4] + 1)
+    g_ref, ok_ref = rk.riccati_backward_plain(*args)
+    assert torch.equal(ok, ok_ref)
+    assert _scaled_err(gains, g_ref, ok_ref) <= STREAMED_ATOL
+    ref = rk.riccati_forward_plain(*ins)
+    for o, r, q in zip(out, ref, rt):
+        assert _scaled_err(o, r, ok_ref) <= STREAMED_ATOL
+        _same_bits(o, q)
+    pair = rk.riccati_sweep_streamed_cuda(*args)
+    plain = rk.riccati_sweep_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(pair[3], plain[3])
+    for o, r in zip(pair[:3], plain[:3]):
+        assert _scaled_err(o, r, plain[3]) <= STREAMED_ATOL
+
+
+def test_wide_fleet_card_matches_cpu():
+    """Eight wide-fleet problems (12 states, 10 thrusts, H=20) cold and one
+    warm re-plan on the card and on the CPU: equal masks and iterations,
+    |Δu|∞ ≤ 1e-4, and the card's sweeps through the (12, 10) pair."""
+    _card()
+    from pyneuralempc_tpu_torch.examples import fleet_wide
+    xs = fleet_wide.wide_x0s(np.random.default_rng(0), 8)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        mpc = fleet_wide.make_fleet_wide_mpc(dev, H=20)
+        n0 = (rk.FORWARD_INSTANCE_LAUNCHES, rk.BACKWARD_LAUNCHES)
+        carry, cold = mpc.next_batch(torch.tensor(xs, device=dev))
+        _, warm = mpc.next_batch(cold.x[:, 0].contiguous(), carry=carry)
+        if dev == "cuda":
+            assert rk.FORWARD_INSTANCE_LAUNCHES > n0[0]
+            assert rk.BACKWARD_LAUNCHES > n0[1]
+        out[dev] = (cold, warm)
+    for card, cpu in zip(out["cuda"], out["cpu"]):
+        assert bool(cpu.converged.all())
+        assert torch.equal(card.converged.cpu(), cpu.converged)
+        assert torch.equal(card.iterations.cpu(), cpu.iterations)
+        assert float((card.u.cpu() - cpu.u).abs().max()) <= 1e-4
+
+
 def _decay_mpc(device):
     """ẋ = −params·x + u tracking x = 0.5 with a small control cost (RK4,
     H=10): a strongly convex problem, so f32 rounding stays small."""

@@ -34,7 +34,9 @@ def test_fresh_import_pulls_in_no_jax():
             "pyneuralempc_tpu_torch.examples.fleet_rnn, "
             "pyneuralempc_tpu_torch.examples.quadrotor, "
             "pyneuralempc_tpu_torch.models.rnn, "
-            "pyneuralempc_tpu_torch.models.rolling; "
+            "pyneuralempc_tpu_torch.models.rolling, "
+            "pyneuralempc_tpu_torch.models.importers, "
+            "pyneuralempc_tpu_torch.examples.fleet_wide; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -72,19 +74,26 @@ def test_entry_points_default_to_the_card():
             param = inspect.signature(fn).parameters.get("device")
             if param is not None and param.default is not param.empty:
                 checked[qual] = param.default
+    # load_torch_mlp keeps a given tensor's device unless asked for
+    # another (numpy arrays go to the card)
+    assert checked.pop("load_torch_mlp") is None
     assert {"NMPC.__init__", "sample_transitions", "mlp_init",
             "MLPDynamics.init_params", "DynamicsModel.init_params",
             "mlp_params_from_numpy", "params_from_numpy", "transcribe",
             "Box.tile", "fit_normalized_surrogate", "GRUDynamics.init_params",
-            "LSTMDynamics.init_params"} <= set(checked)
+            "LSTMDynamics.init_params", "load_keras_h5",
+            "load_keras_lstm_h5", "load_keras_gru_h5",
+            "load_keras_h5_rolling"} <= set(checked)
     assert all(d == "cuda" for d in checked.values()), checked
     # the new examples' builders and the models' initialisers too
-    from pyneuralempc_tpu_torch.examples import cartpole, fleet_rnn, quadrotor
+    from pyneuralempc_tpu_torch.examples import (cartpole, fleet_rnn,
+                                                 fleet_wide, quadrotor)
     from pyneuralempc_tpu_torch.models import rnn
     for fn in (cartpole.make_cartpole_mpc, cartpole.fit_cartpole_mlp,
                cartpole.swing_up, fleet_rnn.fit_fleet_gru,
                fleet_rnn.make_fleet_rnn_mpc, fleet_rnn.fleet_starts,
                quadrotor.fit_quad_mlp, quadrotor.make_quadrotor_mpc,
+               fleet_wide.make_fleet_wide_mpc,
                rnn.gru_init, rnn.lstm_init):
         assert inspect.signature(fn).parameters["device"].default == \
             "cuda", fn

@@ -39,6 +39,28 @@ def test_mlp_forward_matches_jax():
         rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("activation",
+                         ["tanh", "relu", "gelu", "swish", "sigmoid"])
+def test_mlp_activations_match_jax(activation):
+    """Every hidden activation of the JAX package's MLP, on inputs wide
+    enough to reach each one's tails.  (Port fault F4: "gelu" was torch's
+    exact erf form, 4.7e-4 off jax.nn.gelu's default tanh approximation.)"""
+    P = glorot_params(1)
+    jm = J.MLPDynamics.make(x_dim=2, u_dim=1, hidden=[32, 32],
+                            activation=activation)
+    tm = T.MLPDynamics.make(x_dim=2, u_dim=1, hidden=[32, 32],
+                            activation=activation)
+    rng = np.random.default_rng(1)
+    x = rng.uniform(-4, 4, (64, 2)).astype(np.float32)
+    u = rng.uniform(-4, 4, (64, 1)).astype(np.float32)
+    np.testing.assert_allclose(
+        tm(torch.as_tensor(x), torch.as_tensor(u),
+           params=T.mlp_params_from_numpy(P, device="cpu")).numpy(),
+        np.asarray(jm(jnp.asarray(x), jnp.asarray(u),
+                      params=jax_params(P))),
+        rtol=RTOL, atol=ATOL)
+
+
 @pytest.mark.parametrize("integrator", ["delta", "euler", "rk4", "direct"])
 def test_step_fn_matches_jax(integrator):
     (jm, jp), (tm, tp) = _models(glorot_params(1))

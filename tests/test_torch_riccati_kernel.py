@@ -112,11 +112,16 @@ def test_kernel_plan_names_the_fused_general_kernel():
     """The fused plans name a kernel of csrc/riccati_general_fused.cu (or
     csrc/riccati_sweep.cu) and the problems of its staged block: the fused
     general plan, and the fused plain one at (2, 1), which takes the staged
-    kernel at <2, 1, 1, 0>; the streamed plans name none."""
+    kernel at <2, 1, 1, 0>; the streamed plans name no fused kernel (the
+    plain streamed plan names its backward and forward kernels)."""
     plain = rk.kernel_plan(20, 2, 1, "cuda")
     assert (plain["path"], plain["kernel"], plain["block_problems"]) == (
         "cuda_fused", "riccati_general_fused_staged_kernel", 32)
-    assert set(rk.kernel_plan(50, 12, 4, "cuda")) == {"path", "reason"}
+    streamed = rk.kernel_plan(50, 12, 4, "cuda")
+    assert set(streamed) == {"path", "backward_kernel", "forward_kernel",
+                             "reason"}
+    assert (streamed["backward_kernel"], streamed["forward_kernel"]) == (
+        rk.backward_kernel(12, 4), rk.forward_kernel(12, 4))
     assert set(rk.kernel_plan(50, 12, 4, "cuda", R=2, r=1)) == {"path",
                                                                 "reason"}
     staged = rk.kernel_plan(20, 2, 1, "cuda", R=2, r=0)

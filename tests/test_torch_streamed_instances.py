@@ -28,6 +28,9 @@ STREAMED = (CSRC / rk.STREAMED_SOURCE).read_text()
 GENERAL = (CSRC / rk.GENERAL_SOURCE).read_text()
 HEADER = (CSRC / "riccati_forward_fixed.cuh").read_text()
 PLAIN_INSTANCES = {(12, 4), (10, 1), (4, 1)}
+# the forward instances: the same stages and the wide fleet's (12, 10),
+# which the backward template cannot take
+FORWARD_SHAPES = PLAIN_INSTANCES | {(12, 10)}
 SMEM_PER_SM = 228 * 1024     # an H100 SM's shared memory
 SMEM_RESERVED = 1024         # the runtime's reserve a block
 
@@ -41,11 +44,13 @@ def _cases(macro, text, n):
 def test_forward_instances_match_the_c_entry_point():
     """riccati_forward_f32's list names each instance's ring depth, and is
     exactly _FORWARD_INSTANCES (shape -> depth): the quadrotor's, the GRU
-    fleet's and cartpole's stages."""
+    fleet's, cartpole's and the wide fleet's stages."""
     cases = _cases("RICCATI_FORWARD_CASE", STREAMED, 3)
     assert {(nx, nu): d for nx, nu, d in cases} == rk._FORWARD_INSTANCES
     assert len(cases) == len(rk._FORWARD_INSTANCES)
-    assert set(rk._FORWARD_INSTANCES) == PLAIN_INSTANCES
+    assert set(rk._FORWARD_INSTANCES) == FORWARD_SHAPES
+    assert set(_cases("RICCATI_BACKWARD_CASE", STREAMED, 2)) == \
+        PLAIN_INSTANCES == set(rk._BACKWARD_INSTANCES)
     entry = STREAMED[STREAMED.index('int riccati_forward_f32('):]
     assert "int depth" not in entry[:entry.index("{")]
     assert 'extern "C" int riccati_forward_runtime_f32(' in STREAMED
@@ -94,21 +99,22 @@ def test_forward_template_lives_in_one_header():
 
 
 @pytest.mark.parametrize("nx,nu,floats", [(12, 4, 476), (10, 1, 272),
-                                          (4, 1, 68)])
+                                          (4, 1, 68), (12, 10, 700)])
 def test_forward_slot_floats_hand_worked(nx, nu, floats):
     """One stage slot at one right-hand side and no equality rows: A, B, c
     and the gains, each with 3 floats of room for its source's offset,
-    rounded to 16 bytes (at (4, 1): 20 + 8 + 8 + 32)."""
+    rounded to 16 bytes (at (4, 1): 20 + 8 + 8 + 32; at (12, 10): 148 +
+    124 + 16 + 412)."""
     assert rk.forward_slot_floats(nx, nu, 1, 0) == floats
 
 
-@pytest.mark.parametrize("shape", sorted(PLAIN_INSTANCES))
+@pytest.mark.parametrize("shape", sorted(FORWARD_SHAPES))
 def test_each_ring_fits_eight_blocks(shape):
     """At its depth (and at the cap) a block of four warps' rings leaves
     room for eight blocks an SM, as __launch_bounds__(128, 8) asks; the
     next depth past the cap would not."""
     nx, nu = shape
-    cap = {(12, 4): 3, (10, 1): 6, (4, 1): 25}[shape]
+    cap = {(12, 4): 3, (10, 1): 6, (4, 1): 25, (12, 10): 2}[shape]
     for depth in (rk._FORWARD_INSTANCES[shape], cap):
         assert depth <= cap
         assert 8 * (rk.forward_ring_bytes(nx, nu, 1, 0, depth)
@@ -125,14 +131,14 @@ def test_forward_kernel_rule(nx, nu):
     other; no name holds another, across shapes and the general
     instance."""
     name = rk.forward_kernel(nx, nu)
-    if (nx, nu) in PLAIN_INSTANCES:
+    if (nx, nu) in FORWARD_SHAPES:
         d = rk._FORWARD_INSTANCES[nx, nu]
         assert name == f"riccati_general_forward_fixed<{nx}, {nu}, 1, 0, {d}>"
     else:
         assert name == "riccati_forward_kernel"
     names = ["riccati_forward_kernel", "riccati_general_forward_kernel",
              rk.general_forward_kernel(12, 4, 2, 1)]
-    names += [rk.forward_kernel(a, b) for a, b in sorted(PLAIN_INSTANCES)]
+    names += [rk.forward_kernel(a, b) for a, b in sorted(FORWARD_SHAPES)]
     for a in names:
         for b in names:
             assert a == b or a.replace(" ", "") not in b.replace(" ", "")
