@@ -176,6 +176,40 @@ Phases (each raises, and the script exits non-zero, on failure):
    Tanh, ...) on the card and loaded back by load_torch_mlp (no h5py
    needed): one cold solve at B=4096 gives phase 4's cold plans to 1e-6
    with the same converged mask.
+4k. Dense backend (phase 4's fleet, B=4096): IPConfig(kkt="dense"), one
+   cold solve and one timed warm re-plan (cut from two to keep the run's
+   time: a dense warm re-plan takes ~10 s); its
+   cold plans against phase 4's Riccati ones where the objectives agree
+   to 1e-6, |du| <= 1e-4 (the NLP is not convex: the others stopped at
+   another local solution, counted).  Then phase 4's cost plus move
+   suppression MOVE·Σ(u_{t+1} − u_t)² under kkt="auto" (the objective
+   probes stage-coupled, so the dense backend), the same protocol, the
+   warm re-plan's split of prepare (the Hessian and Jacobian) against the
+   batched LU and its device busy share, and 16 members against the CPU.
+   Neither launches a sweep kernel or a plain sweep.  The converged counts
+   and the members at the same solution are held to the JAX package's on
+   this fleet less 0.5% of B (tests/measure_torch_dense_alm.py).
+4l. ALM: ALMConfig() on phase 4's first ALM_B members: the converged count
+   held to the JAX package's, the outer-iteration histogram, the plans
+   against phase 4's interior-point plans where both converged and the
+   objectives agree to ALM_SAME_SOLUTION (|du| <= ALM_DU, set from the
+   JAX package's own ALM against its interior point), 16 members against
+   the CPU (held as the budgeted fleet's: ALM's plans are fixed by f32
+   only loosely on some members).
+4m. Differentiable: NMPC(differentiable=True) on phase 4's fleet at
+   B=4096, the loss Σ U² + Σ objective, gradients with respect to x0 and
+   the MLP params; the forward solve and the IFT backward must launch the
+   fused kernel (the backward's KKT solve is one Riccati sweep) and never
+   the plain sweep; the gradients card against CPU on 16 members (1e-3 of
+   the largest entry, + 2x their own move under ±1e-7 on the start),
+   central differences for DIFF_N_FD members' x0 (5% or 5e-3); the dense
+   direction at B=DIFF_DENSE_B, and card against CPU on 16 of them.
+4n. Record: IPConfig(record=True), one cold solve at B=4096: the trace's
+   fields (B, max_iter), done turning true at each member's own iteration
+   count, the per-member iteration histogram; the budgeted fleet's warm
+   re-plan under record (its histogram and its lockstep tail: when the
+   slow members' KKT error reaches 10x tol and when they are done); then
+   utils.profiling.profile_solver's phases on phase 4's fleet.
 5. Card vs CPU: 16 LV problems, 16 quadrotor problems, 16 EQ/border
    quadrotor problems and 16 budgeted LV problems solved on the card and on
    the CPU, and the budgeted fleet's closed loop (B=16, steps=4) on both;
@@ -331,6 +365,40 @@ MU_REFERENCE = {"monotone": {"cold": 4096, "warm": 4096, "same": 4096},
 MU_SLACK = 0.005
 # phase 4j: the state_dict-imported surrogate's plans against phase 4's
 IMPORT_DU = 1e-6
+# phase 4k: the dense backend on the LV fleet; phase 4's cost plus move
+# suppression MOVE·Σ(u_{t+1} − u_t)² (stage-coupled: the dense backend
+# under kkt="auto").  The converged counts and the members at the same
+# solution as phase 4's Riccati solve are held to the JAX package's own
+# on this fleet, less MU_SLACK of B (tests/measure_torch_dense_alm.py, on
+# the CPU, with the same eager fit), and to MIN_WARM_CONVERGED where the
+# reference reaches it.
+MOVE = 1e-3
+DENSE_REFERENCE = {"dense": {"cold": 4071, "warm": 4095, "same": 3870},
+                   "moves": {"cold": 4074, "warm": 4094}}
+# phase 4l: ALMConfig() on the first ALM_B members; plans held to ALM_DU
+# of phase 4's where both converged and the objectives agree to
+# ALM_SAME_SOLUTION (relative).  ALM stops at 10x its inner tol with no
+# polish, so its plans sit ~1e-3 from the polished interior point's even
+# at the same local solution: the JAX package's own ALM, on the CPU, is
+# within 1e-6 of its interior point's objective on 11 of 800 members and
+# within 1e-3 on 792, its plans there up to 1.82e-3 apart (another local
+# solution is 0.68 or more apart); tests/measure_torch_dense_alm.py
+ALM_B = 1024
+ALM_REFERENCE = {"converged": 800, "same": 792}
+ALM_SAME_SOLUTION = 1e-3
+ALM_DU = 2e-3
+# phase 4m: the differentiable solve; gradients card vs CPU (relative to
+# the largest entry), central differences on DIFF_N_FD members (the JAX
+# package's test bound: 5% or 5e-3), the dense direction on DIFF_DENSE_B
+DIFF_CARD_VS_CPU = 1e-3
+DIFF_N_FD = 4
+DIFF_FD_EPS = 1e-3
+DIFF_FD_RTOL, DIFF_FD_ATOL = 0.05, 5e-3
+DIFF_DENSE_B = 64
+# phase 4n: profile_solver's medians; the budgeted fleet's warm re-plan
+# members whose trace is summarised (the lockstep tail)
+PROFILE_ITERS = 1
+TAIL_ITERS = 10
 
 
 def log(*a):
@@ -1585,20 +1653,23 @@ def phase_streamed_wide(rk, build_log, alt_forward, alt_log):
 
 # ---- phases 4, 4b, 4c: main paths ----
 
-def make_controller(nempc, device, model=None, **options):
+def make_controller(nempc, device, model=None, cost=None, config=None,
+                    differentiable=False, **options):
     """bench.py's LV controller on ``device``: the 2x32 tanh surrogate (or
-    ``model``), with IPConfig ``options`` on top of bench.py's."""
+    ``model``), bench.py's cost (or ``cost``), with IPConfig ``options`` on
+    top of bench.py's (or ``config``)."""
     surrogate = model or nempc.MLPDynamics.make(x_dim=2, u_dim=1,
                                                 hidden=[32, 32])
     box = nempc.DomainConstraint(states_constraint=[[-1.0, 1.0],
                                                     [-1.0, 0.35]],
                                  control_constraint=[[0.0, 1.2]])
-    cfg = nempc.IPConfig(tol=1e-5, polish_iters=5, polish_mu=1e-9,
-                         warm_z_corridor=1e2, warm_mu=3e-4, **options)
-    return nempc.NMPC(surrogate,
-                      lambda x, u: 1.1 * torch.sum(u) + REG * torch.sum(u * u),
-                      [box], H=H, DT=DT, integrator="rk4", config=cfg,
-                      device=device)
+    cfg = config or nempc.IPConfig(tol=1e-5, polish_iters=5, polish_mu=1e-9,
+                                   warm_z_corridor=1e2, warm_mu=3e-4,
+                                   **options)
+    return nempc.NMPC(surrogate, cost or (
+        lambda x, u: 1.1 * torch.sum(u) + REG * torch.sum(u * u)),
+        [box], H=H, DT=DT, integrator="rk4", config=cfg,
+        differentiable=differentiable, device=device)
 
 
 def telemetry(tag, res):
@@ -1642,6 +1713,18 @@ def report_split(nempc, mpc, carry, xs, res, times, sweeps, sweep_ms, card,
         f"{sweeps_ms:.2f} ms ({sweeps} x {sweep_ms:.4f} ms a wrapper "
         "call, host work included), rest "
         f"{step_ms - blocks_ms - sweeps_ms:.1f} ms of p50 {step_ms:.1f} ms")
+    busy = busy_share(mpc, xs, carry, step_ms, card, params, "one")
+    p50 = statistics.median(times)
+    log(f"[{card}] warm re-plan B={Bn}: p50 {p50 * 1e3:.1f} ms, min "
+        f"{min(times) * 1e3:.1f} ms -> {Bn / p50:,.0f} solves/s")
+    return {"p50_ms": p50 * 1e3, "solves_per_s": Bn / p50,
+            "prepare_ms": prep_ms, "busy": busy}
+
+
+def busy_share(mpc, xs, carry, step_ms, card, params, which):
+    """The device busy share of ``which`` (one more) warm re-plan (same
+    carry, result dropped) against ``step_ms``, from torch.profiler's
+    kernel and copy events; None where the trace holds none."""
     from torch.profiler import ProfilerActivity, profile
     # device events only: recording every host op as well made the traced
     # re-plan take 20-60 s more at 40-60k events
@@ -1650,20 +1733,15 @@ def report_split(nempc, mpc, carry, xs, res, times, sweeps, sweep_ms, card,
         torch.cuda.synchronize()
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
-    if dev:
-        dev_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
-        log(f"[{card}] one warm re-plan: {len(dev)} device events "
-            f"(kernels and copies), {dev_ms:.1f} ms of device time -> device "
-            f"busy {dev_ms / step_ms:.1%} of the p50 re-plan")
-    else:
+    if not dev:
         log("device busy share: not measured (the trace holds no device "
             "events)")
-    p50 = statistics.median(times)
-    log(f"[{card}] warm re-plan B={Bn}: p50 {p50 * 1e3:.1f} ms, min "
-        f"{min(times) * 1e3:.1f} ms -> {Bn / p50:,.0f} solves/s")
-    return {"p50_ms": p50 * 1e3, "solves_per_s": Bn / p50,
-            "prepare_ms": prep_ms,
-            "busy": dev_ms / step_ms if dev else None}
+        return None
+    dev_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    log(f"[{card}] {which} warm re-plan: {len(dev)} device events "
+        f"(kernels and copies), {dev_ms:.1f} ms of device time -> device "
+        f"busy {dev_ms / step_ms:.1%} of the p50 re-plan")
+    return dev_ms / step_ms
 
 
 def phase_main_path(nempc, rk, rg, card):
@@ -2469,6 +2547,444 @@ def phase_import(nempc, rk, rg, params, x0s, mono):
     return {"du": du, "h5py": has_h5py}
 
 
+# ---- phases 4k-4n: the dense backend, ALM, the IFT backward, record ----
+
+def no_kernel_launched(rk, rg, tag):
+    """The dense backend's path: no sweep kernel and no plain sweep (its
+    LU is one batched library call)."""
+    n = counters(rk, rg)
+    if any(n.values()):
+        raise RuntimeError(f"{tag}: sweep kernels or plain sweeps ran on "
+                           f"the dense path: {n}")
+
+
+def dense_split(nempc, mpc, carry, xs, res, times, card, params):
+    """The dense warm re-plan's time split (``prepare``, the Hessian and
+    Jacobian of every member, and one ``solve_blocks``, the batched LU and
+    its refinement, each timed alone at the last carry, times one a
+    lockstep iteration) and the device busy share of one more warm re-plan
+    (torch.profiler's device events)."""
+    from pyneuralempc_tpu_torch.solve.interior_point import (
+        make_dense_direction)
+    Bn = xs.shape[0]
+    rt = nempc.runtime(xs, params=params)
+    rt["_s_obj"] = torch.ones(Bn, device="cuda")
+    direction = make_dense_direction(mpc.nlp, mpc.config)
+    prep_ms = cuda_median_ms(
+        lambda: direction.prepare(carry.w, carry.lam, rt), runs=3,
+        warmup=1)
+    blocks = direction.prepare(carry.w, carry.lam, rt)
+    sig = torch.ones_like(carry.w)
+    r = torch.zeros_like(carry.w)
+    c = torch.zeros_like(carry.lam)
+    lu_ms = cuda_median_ms(
+        lambda: direction.solve_blocks(blocks, sig, r, c, retry=False),
+        runs=5, warmup=1)
+    n_it = int(res.iterations.max())
+    step_ms = statistics.median(times) * 1e3
+    log(f"[{card}] dense warm re-plan split (last step, estimated): prepare "
+        f"{n_it * prep_ms:.1f} ms ({n_it} x {prep_ms:.2f} ms: Hessian and "
+        f"Jacobian), LU {n_it * lu_ms:.1f} ms ({n_it} x {lu_ms:.3f} ms: one "
+        f"batched LU of {Bn} x {mpc.nlp.n + mpc.nlp.m}^2 and its "
+        f"refinement), rest {step_ms - n_it * (prep_ms + lu_ms):.1f} ms of "
+        f"p50 {step_ms:.1f} ms")
+    busy = busy_share(mpc, xs, carry, step_ms, card, params,
+                      "one more dense")
+    p50 = statistics.median(times)
+    log(f"[{card}] dense warm re-plan B={Bn}: p50 {p50 * 1e3:.1f} ms, min "
+        f"{min(times) * 1e3:.1f} ms -> {Bn / p50:,.0f} solves/s")
+    return {"p50_ms": p50 * 1e3, "solves_per_s": Bn / p50,
+            "prepare_ms": prep_ms, "lu_ms": lu_ms,
+            "iterations": n_it, "busy": busy}
+
+
+def move_cost(x, u):
+    """bench.py's cost plus move suppression MOVE·Σ(u_{t+1} − u_t)²: the
+    stage coupling makes the objective probe non-separable."""
+    return (1.1 * torch.sum(u) + REG * torch.sum(u * u)
+            + MOVE * torch.sum((u[1:] - u[:-1]) ** 2))
+
+
+def phase_dense(nempc, rk, rg, card, params, x0s, mono):
+    """Phase 4k: the dense backend on phase 4's fleet (B=4096): under
+    kkt="dense" (one cold solve and one timed warm re-plan), plans against phase 4's Riccati cold plans where the
+    objectives agree; then phase 4's cost with move suppression under
+    kkt="auto" (the dense backend), its warm re-plan's time split and
+    device busy share, and 16 members against the CPU port.  The converged
+    counts are held to the JAX package's on the same fleet."""
+    out = {}
+    xs = torch.as_tensor(x0s, device="cuda")
+    for kind in ("dense", "moves"):
+        mpc = (make_controller(nempc, "cuda", kkt="dense") if kind == "dense"
+               else make_controller(nempc, "cuda", cost=move_cost))
+        if mpc.kkt_backend != "dense":
+            raise RuntimeError(f"{kind}: kkt backend {mpc.kkt_backend}")
+        ref = DENSE_REFERENCE[kind]
+        reset_counters(rk, rg)
+        t0 = time.perf_counter()
+        carry, res = mpc.next_batch(xs, params=params)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        log(f"LV fleet, {kind} (kkt backend {mpc.kkt_backend}), cold B={B}: "
+            f"{cold_s:.2f} s  " + telemetry("cold", res))
+        check_plan(res, H, 2, 1)
+        conv = [int(res.converged.sum())]
+        gate = None
+        if kind == "dense":
+            gate = same_solution_gate("kkt='dense'", res, mono,
+                                      ref["same"] - int(MU_SLACK * B))
+        # one timed warm re-plan from the plans' first states
+        t0 = time.perf_counter()
+        carry, res = mpc.next_batch(res.x[:, 0].contiguous(), params=params,
+                                    carry=carry)
+        torch.cuda.synchronize()
+        times = [time.perf_counter() - t0]
+        conv.append(int(res.converged.sum()))
+        log(f"warm: {times[0] * 1e3:.1f} ms  " + telemetry("warm", res))
+        no_kernel_launched(rk, rg, kind)
+        floor = {k: (MIN_WARM_CONVERGED if ref[k] >= MIN_WARM_CONVERGED
+                     else ref[k] - int(MU_SLACK * B)) for k in ("cold",
+                                                                "warm")}
+        log(f"  converged: cold, then every warm step {conv} (at least "
+            f"{floor['cold']}, then {floor['warm']}; the JAX package on "
+            f"the CPU: {ref['cold']}, then {ref['warm']})")
+        if conv[0] < floor["cold"] or min(conv[1:]) < floor["warm"]:
+            raise RuntimeError(f"{kind}: convergence {conv} below "
+                               f"{floor['cold']} / {floor['warm']} of {B}")
+        p50 = statistics.median(times)
+        log(f"[{card}] {kind} warm re-plan B={B}: p50 {p50 * 1e3:.1f} ms -> "
+            f"{B / p50:,.0f} solves/s")
+        out[kind] = {"p50_ms": p50 * 1e3, "cold_s": cold_s,
+                     "converged": conv}
+        if kind == "dense":
+            out[kind]["same"] = gate
+        else:
+            # the time split and the busy share, once (a traced dense
+            # re-plan holds ~2e5 device events and takes ~35 s)
+            out[kind].update(dense_split(nempc, mpc, carry,
+                                         res.x[:, 0].contiguous(), res,
+                                         times, card, params))
+
+    def moves(dev):
+        return make_controller(nempc, dev, cost=move_cost).next_batch(
+            torch.as_tensor(x0s[:N_CARD_VS_CPU], device=dev),
+            params=[{k: v.to(dev) for k, v in layer.items()}
+                    for layer in params])[1]
+
+    card_vs_cpu(f"LV with move suppression (dense), {N_CARD_VS_CPU} cold "
+                "solves", moves)
+    return out
+
+
+def phase_alm(nempc, rk, rg, card, params, x0s, mono):
+    """Phase 4l: ALMConfig() on phase 4's fleet at B=ALM_B, one cold solve:
+    the converged count held to the JAX package's on the same members, the
+    outer-iteration histogram, the plans against phase 4's interior-point
+    plans where both converged and the objectives agree, and 16 members
+    against the CPU port."""
+    def alm(dev, starts):
+        mpc = make_controller(nempc, dev, config=nempc.ALMConfig())
+        if mpc.kkt_backend != "alm":
+            raise RuntimeError(f"ALM: kkt backend {mpc.kkt_backend}")
+        return mpc.next_batch(torch.as_tensor(starts, device=dev),
+                              params=[{k: v.to(dev) for k, v in
+                                       layer.items()} for layer in params])[1]
+
+    reset_counters(rk, rg)
+    t0 = time.perf_counter()
+    res = alm("cuda", x0s[:ALM_B])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    no_kernel_launched(rk, rg, "ALM")
+    hist = torch.bincount(res.iterations.long().cpu(),
+                          minlength=nempc.ALMConfig().outer_iter + 1)
+    conv = int(res.converged.sum())
+    floor = ALM_REFERENCE["converged"] - int(MU_SLACK * ALM_B)
+    log(f"ALM (ALMConfig()), cold B={ALM_B}: {secs:.2f} s, converged "
+        f"{conv}/{ALM_B} (at least {floor}; the JAX package on the CPU: "
+        f"{ALM_REFERENCE['converged']}), outer iterations histogram "
+        f"{hist.tolist()}")
+    check_plan(res, H, 2, 1, Bn=ALM_B)
+    if conv < floor:
+        raise RuntimeError(f"ALM: {conv}/{ALM_B} converged, below {floor}")
+    ip = type(mono)(*[v[:ALM_B] if isinstance(v, torch.Tensor) else v
+                      for v in mono])
+    both = res.converged & ip.converged
+    rel = ((res.objective - ip.objective).abs()
+           / ip.objective.abs().clamp(min=1.0))
+    du = (res.u - ip.u).abs().amax(dim=(1, 2))
+    for t in (1e-6, 1e-5, 1e-4, 1e-3):
+        near = both & (rel <= t)
+        log(f"  ALM vs phase 4's interior-point plans, objectives within "
+            f"{t:g} (relative): {int(near.sum())} of {int(both.sum())} both "
+            f"converged, max |du| "
+            f"{float(du[near].max()) if bool(near.any()) else 0.0:.3e}")
+    same = both & (rel <= ALM_SAME_SOLUTION)
+    du_same = float(du[same].max()) if bool(same.any()) else 0.0
+    log(f"  gate: objectives within {ALM_SAME_SOLUTION} for at least "
+        f"{ALM_REFERENCE['same'] - int(MU_SLACK * ALM_B)} members (the JAX "
+        f"package: {ALM_REFERENCE['same']}), |du| there at most {ALM_DU}: "
+        f"{int(same.sum())}, {du_same:.3e}")
+    if not (du_same <= ALM_DU and int(same.sum())
+            >= ALM_REFERENCE["same"] - int(MU_SLACK * ALM_B)):
+        raise RuntimeError("ALM: plans do not reach the interior point's")
+    # ALM's inner solves stop at 10x tol without a polish, so some plans
+    # are fixed by f32 only loosely: held as the budgeted fleet's are
+    def same_masks(card, cpu, determined):
+        same = bool(torch.equal(card.converged.cpu(), cpu.converged))
+        iters = bool(torch.equal(card.iterations.cpu()[determined],
+                                 cpu.iterations[determined]))
+        log(f"card vs CPU (ALM, {N_CARD_VS_CPU} cold solves): converged "
+            f"masks equal: {same}, outer iterations equal on the fixed "
+            f"members: {iters}")
+        if not (same and iters):
+            raise RuntimeError("ALM: card and CPU solves differ")
+
+    # each of the CPU's three solves (the starts, moved by ±PERTURB) a
+    # batch of its own, as the card's: ALM's looser plans move with the
+    # batch's composition (48 stacked members put one fixed member 1e-3
+    # off the card's 16)
+    def run(dev, eps):
+        return alm(dev, x0s[:N_CARD_VS_CPU] + np.float32(eps))
+
+    budget_card_vs_cpu("ALM, cold, |du|", run,
+                       lambda a, b: (a.u.cpu() - b.u.cpu()).abs()
+                       .amax(dim=(1, 2)), same_masks)
+    return {"seconds": secs, "converged": conv, "same": int(same.sum()),
+            "du_same": du_same, "outer_histogram": hist.tolist()}
+
+
+def diff_loss(nempc, dev, params, x0s, kkt="auto"):
+    """NMPC(differentiable=True) on phase 4's fleet at ``x0s``: the loss
+    Σ U² + Σ objective and its gradients with respect to x0 and every
+    params leaf (shared by the members), and the result."""
+    mpc = make_controller(nempc, dev, kkt=kkt, differentiable=True)
+    x0 = torch.tensor(np.asarray(x0s), device=dev, requires_grad=True)
+    p = [{k: v.detach().to(dev).requires_grad_(True) for k, v in
+          layer.items()} for layer in params]
+    _, res = mpc.next_batch(x0, params=p)
+    loss = (res.u ** 2).sum() + res.objective.sum()
+    return mpc, x0, p, res, loss
+
+
+def diff_grads(nempc, dev, params, x0s, kkt="auto"):
+    """The differentiable solve's x0 gradient (per member), its params
+    gradients (flattened leaves, summed over the members) and its
+    converged mask, each moved to the CPU."""
+    _, x0, p, res, loss = diff_loss(nempc, dev, params, x0s, kkt)
+    loss.backward()
+    return (x0.grad.cpu(), [t.grad.cpu() for layer in p
+                            for t in layer.values()], res.converged.cpu())
+
+
+def grads_card_vs_cpu(nempc, params, x0s, tag, kkt="auto"):
+    """The differentiable solve's gradients on the card and on the CPU, the
+    same members.  As for the plans, the CPU answer is also re-solved from
+    starts moved by ±PERTURB: each member's x0 gradient is held to
+    DIFF_CARD_VS_CPU of the largest entry plus SPREAD times its own move,
+    and each params gradient to DIFF_CARD_VS_CPU plus SPREAD times its
+    move, relative to its largest entry (some members' gradients are fixed
+    by f32 only loosely: their plans sit on active bounds where Σ_μ is
+    μ/slack² with μ = 1e-9)."""
+    card = diff_grads(nempc, "cuda", params, x0s, kkt)
+    cpu = diff_grads(nempc, "cpu", params, x0s, kkt)
+    moved_x = torch.zeros(len(x0s))
+    moved_p = [torch.zeros(()) for _ in cpu[1]]
+    for eps in (PERTURB, -PERTURB):
+        alt = diff_grads(nempc, "cpu", params, x0s + np.float32(eps), kkt)
+        moved_x = torch.maximum(moved_x, (alt[0] - cpu[0]).abs().amax(-1))
+        moved_p = [torch.maximum(m, (a - b).abs().max())
+                   for m, a, b in zip(moved_p, alt[1], cpu[1])]
+    scale_x = cpu[0].abs().max().clamp(min=1e-12)
+    err_x = (card[0] - cpu[0]).abs().amax(-1) / scale_x
+    lim_x = DIFF_CARD_VS_CPU + SPREAD * moved_x / scale_x
+    err_p = [float((a - b).abs().max() / b.abs().max().clamp(min=1e-12))
+             for a, b in zip(card[1], cpu[1])]
+    lim_p = [DIFF_CARD_VS_CPU + SPREAD * float(m / b.abs().max().clamp(
+        min=1e-12)) for m, b in zip(moved_p, cpu[1])]
+    fixed = moved_x / scale_x <= DIFF_CARD_VS_CPU / 10
+    same = bool(torch.equal(card[2], cpu[2]))
+    log(f"card vs CPU ({tag}, {len(x0s)} members): x0 gradient up to "
+        f"{float(err_x.max()):.3e} of its largest entry; "
+        f"{int(fixed.sum())} members whose CPU gradient moves by <= "
+        f"{DIFF_CARD_VS_CPU / 10} under ±{PERTURB} on the start, up to "
+        f"{float(err_x[fixed].max()) if bool(fixed.any()) else 0.0:.3e} on "
+        f"them (limit {DIFF_CARD_VS_CPU}); the others: "
+        + ", ".join(f"member {i} {float(err_x[i]):.3e} (moved "
+                    f"{float(moved_x[i] / scale_x):.3e})"
+                    for i in torch.nonzero(~fixed).flatten().tolist())
+        + f"; params gradients {[f'{e:.3e}' for e in err_p]} (limits "
+        f"{[f'{v:.3e}' for v in lim_p]}); converged masks equal: {same}")
+    if not (bool((err_x <= lim_x).all()) and same
+            and all(e <= v for e, v in zip(err_p, lim_p))):
+        raise RuntimeError(f"{tag}: card and CPU gradients differ")
+    return {"x0": float(err_x.max()), "x0_fixed": float(
+        err_x[fixed].max()) if bool(fixed.any()) else 0.0,
+        "params": max(err_p), "fixed_members": int(fixed.sum())}
+
+
+def phase_diff(nempc, rk, rg, card, params, x0s):
+    """Phase 4m: NMPC(differentiable=True) on phase 4's fleet at B=4096:
+    the loss Σ U² + Σ objective, gradients with respect to x0 and the MLP
+    params.  The forward solve and the IFT backward go through the fused
+    kernel (the backward's KKT solve is one more Riccati sweep) and never
+    the plain sweep; card against CPU on 16 members; central differences
+    of the loss for DIFF_N_FD members' x0; a dense-direction
+    differentiable solve on DIFF_DENSE_B members against the CPU."""
+    reset_counters(rk, rg)
+    t0 = time.perf_counter()
+    mpc, x0, p, res, loss = diff_loss(nempc, "cuda", params, x0s)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    n_fwd = rk.LAUNCHES
+    t0 = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize()
+    bwd_s = time.perf_counter() - t0
+    n = counters(rk, rg)
+    bwd_launches = n["fused"] - n_fwd
+    log(f"differentiable LV fleet, B={B}: forward {fwd_s:.2f} s "
+        f"({n_fwd} fused launches; " + telemetry("cold", res) + f"), "
+        f"backward {bwd_s:.3f} s ({bwd_launches} fused launches, plain "
+        f"calls {n['plain']}); gradients finite: "
+        f"{bool(torch.isfinite(x0.grad).all())}")
+    if not (only_launched(n, "fused", "fused_staged")
+            and n["fused_staged"] == n["fused"] and bwd_launches > 0):
+        raise RuntimeError("the differentiable path's backward did not go "
+                           "through the fused kernel alone")
+    if not all(bool(torch.isfinite(t.grad).all()) for t in
+               [x0] + [t for layer in p for t in layer.values()]):
+        raise RuntimeError("non-finite gradients")
+    err = grads_card_vs_cpu(nempc, params, x0s[:N_CARD_VS_CPU], "IFT, "
+                            "Riccati direction")
+    # central differences, f32, each member's step scaled to its |x0|
+    members = torch.nonzero(res.converged).flatten()[:DIFF_N_FD].tolist()
+    base = torch.as_tensor(x0s[members], device="cuda")
+    eps = DIFF_FD_EPS * base.abs().amax(-1, keepdim=True).clamp(min=1.0)
+
+    def per_member_loss(xs):
+        _, r = mpc.next_batch(xs, params=params)
+        return ((r.u ** 2).sum(dim=(1, 2)) + r.objective).detach()
+
+    fd = torch.zeros_like(base)
+    for i in range(2):
+        d = torch.zeros_like(base)
+        d[:, i:i + 1] = eps
+        fd[:, i] = ((per_member_loss(base + d) - per_member_loss(base - d))
+                    / (2 * eps[:, 0]))
+    g = x0.grad[members]
+    ok = (g - fd).abs() <= DIFF_FD_ATOL + DIFF_FD_RTOL * fd.abs()
+    log(f"  central differences (members {members}, eps {DIFF_FD_EPS} x "
+        f"max(1, |x0|)): IFT {g.tolist()}, differences {fd.tolist()} "
+        f"(within {DIFF_FD_RTOL:.0%} or {DIFF_FD_ATOL}: "
+        f"{bool(ok.all())})")
+    if not bool(ok.all()):
+        raise RuntimeError("IFT gradients disagree with finite differences")
+    t0 = time.perf_counter()
+    _, x0d, _, res_d, loss_d = diff_loss(nempc, "cuda", params,
+                                         x0s[:DIFF_DENSE_B], kkt="dense")
+    loss_d.backward()
+    torch.cuda.synchronize()
+    log(f"differentiable LV fleet, dense direction, B={DIFF_DENSE_B}: "
+        f"{time.perf_counter() - t0:.2f} s, " + telemetry("cold", res_d)
+        + f", gradients finite: {bool(torch.isfinite(x0d.grad).all())}")
+    if not bool(torch.isfinite(x0d.grad).all()):
+        raise RuntimeError("dense direction: non-finite gradients")
+    err_dense = grads_card_vs_cpu(nempc, params, x0s[:N_CARD_VS_CPU],
+                                  "IFT, dense direction", kkt="dense")
+    return {"forward_s": fwd_s, "backward_s": bwd_s,
+            "forward_launches": n_fwd, "backward_launches": bwd_launches,
+            "card_vs_cpu": err, "dense_card_vs_cpu": err_dense}
+
+
+def phase_record(nempc, rk, rg, card, params, x0s):
+    """Phase 4n: IPConfig(record=True) on phase 4's fleet, one cold solve at
+    B=4096: the trace's shapes, ``done`` turning true at each member's own
+    iteration count, the per-member iteration histogram; the budgeted
+    fleet's warm re-plan under record (its lockstep tail); then
+    utils.profiling.profile_solver's phases on the same fleet."""
+    from pyneuralempc_tpu_torch.utils.profiling import profile_solver
+    mpc = make_controller(nempc, "cuda", record=True)
+    xs = torch.as_tensor(x0s, device="cuda")
+    reset_counters(rk, rg)
+    t0 = time.perf_counter()
+    _, res = mpc.next_batch(xs, params=params)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    it = res.iterations.long()
+    max_iter = mpc.config.max_iter
+    tr = res.trace
+    shapes = {k: tuple(v.shape) for k, v in tr.items()}
+    rows = torch.arange(B, device="cuda")
+    done = tr["done"]
+    turns = (done[rows, (it - 1).clamp(min=0)]
+             & ~done[rows, (it - 2).clamp(min=0)])
+    at_own = bool((turns | (it < 2) | ~res.converged).all())
+    never = bool((~done[~res.converged]).all())
+    hist = torch.bincount(it.cpu(), minlength=max_iter + 1)
+    log(f"record=True, cold B={B}: {secs:.2f} s ({rk.LAUNCHES} fused "
+        f"launches)  " + telemetry("cold", res) + f"; trace {shapes}; done "
+        f"turns true at each member's own iteration count: {at_own}, never "
+        f"for the unconverged: {never}")
+    log(f"  per-member iterations histogram (count at 0..{max_iter}): "
+        f"{hist.tolist()}")
+    if not (all(v == (B, max_iter) for v in shapes.values()) and at_own
+            and never):
+        raise RuntimeError("record=True: the trace is wrong")
+    budget = budget_trace(nempc, params, xs)
+    t0 = time.perf_counter()
+    prof = profile_solver(make_controller(nempc, "cuda"), xs, params=params,
+                          iters=PROFILE_ITERS)
+    log(f"[{card}] profile_solver (B={B}, medians of {PROFILE_ITERS}, "
+        f"{time.perf_counter() - t0:.1f} s): "
+        + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in prof.items()))
+    return {"seconds": secs, "histogram": hist.tolist(),
+            "budgeted_warm": budget,
+            "profile_ms": {k: v * 1e3 for k, v in prof.items()}}
+
+
+def budget_trace(nempc, params, xs):
+    """The budgeted LV fleet (phase 4d's) under record=True: a cold solve
+    and one warm re-plan from its plans' first states.  The warm re-plan's
+    per-member iteration histogram, and for the members that take at least
+    TAIL_ITERS iterations, when their KKT error first reaches 10x tol and
+    when they are done (medians): the iterations a lockstep re-plan waits
+    on them."""
+    from pyneuralempc_tpu_torch.examples import lotka_volterra as lv
+    cfg = nempc.IPConfig(**dict(lv.BENCH_CONFIG, record=True))
+    mpc = nempc.NMPC(nempc.MLPDynamics.make(x_dim=2, u_dim=1,
+                                            hidden=[32, 32]),
+                     lv.bench_cost, [nempc.Box.make(**lv.BENCH_BOX),
+                                     lv.feed_floor()],
+                     H=H, DT=DT, integrator="rk4", config=cfg, device="cuda")
+    carry, res = mpc.next_batch(xs, params=params)
+    _, res = mpc.next_batch(res.x[:, 0].contiguous(), params=params,
+                            carry=carry)
+    it = res.iterations.long()
+    hist = torch.bincount(it.cpu(), minlength=cfg.max_iter + 1)
+    tail = it >= TAIL_ITERS
+    err = res.trace["kkt_error"][tail]
+    near = (err <= 10 * cfg.tol).float()
+    first_near = torch.where(near.any(-1), near.argmax(-1) + 1,
+                             torch.full_like(it[tail], cfg.max_iter))
+    mu_then = res.trace["mu"][tail].gather(
+        1, (first_near - 1).clamp(min=0)[:, None])[:, 0]
+    out = {"histogram": hist.tolist(), "tail_members": int(tail.sum()),
+           "first_within_10tol_p50": float(first_near.float().median())
+           if bool(tail.any()) else None,
+           "done_p50": float(it[tail].float().median())
+           if bool(tail.any()) else None,
+           "mu_then_p50": float(mu_then.median())
+           if bool(tail.any()) else None}
+    log(f"  budgeted LV fleet, record=True, a warm re-plan B={B}: converged "
+        f"{int(res.converged.sum())}, per-member iterations histogram "
+        f"{hist.tolist()}; {out['tail_members']} members take >= "
+        f"{TAIL_ITERS}: their KKT error first within 10x tol at iteration "
+        f"{out['first_within_10tol_p50']} (median, μ then "
+        f"{out['mu_then_p50']}), done at {out['done_p50']}")
+    return out
+
+
 # ---- phase 5: card vs CPU ----
 
 def card_vs_cpu(tag, solve, iterations=False):
@@ -2495,9 +3011,9 @@ def card_vs_cpu(tag, solve, iterations=False):
 
 
 def budget_card_vs_cpu(tag, run, diff, compare):
-    """The budgeted fleet on the card and on the CPU, the CPU run also from
-    starts moved by ±PERTURB: members whose CPU answer moves by more than
-    DETERMINED under that (``diff(alt, cpu)``, per member) or whose
+    """A fleet (the budgeted one, ALM's) on the card and on the CPU, the CPU
+    run also from starts moved by ±PERTURB: members whose CPU answer moves
+    by more than DETERMINED under that (``diff(alt, cpu)``, per member) or whose
     iteration counts change are not fixed to the 1e-4 gates by f32.  The
     others are held to CARD_VS_CPU_DU in ``diff(card, cpu)``; these flat
     members to CARD_VS_CPU_DU + SPREAD times their own move.
@@ -2809,6 +3325,13 @@ def main():
         nempc, rk, rg, card, w_pair_ms)
     options = phase_options(nempc, rk, rg, params, x0s, mono)
     imported = phase_import(nempc, rk, rg, params, x0s, mono)
+    # phases 4k-4n: the dense backend, ALM, the IFT backward, record
+    dense = phase_dense(nempc, rk, rg, card, params, x0s, mono)
+    alm = phase_alm(nempc, rk, rg, card, params, x0s, mono)
+    diff = phase_diff(nempc, rk, rg, card, params, x0s)
+    fused["ift_forward_launches"] = diff["forward_launches"]
+    fused["ift_backward_launches"] = diff["backward_launches"]
+    record = phase_record(nempc, rk, rg, card, params, x0s)
 
     # phase 5: card vs CPU
     phase_card_vs_cpu(nempc, params, x0s, q_x0s, eq_x0s)
@@ -2817,7 +3340,9 @@ def main():
     log(f"paths: GRU fleet {json.dumps(rnn_split)}; cartpole "
         f"{json.dumps(cp_run)}; quadrotor MLP {json.dumps(qm_split)}; wide "
         f"fleet {json.dumps(w_split)}; solver options "
-        f"{json.dumps(options)}; import {json.dumps(imported)}")
+        f"{json.dumps(options)}; import {json.dumps(imported)}; dense "
+        f"{json.dumps(dense)}; ALM {json.dumps(alm)}; differentiable "
+        f"{json.dumps(diff)}; record {json.dumps(record)}")
 
     print(json.dumps({"kernels": [fused, bwd, fwd, gbwd, gfwd, gfused,
                                   rnn_bwd, rnn_fwd, cp_bwd, cp_fwd, w_bwd,

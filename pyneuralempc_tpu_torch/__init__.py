@@ -8,7 +8,11 @@ in as the system dynamics; the package transcribes the nonlinear program
 primal-dual interior-point method.  Its KKT systems go through a
 block-tridiagonal Riccati sweep, hand-written CUDA kernels on the card;
 stage-equality rows and trajectory-level constraint rows take the general
-sweep.  :mod:`.examples.quadrotor` is the quadrotor fleet (12 states, 4
+sweep, and any other problem (a stage-coupled cost, more equality rows a
+stage than controls) the dense backend, one batched LU.  An
+augmented-Lagrangian solver (:class:`ALMConfig`) and an IFT-differentiable
+solve (``NMPC(differentiable=True)``) sit beside the interior point.
+:mod:`.examples.quadrotor` is the quadrotor fleet (12 states, 4
 thrusts, H=50), :mod:`.examples.fleet_eq` the same fleet with a stage
 equality row and a horizon budget row, :mod:`.examples.fleet_rnn` a fleet
 with GRU dynamics (the hidden state lifted into the MPC state, H=100) and
@@ -58,7 +62,12 @@ from .models.rnn import (GRUDynamics, LSTMDynamics, StackedLSTMDynamics,
                          stacked_lstm_dynamics)
 from .models.train import (fit_normalized_surrogate, fit_surrogate,
                            sample_transitions)
+from .utils.checkpoint import load_pytree, save_pytree
+from .utils.check import check_model, check_problem
+from .utils.compile_cache import enable_compilation_cache
 from .solve.interior_point import IPConfig, IPResult, make_solver
+from .solve.alm import ALMConfig, make_alm_solver
+from .solve.diff import make_differentiable_solver
 from .api.controller import (NMPC, NMPCResult, WarmStart,
                              multi_start_perturbations)
 from .ops.cuda import riccati_general, riccati_kernel
@@ -82,7 +91,10 @@ __all__ = [
     "LSTMDynamics", "StackedLSTMDynamics", "gru_dynamics", "lstm_dynamics",
     "keras_gru_dynamics", "stacked_lstm_dynamics", "fit_gru_on_sequences",
     "fit_surrogate", "fit_normalized_surrogate", "sample_transitions",
-    "IPConfig", "IPResult", "make_solver", "NMPC", "NMPCResult",
+    "save_pytree", "load_pytree", "check_model", "check_problem",
+    "enable_compilation_cache",
+    "IPConfig", "IPResult", "make_solver", "ALMConfig", "make_alm_solver",
+    "make_differentiable_solver", "NMPC", "NMPCResult",
     "WarmStart", "multi_start_perturbations", "riccati_kernel",
     "riccati_general",
 ]

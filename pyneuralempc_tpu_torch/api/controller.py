@@ -13,6 +13,7 @@ CPU it is its plain PyTorch version.
 
 from __future__ import annotations
 
+import warnings
 from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
@@ -25,6 +26,8 @@ from ..core.transcription import NLP, transcribe
 from ..ops.integrators import step_fn
 from ..ops.rollout import simulate
 from ..solve import riccati
+from ..solve.alm import ALMConfig, make_alm_solver
+from ..solve.diff import make_differentiable_solver
 from ..solve.interior_point import IPConfig, IPResult, make_solver
 
 
@@ -129,7 +132,11 @@ class NMPC:
                  :class:`StageConstraint` / :class:`PathConstraint`.
     H, DT:       horizon length and integrator step.
     integrator:  "delta" | "euler" | "rk4" | "direct".
-    config:      :class:`IPConfig` solver settings (exact Hessian).
+    config:      :class:`IPConfig` solver settings (exact Hessian), or
+                 :class:`~pyneuralempc_tpu_torch.solve.alm.ALMConfig` for
+                 the augmented-Lagrangian solver.
+    differentiable: results carry gradients with respect to x0, p, tvp
+                 and params by the implicit function theorem.
     device:      where the solver runs: "cuda" (default) or "cpu".
     """
 
@@ -137,14 +144,6 @@ class NMPC:
                  DT: float = 0.1, integrator: str = "rk4",
                  config: IPConfig = IPConfig(), differentiable: bool = False,
                  mesh=None, device="cuda"):
-        if not isinstance(config, IPConfig):
-            raise NotImplementedError(
-                f"config {type(config).__name__}: only IPConfig is ported "
-                "(ALM is ROADMAP Queue 1 #10)")
-        if differentiable:
-            raise NotImplementedError(
-                "differentiable=True: the IFT-differentiable solve is "
-                "ROADMAP Queue 1 #10")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh=: multi-device solves are ROADMAP Queue 1 #14")
@@ -154,7 +153,7 @@ class NMPC:
             box = Box.unbounded(model.dims.x, model.dims.u)
         # a plain-callable cost that probes stage-separable is certified,
         # so the O(H) Riccati backend stays eligible
-        if (config.kkt == "auto"
+        if (getattr(config, "kkt", None) == "auto"
                 and not isinstance(objective, (StageCost,
                                                SeparableObjective))
                 and probe_stage_separable(objective, model.dims, H)):
@@ -164,15 +163,45 @@ class NMPC:
                             path_constraints=path)
         self.nlp: NLP = transcribe(self.spec, device=self.device)
         self.config = config
-        if config.kkt == "auto" and not riccati.eligible(self.nlp):
-            raise NotImplementedError(
-                "this problem needs the dense KKT backend (ROADMAP Queue 1 "
-                "#10): its objective probes stage-coupled, or it has more "
-                "equality rows a stage than controls, or more than 64 "
-                "trajectory-level constraint rows")
-        self.kkt_backend = "riccati"
-        self._solve = make_solver(self.nlp, config,
-                                  direction=riccati.make_riccati_direction)
+        # IPConfig(record=True): the solver returns (result, trace), and
+        # the trace rides on NMPCResult.trace
+        self._record = bool(getattr(config, "record", False))
+        if self._record and differentiable:
+            raise ValueError(
+                "IPConfig(record=True) cannot be combined with "
+                "differentiable=True (the IFT wrapper differentiates the "
+                "solution map, not the iterate history)")
+        if isinstance(config, ALMConfig):
+            self.kkt_backend = "alm"
+            self._ipcfg = config.ip
+            self._solve = make_alm_solver(self.nlp, config)
+        else:
+            self._ipcfg = config
+            if config.kkt == "riccati" or (config.kkt == "auto"
+                                           and riccati.eligible(self.nlp)):
+                direction = riccati.make_riccati_direction
+                self.kkt_backend = "riccati"
+            else:
+                direction = None
+                self.kkt_backend = "dense"
+            if self.kkt_backend == "dense" and config.kkt == "auto" \
+                    and H >= 30:
+                warnings.warn(
+                    f"H={H} falls to the dense O((H·(nx+nu))³) KKT backend "
+                    "(objective probes stage-coupled, >nu equality rows "
+                    "per stage, or >64 trajectory-level border rows). "
+                    "Declare StageCost / StageConstraint structure to keep "
+                    "the O(H) Riccati backend (trajectory-level "
+                    "PathConstraints ride it as a low-rank border).",
+                    stacklevel=2)
+            if differentiable:
+                # gradients flow through next_batch()/step() results by the
+                # implicit function theorem (solve/diff.py)
+                self._solve = make_differentiable_solver(
+                    self.nlp, config, direction=direction)
+            else:
+                self._solve = make_solver(self.nlp, config,
+                                          direction=direction)
         self.H, self.DT = H, DT
         self.model = model
         # instance warm-start state for next()
@@ -227,7 +256,7 @@ class NMPC:
                                               dtype=w.dtype,
                                               device=self.device),
                          zl=None, zu=None,
-                         mu=torch.full(lead, self.config.mu_init,
+                         mu=torch.full(lead, self._ipcfg.mu_init,
                                        dtype=w.dtype, device=self.device),
                          valid=torch.ones(lead, dtype=torch.bool,
                                           device=self.device))
@@ -240,23 +269,27 @@ class NMPC:
         X = torch.cat([X[..., 1:, :], X[..., -1:, :]], dim=-2)
         U = torch.cat([U[..., 1:, :], U[..., -1:, :]], dim=-2)
         s = self.nlp.shift_slacks(s)
-        mu = torch.clamp(carry.mu, min=self.config.warm_mu)
+        mu = torch.clamp(carry.mu, min=self._ipcfg.warm_mu)
         return WarmStart(w=self.nlp.pack(X, U, s), lam=carry.lam,
                          zl=carry.zl, zu=carry.zu, mu=mu, valid=carry.valid)
 
     def _step(self, carry: WarmStart, rt) -> Tuple[WarmStart, NMPCResult]:
-        res: IPResult = self._solve(rt, carry.w, carry.lam, carry.zl,
-                                    carry.zu, carry.mu)
+        out_ = self._solve(rt, carry.w, carry.lam, carry.zl, carry.zu,
+                           carry.mu)
+        res, trace = out_ if self._record else (out_, None)
+        res: IPResult
         X, U, s = self.nlp.unpack(res.w)
         out = NMPCResult(x=X, u=U, converged=res.converged,
                          iterations=res.iterations, kkt_error=res.kkt_error,
                          objective=res.objective, slack=s,
                          theta=res.theta, feasible=res.feasible,
-                         restorations=res.restorations)
-        # the warm carry resumes from the PRE-polish duals
-        new_carry = WarmStart(w=res.w, lam=res.lam, zl=res.zl_warm,
-                              zu=res.zu_warm, mu=res.mu,
-                              valid=res.converged)
+                         restorations=res.restorations, trace=trace)
+        # the warm carry resumes from the PRE-polish duals (ALM has none)
+        new_carry = WarmStart(
+            w=res.w, lam=res.lam,
+            zl=res.zl if res.zl_warm is None else res.zl_warm,
+            zu=res.zu if res.zu_warm is None else res.zu_warm,
+            mu=res.mu, valid=res.converged)
         return new_carry, out
 
     def _warm_step(self, carry: WarmStart, rt):
@@ -359,8 +392,7 @@ class NMPC:
         carry = base._replace(w=self.nlp.pack(X, U + du, s))
         _, res = self._step(carry, rt)
         idx = multi_start_winner(res)
-        best = type(res)(*[v[idx] if isinstance(v, torch.Tensor) else v
-                           for v in res])
+        best = _pick(res, idx)
         return (best, int(idx)) if return_index else best
 
     # ---- validation ----
@@ -407,13 +439,26 @@ def multi_start_winner(res: NMPCResult) -> torch.Tensor:
                        torch.argmin(res.kkt_error))
 
 
+def _index(v, idx):
+    """``v[idx]`` for a tensor and for each tensor of a dict (the record
+    trace); anything else passes."""
+    if isinstance(v, torch.Tensor):
+        return v[idx]
+    if isinstance(v, dict):
+        return {k: _index(t, idx) for k, t in v.items()}
+    return v
+
+
+def _pick(tup, idx):
+    """Member ``idx`` of every batched field (the trace's too)."""
+    return type(tup)(*[_index(v, idx) for v in tup])
+
+
 def _lead(tup):
     """Add a leading batch axis of 1 to every tensor field."""
-    return type(tup)(*[v[None] if isinstance(v, torch.Tensor) else v
-                       for v in tup])
+    return _pick(tup, None)
 
 
 def _unlead(tup):
     """Drop the leading batch axis of 1 from every tensor field."""
-    return type(tup)(*[v[0] if isinstance(v, torch.Tensor) else v
-                       for v in tup])
+    return _pick(tup, 0)

@@ -26,7 +26,9 @@ with the condensed Newton system
       [ W + Σ + δ_w I    Aᵀ ] [Δw]   [ −r̃  ]
       [ A                0  ] [Δλ] = [ −r_p ]
 
-solved by the Riccati backend (:mod:`.riccati`); Σ = z_l/(w−lb) +
+solved by the Riccati backend (:mod:`.riccati`) or by the dense backend
+(:func:`make_dense_direction`: one equilibrated LU of the full system with
+a refinement pass and a per-member δ_w ladder); Σ = z_l/(w−lb) +
 z_u/(ub−w), W = ∇²_w L(w, λ) exact, r̃ = ∇J + Aᵀλ − μ/(w−lb) + μ/(ub−w).
 Globalisation: fraction-to-boundary rule plus a backtracking line search on
 the exact-penalty merit φ_μ(w) + ν‖C(w)‖₁, with a second-order correction
@@ -39,7 +41,7 @@ import dataclasses
 from typing import Any, Callable, NamedTuple
 
 import torch
-from torch.func import grad, vjp, vmap
+from torch.func import grad, hessian, jacrev, vjp, vmap
 
 from ..core.transcription import NLP
 
@@ -58,16 +60,18 @@ class IPConfig:
     terms in the corrector's right-hand side; one more sweep a Newton
     step).  ``hessian``: "exact", or "objective" / "gauss_newton", which
     drop the defect and stage-constraint curvature from the stage blocks
-    (the Jacobians then take one forward-mode pass, no reverse pass).
-    ``gn_reg`` is the dense backend's curvature floor for the non-exact
-    modes; the Riccati backend has no use for it, so it is carried and
-    read nowhere until the dense backend lands (ROADMAP Queue 1 #10).
+    (the Jacobians then take one forward-mode pass, no reverse pass); the
+    dense backend takes W as the objective's Hessian, or as AᵀA + gn_reg·I.
     ``polish_fresh`` re-derives the stage blocks at the converged point
     before the polish steps instead of reusing the last iteration's.
+    ``kkt``: "auto" (the controller takes Riccati where the problem is
+    eligible, else dense), "riccati" or "dense".  ``record=True`` runs
+    exactly ``max_iter`` iterations and ``solve`` returns ``(result,
+    trace)``, the trace a dict of (B, max_iter) tensors; ``debug=True``
+    prints one line a member an iteration.
 
-    Not ported yet, and raising ``NotImplementedError``: ``record=True``
-    and ``debug=True`` (ROADMAP Queue 1 #15), ``kkt="dense"`` (ROADMAP
-    Queue 1 #10), ``kkt="riccati_pscan"`` (ROADMAP Queue 1 #14).
+    Not ported yet, and raising ``NotImplementedError``:
+    ``kkt="riccati_pscan"`` (ROADMAP Queue 1 #14).
     """
 
     max_iter: int = 60
@@ -100,7 +104,7 @@ class IPConfig:
     hessian: str = "exact"         # "exact" | "objective" | "gauss_newton"
     gn_reg: float = 1e-6           # curvature floor of the non-exact modes
                                    # (dense backend only)
-    kkt: str = "auto"              # "auto" | "riccati"
+    kkt: str = "auto"              # "auto" | "riccati" | "dense"
     auto_scale: bool = True        # gradient-based objective scaling
     scale_gmax: float = 100.0
     debug: bool = False
@@ -113,17 +117,15 @@ class IPConfig:
             raise ValueError(f"unknown mu_strategy {self.mu_strategy!r}")
         if self.kkt not in ("auto", "riccati", "dense", "riccati_pscan"):
             raise ValueError(f"unknown kkt backend {self.kkt!r}")
-        if self.kkt == "dense":
-            raise NotImplementedError(
-                "kkt='dense': the dense backend is ROADMAP Queue 1 #10")
         if self.kkt == "riccati_pscan":
             raise NotImplementedError(
                 "kkt='riccati_pscan': parallel-in-time sweeps are ROADMAP "
                 "Queue 1 #14")
-        if self.record or self.debug:
-            raise NotImplementedError(
-                "record=True / debug=True: per-iteration traces are ROADMAP "
-                "Queue 1 #15")
+
+
+# Regularisation ladder of the dense backend's inertia correction (tried in
+# order, per member).
+_DELTAS = (0.0, 1e-8, 1e-6, 1e-4, 1e-2, 1.0, 1e2, 1e4)
 
 
 class IPState(NamedTuple):
@@ -187,8 +189,160 @@ def _select(keep, old, new):
                        old, new)
 
 
+def _vm(fn, rt, *args):
+    """``fn(*args_i, rt_i)`` for every member i.  The runtime dict splits
+    into per-member entries (x0, _s_obj and whichever keys
+    ``rt["_per_member"]`` names) and shared ones."""
+    keys = ("x0", "_s_obj") + tuple(rt.get("_per_member", ()))
+    own = {k: rt[k] for k in keys if rt.get(k) is not None}
+    shared = {k: v for k, v in rt.items() if k not in own}
+
+    def one(mine, *a):
+        return fn(*a, dict(shared, **mine))
+    return vmap(one)(own, *args)
+
+
+def lu_solve_equilibrated(K, rhs):
+    """Solve K x = rhs for a batch, K (B, N, N) and rhs (B, N): symmetric
+    Jacobi equilibration (rows and columns scaled by 1/sqrt of each row's
+    largest entry), one LU with partial pivoting, then one pass of
+    iterative refinement against the unscaled K.  A singular K gives
+    non-finite entries, not an error."""
+    d = torch.rsqrt(torch.clamp(K.abs().amax(-1), min=1e-8))
+    lu, piv, _ = torch.linalg.lu_factor_ex(K * d[..., :, None]
+                                           * d[..., None, :])
+
+    def solve_once(b):
+        return d * torch.linalg.lu_solve(lu, piv, (d * b)[..., None])[..., 0]
+
+    sol = solve_once(rhs)
+    return sol + solve_once(rhs - (K @ sol[..., None])[..., 0])
+
+
+def kkt_matrix(W, Sigma, A, delta_c: float):
+    """The batch's condensed KKT matrices [[W + diag(Σ), Aᵀ], [A, −δ_c I]],
+    (B, n + m, n + m)."""
+    m = A.shape[-2]
+    eye_m = torch.eye(m, dtype=W.dtype, device=W.device)
+    return torch.cat([torch.cat([W + torch.diag_embed(Sigma), A.mT], dim=-1),
+                      torch.cat([A, (-delta_c * eye_m).expand(
+                          A.shape[:-2] + (m, m))], dim=-1)], dim=-2)
+
+
+def kkt_step(W, Sigma, A, r_tilde, r_p, delta_c: float = 1e-8,
+             retry: bool = True):
+    """Full-space KKT solve of a batch with a per-member δ_w ladder: W
+    (B, n, n), Σ (B, n), A (B, m, n), r̃ (B, n), r_p (B, m).
+
+        [ W + Σ + δ_w I   Aᵀ      ] [Δw]   [ −r̃  ]
+        [ A              −δ_c I   ] [Δλ] = [ −r_p ]
+
+    by :func:`lu_solve_equilibrated`.  A member's step is accepted when it
+    is finite and has positive curvature Δwᵀ(W + Σ + δ_w I)Δw ≥
+    1e-10·‖Δw‖² (the proxy for the inertia test); a member that fails is
+    solved again at the next δ_w of ``_DELTAS`` while the others keep their
+    step, and one that fails them all keeps the last level's step with ok
+    False.  ``retry=False`` solves once at δ_w = 0 (the second-order
+    correction and polish re-solves).  Returns ``(dw, dlam, ok)``."""
+    # active bounds can drive Σ toward inf in f32: a finite huge diagonal
+    # pins those variables without poisoning the factor
+    Sigma = torch.clamp(torch.nan_to_num(Sigma, posinf=1e10), 0.0, 1e10)
+    W = torch.nan_to_num(W, posinf=1e10, neginf=-1e10)
+    n, m = W.shape[-1], A.shape[-2]
+    rhs = torch.cat([-r_tilde, -r_p], dim=-1)
+    K0 = kkt_matrix(W, Sigma, A, delta_c)
+    on_w = torch.cat([torch.ones(n, dtype=W.dtype, device=W.device),
+                      torch.zeros(m, dtype=W.dtype, device=W.device)])
+
+    def factor(delta, rows):
+        K = K0[rows] + torch.diag_embed(delta * on_w)
+        sol = lu_solve_equilibrated(K, rhs[rows])
+        dw, dlam = sol[..., :n], sol[..., n:]
+        curv = (dw * (K[..., :n, :n] @ dw[..., None])[..., 0]).sum(-1)
+        ok = (torch.isfinite(sol).all(-1)
+              & (curv >= 1e-10 * (dw * dw).sum(-1)))
+        return dw, dlam, ok
+
+    dw, dlam, ok = factor(_DELTAS[0], slice(None))
+    if not retry:
+        return dw, dlam, ok
+    for delta in _DELTAS[1:]:
+        redo = torch.nonzero(~ok).flatten()
+        if redo.numel() == 0:
+            break
+        dw[redo], dlam[redo], ok[redo] = factor(delta, redo)
+    return dw, dlam, ok
+
+
+def make_dense_direction(nlp: NLP, cfg: IPConfig,
+                         hessian_fn=None) -> Callable:
+    """Dense KKT backend factory, the split protocol of
+    :func:`.riccati.make_riccati_direction`: ``prepare(w, lam, rt)`` gives
+    the blocks (W, A), the Lagrangian Hessian (or the mode's curvature) and
+    the constraint Jacobian of every member, by ``torch.func`` (the
+    expensive part); ``solve_blocks(blocks, Σ, r̃, c, retry)`` is one
+    :func:`kkt_step`.  ``hessian_fn(w, lam, rt_i)`` (one member's) replaces
+    the mode's W, as the ALM solver's Gauss-Newton curvature does.  The
+    objective is scaled by the member's ``_s_obj`` where ``rt`` has it."""
+    n = nlp.n
+    dtype = nlp.lower.dtype
+    eye_n = torch.eye(n, dtype=dtype, device=nlp.lower.device)
+
+    def obj1(w, rt1):
+        return rt1.get("_s_obj", 1.0) * nlp.objective(w, rt1)
+
+    def jac1(w, rt1):
+        return jacrev(lambda ww: nlp.constraints(ww, rt1))(w)
+
+    if hessian_fn is not None:
+        hess1 = hessian_fn
+    elif cfg.hessian == "exact":
+        def hess1(w, lam, rt1):
+            return hessian(lambda ww: obj1(ww, rt1) + torch.dot(
+                lam, nlp.constraints(ww, rt1)))(w)
+    elif cfg.hessian == "objective":
+        def hess1(w, lam, rt1):
+            return hessian(lambda ww: obj1(ww, rt1))(w)
+    else:  # gauss_newton: JᵀJ curvature of the constraint residuals
+        def hess1(w, lam, rt1):
+            A = jac1(w, rt1)
+            return A.T @ A + cfg.gn_reg * eye_n
+
+    def prepare(w, lam, rt):
+        """(W, A) of every member: (B, n, n) and (B, m, n)."""
+        W = _vm(hess1, rt, w, lam)
+        A = _vm(jac1, rt, w)
+        return W.to(dtype).contiguous(), A.to(dtype).contiguous()
+
+    def solve_blocks(blocks, Sigma, r_tilde2, c2, retry=True):
+        W, A = blocks
+        return kkt_step(W, Sigma, A, r_tilde2, c2, delta_c=cfg.delta_c,
+                        retry=retry)
+
+    def direction(w, lam, rt, Sigma, r_tilde, c):
+        """``(dw, dlam, ok, resolve)``; ``resolve(r̃2, c2)`` re-solves with
+        the same blocks."""
+        blocks = prepare(w, lam, rt)
+
+        def resolve(r_tilde2, c2, retry=True, Sigma2=None):
+            return solve_blocks(blocks, Sigma if Sigma2 is None else Sigma2,
+                                r_tilde2, c2, retry=retry)
+
+        dw, dlam, ok = resolve(r_tilde, c)
+        return dw, dlam, ok, resolve
+
+    def zero_blocks(Bn, device):
+        return (torch.zeros((Bn, n, n), dtype=dtype, device=device),
+                torch.zeros((Bn, nlp.m, n), dtype=dtype, device=device))
+
+    direction.prepare = prepare
+    direction.solve_blocks = solve_blocks
+    direction.zero_blocks = zero_blocks
+    return direction
+
+
 def make_solver(nlp: NLP, config: IPConfig = IPConfig(),
-                direction=None) -> Callable:
+                direction=None, hessian_fn=None) -> Callable:
     """Build ``solve(rt, w0, lam0=None, zl0=None, zu0=None, mu0=None) ->
     IPResult`` for a BATCH of problems: ``w0`` is (B, n), ``rt["x0"]``
     (B, nx); ``p``/``tvp``/``params`` in ``rt`` are shared, except those
@@ -196,12 +350,15 @@ def make_solver(nlp: NLP, config: IPConfig = IPConfig(),
 
     ``direction``: KKT backend factory ``(nlp, cfg) -> fn`` with the split
     ``prepare``/``solve_blocks`` protocol (:func:`.riccati.
-    make_riccati_direction`).  The dense backend is not ported yet.
+    make_riccati_direction`); None takes the dense backend
+    (:func:`make_dense_direction`, with ``hessian_fn`` as its curvature
+    when given).
+
+    With ``config.record`` the solve runs exactly ``max_iter`` iterations
+    (members that are done stay frozen) and returns ``(result, trace)``:
+    ``kkt_error``, ``mu``, ``objective`` (unscaled), ``theta`` (‖C‖₁) and
+    ``done`` after every iteration, each (B, max_iter).
     """
-    if direction is None:
-        raise NotImplementedError(
-            "the dense KKT backend is ROADMAP Queue 1 #10; pass "
-            "riccati.make_riccati_direction")
     cfg = config
     n, m = nlp.n, nlp.m
     lb, ub = nlp.lower, nlp.upper
@@ -214,26 +371,15 @@ def make_solver(nlp: NLP, config: IPConfig = IPConfig(),
     bl = torch.where(has_lb, lb, -torch.inf)
     bu = torch.where(has_ub, ub, torch.inf)
 
-    direction_fn = direction(nlp, cfg)
+    direction_fn = (direction(nlp, cfg) if direction is not None
+                    else make_dense_direction(nlp, cfg, hessian_fn))
     prep_fn = direction_fn.prepare
     solve_blocks_fn = direction_fn.solve_blocks
     # the polish phase re-solves with the last iteration's blocks, unless
     # it derives fresh ones at the converged point
     _carry_blocks = cfg.polish_iters > 0 and not cfg.polish_fresh
 
-    # ---- per-member NLP functions, batched with vmap.  The runtime dict
-    # splits into per-member entries (x0, _s_obj and whichever of p, tvp,
-    # params ``_per_member`` names) and shared ones. ----
-    def _vm(fn, rt, *args):
-        """``fn(*args_i, rt_i)`` for every member i."""
-        keys = ("x0", "_s_obj") + tuple(rt.get("_per_member", ()))
-        own = {k: rt[k] for k in keys if rt.get(k) is not None}
-        shared = {k: v for k, v in rt.items() if k not in own}
-
-        def one(mine, *a):
-            return fn(*a, dict(shared, **mine))
-        return vmap(one)(own, *args)
-
+    # ---- per-member NLP functions, batched with vmap (_vm) ----
     def obj1(w, rt1):
         return rt1["_s_obj"] * nlp.objective(w, rt1)
 
@@ -578,6 +724,17 @@ def make_solver(nlp: NLP, config: IPConfig = IPConfig(),
         w_new = torch.where(_col(bad), w, w_new)
         lam_new = torch.where(_col(bad), lam, lam_new)
 
+        if cfg.debug:
+            alpha = step_w.abs().amax(-1) / torch.clamp(dw.abs().amax(-1),
+                                                        min=1e-30)
+            _debug_lines(
+                "it={it} mu={mu:.2e} err0={e:.2e} alpha={a:.2e} amax={am:.2e} "
+                "adual={ad:.2e} ok={ok} D={D:.2e} th={th:.2e} nu={nu:.1e} "
+                "|dw|={dw:.2e} obj={o:.4f}",
+                it=state.it, mu=mu, e=state.err, a=alpha, am=alpha_pri_max,
+                ad=alpha_dual, ok=ok, D=D, th=th0, nu=nu,
+                dw=dw.abs().amax(-1), o=_vm(obj1, rt, w))
+
         # end-of-step residuals: the next iteration's carry and the
         # convergence check for the point just produced
         g_n, c_n, ATlam_n, ATc_n = residuals_at(w_new, lam_new, rt)
@@ -663,6 +820,10 @@ def make_solver(nlp: NLP, config: IPConfig = IPConfig(),
                  (c, c2), (ATl, ATl2)))
         err_post = kkt_error(w, lam, zl, zu, g, ATl, c, 0.0)
         take = err_post <= torch.clamp(state.err, min=cfg.tol)
+        if cfg.debug:
+            _debug_lines("polish: err_pre={a:.2e} err_post={b:.2e} take={t} "
+                         "|dw_total|={d:.2e}", a=state.err, b=err_post,
+                         t=take, d=(w - state.w).abs().amax(-1))
         # a rolled-back member keeps its pre-polish μ
         return state._replace(
             w=_select(take, w, state.w), lam=_select(take, lam, state.lam),
@@ -698,10 +859,19 @@ def make_solver(nlp: NLP, config: IPConfig = IPConfig(),
             rt["_s_obj"] = torch.ones((w0.shape[0],), dtype=dtype,
                                       device=w0.device)
         state = init_state(rt, w0, lam0, zl0, zu0, mu0)
+        # record: exactly max_iter iterations, no early exit (the members
+        # that are done stay frozen), each iteration's values kept
+        rec = []
         for _ in range(cfg.max_iter):
-            if not bool((~state.done & (state.it < cfg.max_iter)).any()):
+            live = ~state.done & (state.it < cfg.max_iter)
+            if not (cfg.record or bool(live.any())):
                 break
             state = iteration(state, rt)
+            if cfg.record:
+                rec.append({"kkt_error": state.kkt_error, "mu": state.mu,
+                            "objective": _vm(nlp.objective, rt, state.w),
+                            "theta": theta_sum(state.c_res),
+                            "done": state.done})
         zl_warm, zu_warm = state.zl, state.zu       # pre-polish duals
         if cfg.polish_iters > 0:
             state = polish(state, rt)
@@ -709,13 +879,25 @@ def make_solver(nlp: NLP, config: IPConfig = IPConfig(),
         converged = state.converged | (err <= cfg.tol)
         theta_inf = c.abs().amax(-1)
         objective = _vm(nlp.objective, rt, state.w)
-        return IPResult(w=state.w, lam=state.lam, zl=state.zl, zu=state.zu,
-                        mu=state.mu, converged=converged,
-                        iterations=state.it,
-                        kkt_error=torch.minimum(err, state.kkt_error),
-                        objective=objective, theta=theta_inf,
-                        feasible=theta_inf <= cfg.tol,
-                        restorations=state.n_restore,
-                        zl_warm=zl_warm, zu_warm=zu_warm)
+        result = IPResult(w=state.w, lam=state.lam, zl=state.zl,
+                          zu=state.zu, mu=state.mu, converged=converged,
+                          iterations=state.it,
+                          kkt_error=torch.minimum(err, state.kkt_error),
+                          objective=objective, theta=theta_inf,
+                          feasible=theta_inf <= cfg.tol,
+                          restorations=state.n_restore,
+                          zl_warm=zl_warm, zu_warm=zu_warm)
+        if not cfg.record:
+            return result
+        return result, {k: torch.stack([r[k] for r in rec], dim=1)
+                        for k in rec[0]}
 
     return solve
+
+
+def _debug_lines(fmt, **values):
+    """``IPConfig(debug=True)``'s trace: one line a member, ``fmt``
+    formatted with each member's entry of the (B,) ``values``."""
+    cols = {k: v.detach().cpu().tolist() for k, v in values.items()}
+    for i in range(len(next(iter(cols.values())))):
+        print(fmt.format(**{k: v[i] for k, v in cols.items()}))

@@ -101,8 +101,8 @@ def make_riccati_direction(nlp: NLP, cfg) -> Callable:
         raise ValueError(
             "Riccati KKT backend needs a stage-separable objective "
             "(StageCost / probe-certified), stage EQ rows totalling <= nu "
-            "per stage, and at most 64 trajectory-level border rows; the "
-            "dense backend is not ported yet (ROADMAP Queue 1 #10)")
+            "per stage, and at most 64 trajectory-level border rows; "
+            "anything else falls to the dense backend.")
     spec = nlp.spec
     H, nx, nu = spec.H, spec.dims.x, spec.dims.u
     ns = nx + nu

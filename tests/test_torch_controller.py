@@ -92,27 +92,33 @@ def test_next_single_problem_matches_jax(surrogate):
 
 
 def test_unported_features_raise():
-    for kw in ({"record": True}, {"kkt": "dense"}, {"debug": True},
-               {"kkt": "riccati_pscan"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.IPConfig(**kw)
+    """Only the parallel-in-time and multi-device solves (ROADMAP Queue 1
+    #14) are left to port; the dense backend, ALM, the differentiable
+    solve and record/debug (#10, #15) build."""
+    with pytest.raises(NotImplementedError, match="Queue 1 #14"):
+        T.IPConfig(kkt="riccati_pscan")
+    for kw in ({"record": True}, {"kkt": "dense"}, {"debug": True}):
+        T.IPConfig(**kw)               # ported: no raise
     with pytest.raises(ValueError):
         T.IPConfig(kkt="nope")
     model = T.MLPDynamics.make(x_dim=2, u_dim=1, hidden=[4])
     cost = lambda x, u: torch.sum(u)  # noqa: E731
-    # path and stage constraints are ported; one the Riccati backend cannot
-    # take (more equality rows a stage than controls) needs the dense one
+    with pytest.raises(NotImplementedError, match="Queue 1 #14"):
+        T.NMPC(model, cost, H=4, mesh=object(), device="cpu")
+    # a constraint the Riccati backend cannot take (more equality rows a
+    # stage than controls) and a stage-coupled cost take the dense one
     two_eq = T.StageConstraint(stage=lambda x, u: torch.cat([u, u]), dim=2,
                                lb=(0.0, 0.0), ub=(0.0, 0.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.NMPC(model, cost, [two_eq], H=4, device="cpu")
+    assert T.NMPC(model, cost, [two_eq], H=4,
+                  device="cpu").kkt_backend == "dense"
     with pytest.raises(TypeError, match="unknown constraint"):
         T.NMPC(model, cost, [object()], H=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.NMPC(model, cost, H=4, differentiable=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.NMPC(model, lambda x, u: torch.sum(u) + x[0, 0] * x[-1, 0],
-               H=4, device="cpu")
+    assert T.NMPC(model, cost, H=4, differentiable=True,
+                  device="cpu").kkt_backend == "riccati"
+    assert T.NMPC(model, lambda x, u: torch.sum(u) + x[0, 0] * x[-1, 0],
+                  H=4, device="cpu").kkt_backend == "dense"
+    assert T.NMPC(model, cost, H=4, config=T.ALMConfig(),
+                  device="cpu").kkt_backend == "alm"
     # per-member p must lead with the batch size
     with pytest.raises(ValueError, match="batch size"):
         torch_mpc(4).next_batch(torch.zeros(2, 2), p=torch.zeros(3, 3))

@@ -205,8 +205,8 @@ def test_constraint_order_does_not_matter():
 
 def test_ineligible_specs_raise():
     """More equality rows a stage than controls, or more than 64 border
-    rows, need the dense backend (not ported): NMPC raises under
-    kkt="auto"; the direction factory refuses under kkt="riccati"."""
+    rows, need the dense backend: NMPC takes it under kkt="auto", and the
+    Riccati direction factory refuses under kkt="riccati"."""
     box = T.DomainConstraint(states_constraint=[[-2.0, 2.0]] * 2,
                              control_constraint=[[-1.0, 1.0]])
     cost = T.StageCost(stage=lambda x, u: torch.sum(u))
@@ -217,8 +217,8 @@ def test_ineligible_specs_raise():
                            dim=65, lb=(0.0,) * 65, ub=(INF,) * 65)
     model = _model(T, torch, _lv)
     for pc, H in ((eq2, 4), (big, 8)):
-        with pytest.raises(NotImplementedError, match="Queue 1 #10"):
-            T.NMPC(model, cost, [box, pc], H=H, DT=0.1, device="cpu")
+        assert T.NMPC(model, cost, [box, pc], H=H, DT=0.1,
+                      device="cpu").kkt_backend == "dense"
         with pytest.raises(ValueError, match="at most 64"):
             T.NMPC(model, cost, [box, pc], H=H, DT=0.1, device="cpu",
                    config=T.IPConfig(kkt="riccati"))

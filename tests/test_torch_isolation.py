@@ -36,7 +36,12 @@ def test_fresh_import_pulls_in_no_jax():
             "pyneuralempc_tpu_torch.models.rnn, "
             "pyneuralempc_tpu_torch.models.rolling, "
             "pyneuralempc_tpu_torch.models.importers, "
-            "pyneuralempc_tpu_torch.examples.fleet_wide; "
+            "pyneuralempc_tpu_torch.examples.fleet_wide, "
+            "pyneuralempc_tpu_torch.solve.alm, "
+            "pyneuralempc_tpu_torch.solve.diff, "
+            "pyneuralempc_tpu_torch.utils.native, "
+            "pyneuralempc_tpu_torch.utils.profiling, "
+            "pyneuralempc_tpu_torch.utils.timing; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -83,7 +88,7 @@ def test_entry_points_default_to_the_card():
             "Box.tile", "fit_normalized_surrogate", "GRUDynamics.init_params",
             "LSTMDynamics.init_params", "load_keras_h5",
             "load_keras_lstm_h5", "load_keras_gru_h5",
-            "load_keras_h5_rolling"} <= set(checked)
+            "load_keras_h5_rolling", "check_model"} <= set(checked)
     assert all(d == "cuda" for d in checked.values()), checked
     # the new examples' builders and the models' initialisers too
     from pyneuralempc_tpu_torch.examples import (cartpole, fleet_rnn,

@@ -13,8 +13,12 @@ and "mehrotra", ``hessian`` "objective" and "gauss_newton", and
   start, and a member whose JAX plan does not move converges in 14
   iterations there and in 15 in the port, with plans 1.1e-6 apart.)
 * Each member's μ after every iteration (the warm carry's) is what it is
-  when the member is solved alone: μ is reduced over a member's own
-  entries, never over the batch.
+  when the member is solved alone, to MU_RTOL relative: μ is reduced over
+  a member's own entries, never over the batch.  The batched iterates
+  differ from the lone ones in their last bits (a batched product rounds
+  apart from one member's), so μ is not held bit for bit: over every k
+  and both rules the largest measured spread is 3.8e-7 (adaptive, k=2),
+  while the members' own μ differ from each other by 18% to 999x.
 """
 
 import dataclasses
@@ -33,6 +37,9 @@ from _torch_lv import (BENCH_CFG, BOX, REG, glorot_params, jax_mpc,
 
 H, B = 12, 8
 DU_TOL = 1e-4
+# a member's batched μ against its μ solved alone, relative: 26x the
+# largest spread measured on the CPU (3.8e-7)
+MU_RTOL = 1e-5
 OPTIONS = {
     "adaptive": dict(mu_strategy="adaptive"),
     "mehrotra": dict(mu_strategy="mehrotra"),
@@ -123,10 +130,13 @@ def test_stage_constrained_case_matches_jax(option):
 def test_mu_is_each_members_own(strategy):
     """Members with far-apart starts in one batch (the last one never
     converges: its μ stays high): after every iteration k (a solve cut at
-    max_iter=k), each member's μ equals its μ when solved alone."""
+    max_iter=k), each member's μ is its μ when solved alone, to MU_RTOL,
+    with the same iteration count; and at some k the members' μ differ from
+    each other by far more than MU_RTOL (at least 10%), so a member reading
+    another's μ would show."""
     P = T.mlp_params_from_numpy(glorot_params(0), device="cpu")
     xs = torch.tensor([[0.75, -0.35], [-0.6, 0.3], [0.9, 0.3]])
-    seen = set()
+    gaps = []
     for k in range(1, 9):
         tm = torch_mpc(H, dict(BENCH_CFG, mu_strategy=strategy,
                                polish_iters=0, max_iter=k))
@@ -134,7 +144,9 @@ def test_mu_is_each_members_own(strategy):
         for i in range(len(xs)):
             c_alone, alone = tm.next_batch(xs[i:i + 1], params=P)
             assert both.iterations[i] == alone.iterations[0]
-            assert torch.equal(c_both.mu[i:i + 1], c_alone.mu), (k, i)
-        seen.add(tuple(c_both.mu.tolist()))
-    # the members' μ parted at some iteration
-    assert any(len(set(mu)) > 1 for mu in seen)
+            torch.testing.assert_close(c_both.mu[i:i + 1], c_alone.mu,
+                                       rtol=MU_RTOL, atol=0.0,
+                                       msg=f"k={k}, member {i}")
+        gaps.append(float(c_both.mu.max() / c_both.mu.min()) - 1.0)
+    # the members' μ parted by at least 10% at some iteration
+    assert max(gaps) >= 0.1, gaps
