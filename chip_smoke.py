@@ -89,15 +89,18 @@ Phases (each raises, and the script exits non-zero, on failure):
    against the plain halves, the run-time kernels and the plain sweep;
    timed as in 3b at the paths' shapes ((4, 1) at B=4096 too).  Then the
    wide fleet's (12, 10) at H=50, B=4096 (the cases drawn at B=1024 and
-   repeated 4 times): the backward entry takes the run-time kernel there
-   (the backward template needs nu | 32), the forward entry its instance
+   repeated 4 times): the backward entry takes its instance
+   riccati_general_backward_fixed<12, 10, 1, 0> there (Quu factored one
+   row a lane, one stage buffer a warp), the forward entry its instance
    riccati_general_forward_fixed<12, 10, 1, 0, D>; both against the plain
-   halves and the plain sweep, the forward instance bit for bit against
-   the run-time forward kernel and against its other candidate depth
-   (a second build of riccati_streamed.cu at W_ALT_DEPTH, from the same
-   source with that one case edited); both timed, the instance in turns
-   against the run-time forward kernel and against the other depth, warm
-   and with L2 flushed.
+   halves, the run-time kernels and the plain sweep, the forward instance
+   bit for bit against the run-time forward kernel and against its other
+   candidate depth (a second build of riccati_streamed.cu at W_ALT_DEPTH,
+   from the same source with that one case edited); both timed, each
+   instance in turns against its run-time kernel, the forward one against
+   the other depth too, warm and with L2 flushed, with ptxas's report of
+   each (chip_backward_designs.py times the backward instance's other
+   designs).
 4. LV path: trains the 2x32 tanh MLP surrogate of the Lotka-Volterra
    system on the card, builds NMPC as bench.py does, solves B=4096 cold and
    then warm re-plans, the plant advanced by the true ODE through the port's
@@ -156,9 +159,9 @@ Phases (each raises, and the script exits non-zero, on failure):
 4h. Wide fleet (pyneuralempc_tpu_torch/examples/fleet_wide.py, the JAX
    package's tools/fleet_wide_tpu.py: 12 states, 10 thrusts, H=50, RK4,
    B=4096, not cut): a cold solve, one untimed and 2 timed warm re-plans.
-   Counters: the streamed pair alone, every backward launch the run-time
-   kernel and every forward launch the instance; at least 4092/4096
-   converged on every solve.
+   Counters: the streamed pair alone, every backward and every forward
+   launch through its instance (the run-time kernels never); at least
+   4092/4096 converged on every solve.
 4i. Solver options on the LV fleet (phase 4's surrogate, B=4096):
    mu_strategy "monotone" (phase 4's rule again, for a like protocol),
    "adaptive" and "mehrotra", a cold solve and 1 untimed and 1 timed warm
@@ -1541,18 +1544,20 @@ def library_forward(lib_path):
 
 def phase_streamed_wide(rk, build_log, alt_forward, alt_log):
     """Phase 3e at the wide fleet's stage (12, 10), H=50, B=4096: the
-    run-time backward kernel (the backward template cannot take nu=10) and
-    the forward instance against the plain halves and the plain sweep on
-    the four seeded cases; the forward instance bit for bit against the
-    run-time forward kernel and against its other candidate depth; then
-    both timed, the instance in turns against the run-time forward kernel
-    and against its other depth."""
+    backward instance (Quu factored one row a lane, one stage buffer a
+    warp) and the forward instance against the plain halves, the run-time
+    kernels and the plain sweep on the four seeded cases; the forward
+    instance bit for bit against the run-time forward kernel and against
+    its other candidate depth; then both timed, each in turns against its
+    run-time kernel, warm and with L2 flushed, and the forward instance
+    against its other depth."""
     nx, nu, Hn = W_NX, W_NU, W_H
     plan = rk.kernel_plan(Hn, nx, nu, "cuda")
     bname, fname = plan.get("backward_kernel"), plan.get("forward_kernel")
     alt_name = f"riccati_general_forward_fixed<{nx}, {nu}, 1, 0, {W_ALT_DEPTH}>"
     log(f"wide stage: sweep plan {plan}")
-    if (plan["path"] != "cuda_streamed" or bname != "riccati_backward_kernel"
+    if (plan["path"] != "cuda_streamed"
+            or bname != f"riccati_general_backward_fixed<{nx}, {nu}, 1, 0>"
             or not fname.startswith(
                 f"riccati_general_forward_fixed<{nx}, {nu}, 1, 0, ")):
         raise RuntimeError(f"({nx}, {nu}) plans {plan}")
@@ -1582,11 +1587,27 @@ def phase_streamed_wide(rk, build_log, alt_forward, alt_log):
     dims = (B, Hn, nx, nu)
     gains, _ = rk.riccati_backward_cuda(*args)
     torch.cuda.synchronize()
+    bwd_call = lambda: rk.riccati_backward_cuda(*args)  # noqa: E731
     bwd = kernel_entry(
         "riccati_backward [wide]", "riccati_streamed.cu", f"{PALLAS}:468",
-        lambda: rk.riccati_backward_cuda(*args), bname,
-        lambda: rk.riccati_backward_plain(*args), rk.backward_bytes(*dims),
-        rk.backward_flops(*dims), label, plain_runs=3, strict=True)
+        bwd_call, bname, lambda: rk.riccati_backward_plain(*args),
+        rk.backward_bytes(*dims), rk.backward_flops(*dims), label,
+        plain_runs=3, strict=True)
+    b_turns = design_turns(
+        {"run-time": (lambda: rk.riccati_backward_runtime_cuda(*args),
+                      "riccati_backward_kernel"),
+         "instance": (bwd_call, bname)},
+        abba(("run-time", "instance")), bound_ms=bwd["bound_ms"])
+    b_mean = {k: statistics.mean(v) for k, v in b_turns.items()}
+    log(f"riccati_backward at {label}: run-time "
+        f"{b_mean['warm', 'run-time'] * 1e3:.2f} / "
+        f"{b_mean['flushed', 'run-time'] * 1e3:.2f} us, instance "
+        f"{b_mean['warm', 'instance'] * 1e3:.2f} / "
+        f"{b_mean['flushed', 'instance'] * 1e3:.2f} us (warm / L2 flushed, "
+        "means of two turns): the instance takes "
+        f"{b_mean['warm', 'instance'] / b_mean['warm', 'run-time']:.2%} of "
+        "the run-time kernel's time warm, "
+        f"{bwd['bound_ms'] / b_mean['warm', 'instance']:.2%} of its bound")
     fwd_call = lambda: rk.riccati_forward_cuda(A, Bm, c, gains)  # noqa: E731
     fwd = kernel_entry(
         "riccati_forward [wide]", "riccati_streamed.cu", f"{PALLAS}:488",
@@ -1633,11 +1654,23 @@ def phase_streamed_wide(rk, build_log, alt_forward, alt_log):
                    alt_log, "riccati_general_forward_fixed",
                    (nx, nu, 1, 0, W_ALT_DEPTH)),
                ring_bytes=rk.forward_ring_bytes(nx, nu, 1, 0, depth))
-    bwd.update(design="the run-time kernel (riccati_backward_kernel)",
-               path="fleet_wide", shape=fwd["shape"],
+    bwd.update(design=f"compile-time instance {bname}", path="fleet_wide",
+               shape=fwd["shape"],
+               runtime_ms=b_mean["warm", "run-time"],
+               flushed_ms=b_mean["flushed", "instance"],
+               runtime_flushed_ms=b_mean["flushed", "run-time"],
+               turns_ms={f"{cache}, {who}": v
+                         for (cache, who), v in b_turns.items()},
+               smem_bytes_a_warp=rk.backward_fixed_smem_bytes(nx, nu, 1, 0),
+               stage_buffers=rk.backward_fixed_buffers(nx, nu, 1, 0),
+               ptxas_instance=ptxas_report(
+                   build_log, "riccati_general_backward_fixed",
+                   (nx, nu, 1, 0)),
                ptxas_runtime=ptxas_report(build_log,
                                           "riccati_backward_kernel", ()))
-    log(f"ptxas: run-time backward {bwd['ptxas_runtime']}; forward "
+    log(f"ptxas: backward instance ({bwd['stage_buffers']} stage buffer(s), "
+        f"{bwd['smem_bytes_a_warp']} B a warp) {bwd['ptxas_instance']}; "
+        f"run-time backward {bwd['ptxas_runtime']}; forward "
         f"instance D={depth} ({fwd['ring_bytes']} B a block) "
         f"{fwd['ptxas_instance']}; D={W_ALT_DEPTH} "
         f"({rk.forward_ring_bytes(nx, nu, 1, 0, W_ALT_DEPTH)} B a block) "
@@ -2394,17 +2427,7 @@ def phase_fleet_wide(nempc, rk, rg, card, pair_ms):
     carry, res, warm_conv, times, launches = warm_replans(
         mpc, res, carry, W_WARM_STEPS, lambda: rk.BACKWARD_LAUNCHES)
     conv += warm_conv
-    n = counters(rk, rg)
-    log(f"wide fleet path: streamed backward launches {n['backward']} (the "
-        f"run-time kernel; instances {n['backward_instance']}), forward "
-        f"{n['forward']} (the instance {n['forward_instance']}); fused "
-        f"{n['fused']}, general {n['general_backward']} / "
-        f"{n['general_forward']}, fused general {n['fused_general']}, "
-        f"plain calls {n['plain']}")
-    if (not only_launched(n, "backward", "forward", "forward_instance")
-            or not n["backward"] == n["forward"] == n["forward_instance"]):
-        raise RuntimeError("the wide fleet did not go through the run-time "
-                           "backward kernel and the forward instance alone")
+    n = only_instance_pair(rk, rg, "wide fleet")
     if min(conv) < MIN_WARM_CONVERGED:
         raise RuntimeError(f"wide fleet convergence {conv} (cold, warm...) "
                            f"below {MIN_WARM_CONVERGED}/{B}")

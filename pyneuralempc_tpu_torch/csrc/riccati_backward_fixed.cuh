@@ -12,12 +12,14 @@
 // with one right-hand side, and the same gains layout [K | k | Pbar | pbar |
 // Mxu]; E, F, h and dc are then not read).  It replaces
 // pyneuralempc_tpu/ops/pallas/riccati_kernel.py's streamed backward calls,
-// :468 (`_backward_kernel` :191-302) at (12, 4, 1, 0), (10, 1, 1, 0) and
-// (4, 1, 1, 0), and :991 (`_bwd_general_body` :610-787) at (12, 4, 2, 1),
-// with the local-delta Cholesky retry of `_chol_solve_retry` :158-188.
+// :468 (`_backward_kernel` :191-302) at (12, 4, 1, 0), (10, 1, 1, 0),
+// (4, 1, 1, 0) and (12, 10, 1, 0), and :991 (`_bwd_general_body` :610-787)
+// at (12, 4, 2, 1), with the local-delta Cholesky retry of
+// `_chol_solve_retry` :158-188 (`_chol_factor_tiles` :120).
 //
-// What bounds it on an H100: bytes, ~183 us at (12, 4, 1, 0) and ~202 us at
-// (12, 4, 2, 1) for B=4096, H=50 (the sources' own notes count them).
+// What bounds it on an H100: bytes, ~183 us at (12, 4, 1, 0), ~202 us at
+// (12, 4, 2, 1) and ~296 us at (12, 10, 1, 0) for B=4096, H=50
+// (ops/cuda/riccati_kernel.py's backward_bytes counts them).
 // One warp per problem and the gains layout of riccati_general.cu.  The
 // design against the run-time kernels' ~20 dependent phases a stage:
 //  * every lane's entries of every product are fixed at compile time and
@@ -35,7 +37,27 @@
 //    is P_new and p together, X^T Y + Z^T W + F^T Nu (+ G);
 //  * Quu's factor and its retry (and S's) run on every lane from
 //    registers, so no lane waits on lane 0: five __syncwarp() a stage
-//    (four at r = 0);
+//    (four at r = 0).  Past nu = 4 a copy of Quu and its factor on every
+//    lane would not fit 64 registers, so lane j < nu holds row j of Quu,
+//    takes pivot j and hands it and row j of the factor to the others by
+//    __shfl_sync (each pivot seen by all, so each delta level passes or
+//    fails on every lane alike), in _chol_factor_tiles' order of terms;
+//    the factor goes to P_new's room in shared memory (read and rewritten
+//    around it), and the substitutions read it by broadcast: one
+//    __syncwarp() more;
+//  * the lane maps take any nu <= 32: 32/nu lanes a row of Z, each a
+//    float4 column and every 32/nu-th after it (at (12, 10): 3 lanes, 2
+//    columns each, 30 lanes working);
+//  * past nu = 4 (FixedLayout::kWide) the lane id is read anew each stage,
+//    so the compiler recomputes each lane's offsets where they are used
+//    instead of keeping them across the stage loop: with the shared memory
+//    carveout at its largest an SM keeps ~28 KB of L1, and the ~330 bytes
+//    a thread that spilled at (12, 10, 1, 0) went to L2; the upper
+//    triangles' copies pair row p with row ns - 1 - p, so each copy slot of
+//    a lane is used.  Each measured faster on an H100 than the design
+//    without it, in turns (chip_backward_designs.py, PERF.md); a Z lane's
+//    columns rolled into a loop measured faster too, but the loop's form
+//    changed the code of the (12, 4, 2, 1) instance, so they stay unrolled;
 //  * the rows of X, Y, Z (and W, Nu) are padded to whole float4s and each
 //    lane's output columns of Y, Z and [P_new | p^T] are runs of float4
 //    columns, read with 16-byte shared-memory loads: about half the load
@@ -46,7 +68,9 @@
 //  * a stage is loaded with 4-byte cp.async copies (4 bytes because h's
 //    rows are 8-byte aligned only and the triangles' rows start anywhere;
 //    each lane issues ~17 a stage, little next to its stage math) into one
-//    of two stage buffers in turn, and waited on at once.  Keeping stage
+//    of two stage buffers in turn, and waited on at once (into one buffer,
+//    after a __syncwarp(), where two would not leave room for 8 blocks an
+//    SM).  Keeping stage
 //    t-1's copies in flight during stage t measured slower on an H100
 //    (861.78 against 735.25 us at (12, 4, 2, 1) in one chip_smoke.py run):
 //    the 32 resident warps an SM already hide the loads' latency, and the
@@ -58,10 +82,14 @@
 // 564-float stage buffers (562 floats used) and 580 floats of scratch,
 // 6,832 bytes; at (12, 4, 1, 0) two 528-float stage buffers and 552 floats
 // of scratch, 6,432 bytes; 3,184 bytes at (10, 1, 1, 0) and 832 at
-// (4, 1, 1, 0).  Every way 8 blocks of 4 warps (B=4096 in one wave on 132
-// SMs) fit in 228 KB with the 64-register cap.  ptxas: 64 registers and 96
-// bytes of spill stores and loads a thread at (12, 4, 2, 1), 92 at
-// (12, 4, 1, 0) (chip_smoke.py prints every instance's report).
+// (4, 1, 1, 0); at (12, 10, 1, 0) one 816-float stage buffer and 856
+// floats of scratch, 6,688 bytes (two buffers, 9,952 bytes, would fit 5
+// blocks an SM: B=4096 in two waves, slower in turns, as a register cap
+// set for 7 blocks is).  Every way 8 blocks of 4 warps (B=4096 in one wave
+// on 132 SMs) fit in 228 KB with the 64-register cap.  ptxas: 64 registers
+// and 96 bytes of spill stores and loads a thread at (12, 4, 2, 1), 92 at
+// (12, 4, 1, 0), 54 stores and 80 loads at (12, 10, 1, 0) (chip_smoke.py
+// prints every instance's report).
 
 #pragma once
 
@@ -76,6 +104,8 @@ namespace {
 constexpr int kMaxWarps = 4;
 constexpr int kMinBlocks = 8;        // resident blocks an SM (backward)
 constexpr int kDefaultSmem = 48 * 1024;
+constexpr int kSmemPerSM = 228 * 1024;   // an H100 SM's shared memory
+constexpr int kBlockReserve = 1024;      // the runtime's reserve a block
 
 // _LOCAL_DELTAS = (0, 1e-6, 1e-4): nudge-scale bumps on the diagonal.
 __device__ __forceinline__ float local_delta(int level) {
@@ -103,6 +133,12 @@ __device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
 
 __host__ __device__ constexpr int up4(int n) { return (n + 3) & ~3; }
 
+// Whether kMinBlocks blocks of kMaxWarps warps, each warp `floats` floats
+// of shared memory, fit an SM.
+__host__ __device__ constexpr bool smem_fits(int floats) {
+  return kMinBlocks * (4 * kMaxWarps * floats + kBlockReserve) <= kSmemPerSM;
+}
+
 template <int NX, int NU, int R, int RE>
 struct FixedLayout {
   static constexpr int NS = NX + NU, NT = NS * (NS + 1) / 2;
@@ -119,8 +155,14 @@ struct FixedLayout {
   static constexpr int oE = omu + R * NU, oF = oE + RE * NU;
   static constexpr int oh = oF + RE * NX, kStage = oh + R * RE;
   static constexpr int kStagePad = up4(kStage);
-  // scratch after the two stage buffers, each array 16-byte aligned
-  static constexpr int oPn = 2 * kStagePad, op = oPn + up4(NX * PS);
+  // the scratch after the stage buffers
+  static constexpr int kScratch = up4(NX * PS) + up4(R * NX) + NX * NWP +
+                                  NU * NWP + NU * NQP + RE * NCP;
+  // Two stage buffers in turn where kMinBlocks blocks of kMaxWarps warps
+  // still fit an SM with them, else one
+  static constexpr int kBuffers = smem_fits(2 * kStagePad + kScratch) ? 2 : 1;
+  // scratch after the stage buffers, each array 16-byte aligned
+  static constexpr int oPn = kBuffers * kStagePad, op = oPn + up4(NX * PS);
   static constexpr int oY = op + up4(R * NX), oZ = oY + NX * NWP;
   static constexpr int oW = oZ + NU * NWP, oNu = oW + NU * NQP;
   static constexpr int kFloats = oNu + RE * NCP;
@@ -132,13 +174,23 @@ struct FixedLayout {
   // lane maps (fixed at compile time), in float4 columns
   static constexpr int YC = NWP / 4;       // of a Y (and a Z) row
   static constexpr int Y0 = (YC + 1) / 2;  // of them, a row's first lane's
-  static constexpr int LZ = 32 / NU;       // lanes per Z row, one each
+  static constexpr int LZ = 32 / NU;       // lanes per Z row
+  static constexpr int ZC = (YC + LZ - 1) / LZ;  // of a Z row, a lane's
   static constexpr int PC = NCP / 4;       // of a [P_new | p^T] row
   static constexpr int P0 = (PC + 1) / 2;  // of them, a row's first lane's
-  static_assert(2 * NX <= 32 && NQ <= 32 && 32 % NU == 0 && RE <= NU &&
-                    YC <= LZ,
-                "lane maps need 2 nx <= 32, nx + R + r <= 32, nu | 32 and "
-                "nx + R + nu <= 4 * 32 / nu");
+  // Past nu = 4 a copy of Quu, its factor and 1/diag on every lane (2 nu
+  // (nu + 1) floats, 40 at nu = 4) would not fit beside the rest in 64
+  // registers: Quu is factored one row a lane, the factor in P_new's room.
+  // The same instances read the lane id anew each stage (lane_id), so the
+  // lane's offsets are recomputed where used and not kept, and spilled,
+  // across the stage loop, and fold the triangles' copies (rows p and
+  // ns - 1 - p together, ns + 1 floats) so that no copy slot goes unused;
+  // each measured faster at (12, 10, 1, 0) on an H100 (PERF.md).
+  static constexpr bool kWide = NU > 4;
+  static_assert(2 * NX <= 32 && NQ <= 32 && NU <= 32 && RE <= NU,
+                "lane maps need 2 nx <= 32, nx + R + r <= 32 and nu <= 32");
+  static_assert(!kWide || NU * NU <= oY - oPn,
+                "the row factor (nu x nu) lives where P_new and p do");
 };
 
 // Stage t's inputs into a stage buffer, one 4-byte cp.async each (not
@@ -174,14 +226,30 @@ __device__ __forceinline__ void fixed_load_stage(
       __pipeline_memcpy_async(buf + L::oX + k * NWP + L::NC + al,
                               Bm + st * NX * NU + e, 4);
   }
+  if constexpr (L::kWide) {
 #pragma unroll
-  for (int q = 0; q < (NS * NS + 31) / 32; ++q) {    // upper triangles
-    const int e = q * 32 + lane, i = e / NS, j = e - i * NS;
-    if (e < NS * NS && i <= j) {
-      __pipeline_memcpy_async(buf + L::oG + tri<NS>(i, j),
-                              G + st * NS * NS + e, 4);
-      __pipeline_memcpy_async(buf + L::oM + tri<NS>(i, j),
-                              M + st * NS * NS + e, 4);
+    for (int q = 0; q < (L::NT + 31) / 32; ++q) {  // upper triangles, folded
+      const int e = q * 32 + lane, p = e / (NS + 1), r = e - p * (NS + 1);
+      const bool top = r < NS - p;
+      const int i = top ? p : NS - 1 - p;
+      const int j = top ? p + r : i + r - (NS - p);
+      if (e < L::NT) {
+        __pipeline_memcpy_async(buf + L::oG + tri<NS>(i, j),
+                                G + st * NS * NS + i * NS + j, 4);
+        __pipeline_memcpy_async(buf + L::oM + tri<NS>(i, j),
+                                M + st * NS * NS + i * NS + j, 4);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < (NS * NS + 31) / 32; ++q) {    // upper triangles
+      const int e = q * 32 + lane, i = e / NS, j = e - i * NS;
+      if (e < NS * NS && i <= j) {
+        __pipeline_memcpy_async(buf + L::oG + tri<NS>(i, j),
+                                G + st * NS * NS + e, 4);
+        __pipeline_memcpy_async(buf + L::oM + tri<NS>(i, j),
+                                M + st * NS * NS + e, 4);
+      }
     }
   }
   constexpr int nrest = R * NX + R * NU + RE * NU + RE * NX + R * RE;
@@ -267,6 +335,86 @@ __device__ __forceinline__ void chol_solve_regs(const float (&L)[N][N],
   }
 }
 
+// Cholesky of Q + d*I one row a lane: lane j < N holds row j of Q (Qrow[e]
+// = Q[j][e], e <= j) and builds row j of L; pivot i is taken on lane i and
+// handed to every lane with row i of L by __shfl_sync, each term in
+// chol_regs' order.  Every lane sees every pivot, so the return value
+// (whether every pivot passed) is the same on all.  inv_own: lane j's
+// 1/L[j][j].
+template <int N>
+__device__ __forceinline__ bool chol_rows(const float (&Qrow)[N], float d,
+                                          int lane, float (&Lrow)[N],
+                                          float& inv_own) {
+  bool ok = true;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float v = lane == i ? Qrow[i] + d : Qrow[i];
+#pragma unroll
+    for (int q = 0; q < i; ++q)
+      v -= Lrow[q] * __shfl_sync(0xffffffffu, Lrow[q], i);
+    const float s = __shfl_sync(0xffffffffu, v, i);
+    const bool good = s > 1e-12f;
+    ok = ok && good;
+    const float li = sqrtf(good ? s : 1.0f);
+    const float inv = 1.0f / li;
+    if (lane == i) inv_own = inv;
+    Lrow[i] = lane > i ? v * inv : 0.0f;
+  }
+  return ok;
+}
+
+// chol_retry by rows: the first of the local deltas whose factor passes,
+// else a fourth pass at delta = 0 (which fails again, as at the first
+// level).  The loop's exit is the same on every lane.  Lane j < N writes row
+// j of the factor to sL (rows N apart), 1/L[j][j] on the diagonal.
+template <int N>
+__device__ __forceinline__ bool chol_retry_rows(const float (&Qrow)[N],
+                                                int lane,
+                                                float* __restrict__ sL) {
+  float Lrow[N], inv_own = 1.0f;
+  bool ok = false;
+#pragma unroll 1
+  for (int level = 0; level < 4; ++level) {
+    ok = chol_rows<N>(Qrow, level < 3 ? local_delta(level) : 0.0f, lane,
+                      Lrow, inv_own);
+    if (ok) break;
+  }
+  if (lane < N) {
+#pragma unroll
+    for (int q = 0; q < N; ++q)
+      sL[lane * N + q] = q == lane ? inv_own : Lrow[q];
+  }
+  return ok;
+}
+
+// chol_solve_regs on chol_retry_rows' factor in shared memory, every lane
+// reading the same entry at once (a broadcast).
+template <int N>
+__device__ __forceinline__ void chol_solve_rows(const float* __restrict__ sL,
+                                                float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float v = x[i];
+#pragma unroll
+    for (int q = 0; q < i; ++q) v -= sL[i * N + q] * x[q];
+    x[i] = v * sL[i * N + i];
+  }
+#pragma unroll
+  for (int i = N - 1; i >= 0; --i) {
+    float v = x[i];
+#pragma unroll
+    for (int q = i + 1; q < N; ++q) v -= sL[q * N + i] * x[q];
+    x[i] = v * sL[i * N + i];
+  }
+}
+
+// The lane's id, read in a way the compiler may not hoist out of a loop.
+__device__ __forceinline__ int lane_id() {
+  int l;
+  asm volatile("mov.u32 %0, %%laneid;" : "=r"(l));
+  return l;
+}
+
 // At most 64 registers a thread, as the run-time kernels, so kMinBlocks
 // blocks of kMaxWarps warps fit an SM at once.
 template <int NX, int NU, int R, int RE>
@@ -284,7 +432,7 @@ riccati_general_backward_fixed(
   constexpr int NS = L::NS, NW = L::NW, NC = L::NC, NQ = L::NQ;
   constexpr int NWP = L::NWP, NQP = L::NQP, NCP = L::NCP, PS = L::PS;
   extern __shared__ float smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5, lane0 = threadIdx.x & 31;
   const int b = blockIdx.x * (blockDim.x >> 5) + warp;
   if (b >= nbatch) return;  // the whole warp leaves; no block barrier used
   float* s = smem + warp * L::kFloats;
@@ -298,18 +446,21 @@ riccati_general_backward_fixed(
   const float d = delta[b];
   const float dcb = RE > 0 ? dc[b] : 0.0f;
   // P = 0 and p = 0 after the last stage, and every pad column finite
-  for (int e = lane; e < L::kFloats; e += 32) s[e] = 0.0f;
+  for (int e = lane0; e < L::kFloats; e += 32) s[e] = 0.0f;
   __syncwarp();  // the zeros land before any lane's copies
   bool ok = true;  // the same on every lane
   const size_t b0 = static_cast<size_t>(b) * H;
 
   for (int t = H - 1; t >= 0; --t) {
+    const int lane = L::kWide ? lane_id() : lane0;
     const size_t st = b0 + t;
     // Two stage buffers in turn: the one written here was last read two
     // stages ago, before the barriers of the stage between, so no barrier
-    // is needed before the copies.  The barrier after the wait makes every
+    // is needed before the copies.  One buffer: the last stage's reads of
+    // it end at a barrier first.  The barrier after the wait makes every
     // lane's copies (and the last stage's P_new and p) visible to all.
-    float* cur = s + (t & 1) * L::kStagePad;
+    if constexpr (L::kBuffers == 1) __syncwarp();
+    float* cur = L::kBuffers == 1 ? s : s + (t & 1) * L::kStagePad;
     fixed_load_stage<NX, NU, R, RE>(cur, A, Bm, G, M, mx, mu, c, E, F, h, st,
                                     lane);
     __pipeline_commit();
@@ -373,51 +524,72 @@ riccati_general_backward_fixed(
     __syncwarp();
 
     // ---- Z = B^T Y + Mxu^T X + [Gux | mu | 0] = [Qux | qu^T | B^T PB +
-    //      B^T Mxu + Mxu^T B]: 32/NU lanes a row, one float4 column each,
-    //      B's and Mxu's column in registers ----
+    //      B^T Mxu + Mxu^T B]: 32/NU lanes a row (the last 32 mod NU lanes
+    //      idle), each the float4 columns m, m + 32/NU, ..., B's and Mxu's
+    //      column in registers ----
     {
       const int al = lane / L::LZ, m = lane - al * L::LZ;
-      if (m < L::YC) {
+      if ((32 % NU == 0 || al < NU) && m < L::YC) {
         float bcol[NX], mcol[NX];
 #pragma unroll
         for (int k = 0; k < NX; ++k) {
           bcol[k] = sX[k * NWP + NC + al];
           mcol[k] = sM[tri<NS>(k, NX + al)];
         }
-        float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        float w[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-        for (int k = 0; k < NX; ++k) {
-          const float4 y = ld4(sY + k * NWP + 4 * m);
-          const float4 x = ld4(sX + k * NWP + 4 * m);
-          v[0] += bcol[k] * y.x;
-          v[1] += bcol[k] * y.y;
-          v[2] += bcol[k] * y.z;
-          v[3] += bcol[k] * y.w;
-          w[0] += mcol[k] * x.x;
-          w[1] += mcol[k] * x.y;
-          w[2] += mcol[k] * x.z;
-          w[3] += mcol[k] * x.w;
-        }
+        for (int o = 0; o < L::ZC; ++o) {
+          const int ch = m + o * L::LZ;
+          if (o > 0 && ch >= L::YC) continue;
+          float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          float w[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int col = 4 * m + q;
-          v[q] += w[q];
-          if (col < NX)
-            v[q] += sG[tri<NS>(col, NX + al)];
-          else if (col < NC)
-            v[q] += smu[(col - NX) * NU + al];
+          for (int k = 0; k < NX; ++k) {
+            const float4 y = ld4(sY + k * NWP + 4 * ch);
+            const float4 x = ld4(sX + k * NWP + 4 * ch);
+            v[0] += bcol[k] * y.x;
+            v[1] += bcol[k] * y.y;
+            v[2] += bcol[k] * y.z;
+            v[3] += bcol[k] * y.w;
+            w[0] += mcol[k] * x.x;
+            w[1] += mcol[k] * x.y;
+            w[2] += mcol[k] * x.z;
+            w[3] += mcol[k] * x.w;
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int col = 4 * ch + q;
+            v[q] += w[q];
+            if (col < NX)
+              v[q] += sG[tri<NS>(col, NX + al)];
+            else if (col < NC)
+              v[q] += smu[(col - NX) * NU + al];
+          }
+          st4(sZ + al * NWP + 4 * ch, v);
         }
-        st4(sZ + al * NWP + 4 * m, v);
       }
     }
     __syncwarp();
 
     // ---- Quu = sym(Z's last NU columns) + Muu + delta I + Guu, factored
-    //      with the local-delta retry on every lane; one substitution column
-    //      a lane: K = -Quu^-1 Qux, k = -Quu^-1 qu, Y = Quu^-1 E^T ----
-    float Lq[NU][NU], iq[NU], x[NU];
-    {
+    //      with the local-delta retry on every lane (or one row a lane, the
+    //      factor in P_new's room, which the Y phase has read and the last
+    //      phase rewrites); one substitution column a lane: K = -Quu^-1 Qux,
+    //      k = -Quu^-1 qu, Y = Quu^-1 E^T ----
+    float Lq[NU][NU], iq[NU], x[NU];   // Lq, iq: the register factor's
+    if constexpr (L::kWide) {
+      float Qrow[NU];
+#pragma unroll
+      for (int e = 0; e < NU; ++e) {
+        const int a = lane;
+        Qrow[e] = 0.0f;
+        if (a < NU && e <= a)
+          Qrow[e] = 0.5f * (sZ[a * NWP + NC + e] + sZ[e * NWP + NC + a])
+                    + (sM[tri<NS>(NX + e, NX + a)] + (a == e ? d : 0.0f))
+                    + sG[tri<NS>(NX + e, NX + a)];
+      }
+      ok = chol_retry_rows<NU>(Qrow, lane, sPn) && ok;
+      __syncwarp();   // every row of the factor lands before it is read
+    } else {
       float Q[NU][NU];
 #pragma unroll
       for (int a = 0; a < NU; ++a)
@@ -439,7 +611,10 @@ riccati_general_backward_fixed(
         v = sE[(lane - NC) * NU + al];
       x[al] = v;
     }
-    chol_solve_regs<NU>(Lq, iq, x);
+    if constexpr (L::kWide)
+      chol_solve_rows<NU>(sPn, x);
+    else
+      chol_solve_regs<NU>(Lq, iq, x);
     if (lane < NQ) {
 #pragma unroll
       for (int al = 0; al < NU; ++al) sW[al * NQP + lane] = x[al];
@@ -573,7 +748,7 @@ riccati_general_backward_fixed(
     }
     // the next stage's first barrier orders these writes before its reads
   }
-  if (lane == 0) ok_out[b] = ok ? 1 : 0;
+  if (lane0 == 0) ok_out[b] = ok ? 1 : 0;
 }
 
 // Dynamic shared memory above the default 48 KB must be asked for.

@@ -6,8 +6,8 @@ quadrotor example's rigid body (:func:`.quadrotor.rigid_body`) with ten
 rotors at angles 2πi/10, alternating spin, each problem steering one
 initial condition to hover under thrust limits (a declared
 :class:`StageCost` with a terminal term, box bounds).  Its stage, (nx, nu) = (12, 10), is the only fleet with more than
-8 controls: the streamed sweep takes it, the run-time backward kernel and
-a compile-time forward instance on the card.
+8 controls: the streamed sweep takes it, a compile-time backward and
+forward instance on the card.
 
 Run: python -m pyneuralempc_tpu_torch.examples.fleet_wide [--cpu]
      [--batch N] [--H H] [--steps S]

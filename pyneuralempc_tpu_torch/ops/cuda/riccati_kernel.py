@@ -22,12 +22,12 @@ the backward kernel (:468) and the forward kernel (:488).
   backward entry launches a compile-time instance of the general sweep's
   backward template (``csrc/riccati_backward_fixed.cuh``) at one right-hand
   side and no equality rows for the (nx, nu) in ``_BACKWARD_INSTANCES``
-  (the quadrotor's (12, 4), the GRU fleet's lifted (10, 1) and cartpole's
-  (4, 1)), and the run-time kernel for every other; the forward entry
-  likewise a compile-time instance of the general sweep's forward template
-  (``csrc/riccati_forward_fixed.cuh``, a ring of stage slots a warp) for
-  the (nx, nu) in ``_FORWARD_INSTANCES`` (the same three and the wide
-  fleet's (12, 10)), and the run-time kernel for every other.
+  (the quadrotor's (12, 4), the GRU fleet's lifted (10, 1), cartpole's
+  (4, 1) and the wide fleet's (12, 10)), and the run-time kernel for every
+  other; the forward entry likewise a compile-time instance of the general
+  sweep's forward template (``csrc/riccati_forward_fixed.cuh``, a ring of
+  stage slots a warp) for the (nx, nu) in ``_FORWARD_INSTANCES`` (the same
+  four), and the run-time kernel for every other.
 
 Beside them:
 
@@ -85,13 +85,14 @@ _INSTANCES = frozenset({(2, 1)})
 # (nx, nu) pairs for which csrc/riccati_streamed.cu's backward entry launches
 # the compile-time instance riccati_general_backward_fixed<nx, nu, 1, 0>
 # (its C entry point's list): the quadrotor fleets' stage, the GRU fleet's
-# lifted stage and cartpole's.  Every other shape takes the run-time
-# backward kernel.
-_BACKWARD_INSTANCES = frozenset({(12, 4), (10, 1), (4, 1)})
+# lifted stage, cartpole's and the wide fleet's (there, past nu = 4, Quu
+# is factored one row a lane, and one stage buffer a warp lets eight blocks
+# fit an SM: backward_fixed_smem_bytes).  Every other shape takes the
+# run-time backward kernel.
+_BACKWARD_INSTANCES = frozenset({(12, 4), (10, 1), (4, 1), (12, 10)})
 # (nx, nu) -> ring depth D for which csrc/riccati_streamed.cu's forward
 # entry launches the compile-time instance riccati_general_forward_fixed<nx,
-# nu, 1, 0, D> (its C entry point's list): the three stages above and the
-# wide fleet's (12, 10), which the backward template cannot take.  Every
+# nu, 1, 0, D> (its C entry point's list): the four stages above.  Every
 # other shape takes the run-time forward kernel.  Each depth was chosen by
 # turns on an H100 (PERF.md; eight blocks of four warps an SM cap the
 # depth at 3 at (12, 4) and at 2 at (12, 10)).
@@ -129,6 +130,13 @@ _GENERAL_BACKWARD_INSTANCES = frozenset({(12, 4, 2, 1)})
 _GENERAL_FORWARD_INSTANCES = {(12, 4, 2, 1): 2}
 # Problems (warps) a block of the streamed kernels (kMaxWarps).
 STREAMED_WARPS = 4
+# The backward template's residency (csrc/riccati_backward_fixed.cuh): it
+# keeps two stage buffers a warp where FIXED_MIN_BLOCKS blocks (B=4096 in one
+# wave on 132 SMs) still fit an SM's SM_SMEM bytes of shared memory, each
+# block with the runtime's BLOCK_SMEM_RESERVE, and one where they do not.
+FIXED_MIN_BLOCKS = 8
+SM_SMEM = 228 * 1024
+BLOCK_SMEM_RESERVE = 1024
 # csrc/riccati_general_fused.cu's two kernels.  The staged kernel's block
 # of STAGED_MAX_PROBLEMS threads holds up to that many problems' inputs,
 # gains and outputs in at most STAGED_MAX_SMEM bytes of dynamic shared
@@ -259,6 +267,42 @@ def forward_ring_bytes(nx: int, nu: int, R: int, r: int, depth: int) -> int:
     """Dynamic shared memory of a block of the forward instance: its
     STREAMED_WARPS warps' rings of ``depth`` stage slots each."""
     return 4 * STREAMED_WARPS * depth * forward_slot_floats(nx, nu, R, r)
+
+
+def _fixed_stage_floats(nx: int, nu: int, R: int, r: int) -> int:
+    """One stage buffer: X = [A | c^T | B] (rows padded to float4s), the
+    upper triangles of G and M, mx, mu, E, F, h."""
+    ns = nx + nu
+    return _round4(nx * _round4(nx + R + nu) + ns * (ns + 1)
+                   + R * (nx + nu) + r * (nu + nx + R))
+
+
+def _fixed_scratch_floats(nx: int, nu: int, R: int, r: int) -> int:
+    """P_new (rows nx + 1 apart) and p, then Y, Z, W and Nu."""
+    nwp = _round4(nx + R + nu)
+    return (_round4(nx * (nx + 1)) + _round4(R * nx) + (nx + nu) * nwp
+            + nu * _round4(nx + R + r) + r * _round4(nx + R))
+
+
+def backward_fixed_buffers(nx: int, nu: int, R: int, r: int) -> int:
+    """Stage buffers a warp of the backward instance
+    (``FixedLayout::kBuffers``): two where FIXED_MIN_BLOCKS blocks of
+    STREAMED_WARPS warps fit an SM with them, else one."""
+    two = 2 * _fixed_stage_floats(nx, nu, R, r) + _fixed_scratch_floats(
+        nx, nu, R, r)
+    fits = FIXED_MIN_BLOCKS * (4 * STREAMED_WARPS * two + BLOCK_SMEM_RESERVE)
+    return 2 if fits <= SM_SMEM else 1
+
+
+def backward_fixed_smem_bytes(nx: int, nu: int, R: int, r: int) -> int:
+    """Dynamic shared memory a warp of the backward instance
+    ``riccati_general_backward_fixed<nx, nu, R, r>`` takes
+    (``FixedLayout::kFloats`` in csrc/riccati_backward_fixed.cuh): its
+    stage buffers (:func:`backward_fixed_buffers`) and the scratch; a block
+    takes STREAMED_WARPS times as much."""
+    return 4 * (backward_fixed_buffers(nx, nu, R, r)
+                * _fixed_stage_floats(nx, nu, R, r)
+                + _fixed_scratch_floats(nx, nu, R, r))
 
 
 def kernel_plan(H: int, nx: int, nu: int, device, R: int = 1,

@@ -891,14 +891,15 @@ def test_streamed_instances_repeat_at_any_alignment(nx, nu):
 @pytest.mark.parametrize("kind", KINDS4)
 @pytest.mark.parametrize("H", [50, 7])
 def test_wide_pair_at_12_10(kind, H):
-    """The wide fleet's stage (12, 10): the backward entry takes the
-    run-time kernel (the template needs nu | 32), the forward entry its
-    compile-time instance.  Gains and ok flags against the plain backward,
-    the forward instance against the plain forward and bit for bit against
-    the run-time forward kernel on the same gains, the pair end to end, and
-    the counters."""
+    """The wide fleet's stage (12, 10): both entries take their
+    compile-time instances (the backward one with Quu factored one row a
+    lane).  Gains and ok flags against the plain backward and against the
+    run-time backward kernel, the forward instance against the plain
+    forward and bit for bit against the run-time forward kernel on the same
+    gains, the pair end to end, and the counters."""
     _card()
-    assert rk.backward_kernel(12, 10) == "riccati_backward_kernel"
+    assert rk.backward_kernel(12, 10) == (
+        "riccati_general_backward_fixed<12, 10, 1, 0>")
     assert rk.forward_kernel(12, 10).startswith(
         "riccati_general_forward_fixed<12, 10, 1, 0, ")
     args = [torch.as_tensor(a, device="cuda")
@@ -906,19 +907,21 @@ def test_wide_pair_at_12_10(kind, H):
 
     def counts():
         return (rk.BACKWARD_LAUNCHES, rk.BACKWARD_INSTANCE_LAUNCHES,
-                rk.FORWARD_LAUNCHES, rk.FORWARD_INSTANCE_LAUNCHES,
-                rk.FORWARD_RUNTIME_LAUNCHES)
+                rk.BACKWARD_RUNTIME_LAUNCHES, rk.FORWARD_LAUNCHES,
+                rk.FORWARD_INSTANCE_LAUNCHES, rk.FORWARD_RUNTIME_LAUNCHES)
 
     n0 = counts()
     gains, ok = rk.riccati_backward_cuda(*args)
+    g_rt, ok_rt = rk.riccati_backward_runtime_cuda(*args)
     ins = (args[0], args[1], args[6], gains)
     out = rk.riccati_forward_cuda(*ins)
     rt = rk.riccati_forward_runtime_cuda(*ins)
     torch.cuda.synchronize()
-    assert counts() == (n0[0] + 1, n0[1], n0[2] + 1, n0[3] + 1, n0[4] + 1)
+    assert counts() == tuple(a + 1 for a in n0)
     g_ref, ok_ref = rk.riccati_backward_plain(*args)
-    assert torch.equal(ok, ok_ref)
+    assert torch.equal(ok, ok_ref) and torch.equal(ok_rt, ok_ref)
     assert _scaled_err(gains, g_ref, ok_ref) <= STREAMED_ATOL
+    assert _scaled_err(gains, g_rt, ok_ref) <= STREAMED_ATOL
     ref = rk.riccati_forward_plain(*ins)
     for o, r, q in zip(out, ref, rt):
         assert _scaled_err(o, r, ok_ref) <= STREAMED_ATOL

@@ -178,12 +178,15 @@ def test_next_batch_cold_and_warm_match_jax():
 def test_kernel_plan_at_the_wide_stage():
     plan = rk.kernel_plan(50, 12, 10, "cuda")
     assert plan["path"] == "cuda_streamed"
-    # the backward template needs nu | 32; the forward one takes (12, 10)
-    assert plan["backward_kernel"] == "riccati_backward_kernel"
+    # both templates take (12, 10): the backward one with Quu factored
+    # one row a lane, in one stage buffer a warp
+    assert plan["backward_kernel"] == (
+        "riccati_general_backward_fixed<12, 10, 1, 0>")
     assert plan["forward_kernel"] == (
         f"riccati_general_forward_fixed<12, 10, 1, 0, "
         f"{rk._FORWARD_INSTANCES[12, 10]}>")
-    assert (12, 10) not in rk._BACKWARD_INSTANCES
+    assert (12, 10) in rk._BACKWARD_INSTANCES
+    assert rk.backward_fixed_buffers(12, 10, 1, 0) == 1
     assert rk.kernel_plan(50, 12, 10, "cpu")["path"] == "plain"
 
 

@@ -1,5 +1,5 @@
 """The port stands alone: it imports no JAX and nothing of the JAX package,
-and neither does chip_smoke.py."""
+and neither do chip_smoke.py and chip_backward_designs.py."""
 
 import ast
 import subprocess
@@ -51,7 +51,7 @@ def test_fresh_import_pulls_in_no_jax():
 
 def test_no_jax_import_anywhere_in_the_port():
     files = sorted((ROOT / "pyneuralempc_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "chip_backward_designs.py"]
     assert len(files) > 10
     for f in files:
         for name in _imports(f):

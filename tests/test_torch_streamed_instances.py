@@ -28,8 +28,8 @@ STREAMED = (CSRC / rk.STREAMED_SOURCE).read_text()
 GENERAL = (CSRC / rk.GENERAL_SOURCE).read_text()
 HEADER = (CSRC / "riccati_forward_fixed.cuh").read_text()
 PLAIN_INSTANCES = {(12, 4), (10, 1), (4, 1)}
-# the forward instances: the same stages and the wide fleet's (12, 10),
-# which the backward template cannot take
+# the forward instances, and the backward ones: the same stages and the
+# wide fleet's (12, 10)
 FORWARD_SHAPES = PLAIN_INSTANCES | {(12, 10)}
 SMEM_PER_SM = 228 * 1024     # an H100 SM's shared memory
 SMEM_RESERVED = 1024         # the runtime's reserve a block
@@ -44,13 +44,15 @@ def _cases(macro, text, n):
 def test_forward_instances_match_the_c_entry_point():
     """riccati_forward_f32's list names each instance's ring depth, and is
     exactly _FORWARD_INSTANCES (shape -> depth): the quadrotor's, the GRU
-    fleet's, cartpole's and the wide fleet's stages."""
+    fleet's, cartpole's and the wide fleet's stages; riccati_backward_f32's
+    list is exactly _BACKWARD_INSTANCES, the same four stages."""
     cases = _cases("RICCATI_FORWARD_CASE", STREAMED, 3)
     assert {(nx, nu): d for nx, nu, d in cases} == rk._FORWARD_INSTANCES
     assert len(cases) == len(rk._FORWARD_INSTANCES)
     assert set(rk._FORWARD_INSTANCES) == FORWARD_SHAPES
-    assert set(_cases("RICCATI_BACKWARD_CASE", STREAMED, 2)) == \
-        PLAIN_INSTANCES == set(rk._BACKWARD_INSTANCES)
+    bwd = _cases("RICCATI_BACKWARD_CASE", STREAMED, 2)
+    assert set(bwd) == FORWARD_SHAPES == set(rk._BACKWARD_INSTANCES)
+    assert len(bwd) == len(rk._BACKWARD_INSTANCES)
     entry = STREAMED[STREAMED.index('int riccati_forward_f32('):]
     assert "int depth" not in entry[:entry.index("{")]
     assert 'extern "C" int riccati_forward_runtime_f32(' in STREAMED
@@ -121,6 +123,75 @@ def test_each_ring_fits_eight_blocks(shape):
                     + SMEM_RESERVED) <= SMEM_PER_SM
     assert 8 * (rk.forward_ring_bytes(nx, nu, 1, 0, cap + 1)
                 + SMEM_RESERVED) > SMEM_PER_SM
+
+
+# FixedLayout's shared memory a warp, worked by hand from its offsets:
+# (12, 4, 1, 0) two 528-float stage buffers (X 12 x 20, G and M 136 each,
+# mx 12, mu 4) and 552 floats of scratch (P_new 156, p 12, Y 240, Z 80, W
+# 64); (10, 1, 1, 0) 2 x 264 + 268; (4, 1, 1, 0) 2 x 68 + 72; (12, 4, 2, 1)
+# 2 x 564 + 580; (12, 10, 1, 0) one 816-float buffer (X 12 x 24, G and M
+# 253 each, mx 12, mu 10) and 856 of scratch (156 + 12 + Y 288 + Z 240 + W
+# 160): two buffers would take 9,952 bytes, and 8 blocks of 4 warps would
+# need 8 x (4 x 9,952 + 1,024) = 326,656 > 233,472.
+@pytest.mark.parametrize("shape,buffers,nbytes", [
+    ((12, 4, 1, 0), 2, 6432), ((10, 1, 1, 0), 2, 3184),
+    ((4, 1, 1, 0), 2, 832), ((12, 4, 2, 1), 2, 6832),
+    ((12, 10, 1, 0), 1, 6688)])
+def test_backward_fixed_smem_hand_worked(shape, buffers, nbytes):
+    """backward_fixed_smem_bytes mirrors FixedLayout::kFloats: the header's
+    own numbers, and at (12, 10) one stage buffer; every backward instance
+    (the plain and the general entries') leaves room for 8 blocks of 4
+    warps an SM, as __launch_bounds__(128, 8) asks (B=4096 in one wave on
+    132 SMs)."""
+    assert rk.backward_fixed_buffers(*shape) == buffers
+    assert rk.backward_fixed_smem_bytes(*shape) == nbytes
+    instances = ({(nx, nu, 1, 0) for nx, nu in rk._BACKWARD_INSTANCES}
+                 | set(rk._GENERAL_BACKWARD_INSTANCES))
+    assert shape in instances
+    for s in instances:
+        block = rk.STREAMED_WARPS * rk.backward_fixed_smem_bytes(*s)
+        assert 8 * (block + SMEM_RESERVED) <= SMEM_PER_SM, s
+    if buffers == 1:   # a second 816-float stage buffer would not fit
+        assert 8 * (4 * (nbytes + 4 * 816) + SMEM_RESERVED) > SMEM_PER_SM
+
+
+def _designs():
+    import importlib.util
+    path = Path(__file__).resolve().parents[1] / "chip_backward_designs.py"
+    spec = importlib.util.spec_from_file_location("chip_backward_designs",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return path, mod
+
+
+@pytest.mark.parametrize("name", ["two buffers", "7-block cap", "lane kept",
+                                  "triangles unfolded", "Z rolled"])
+def test_backward_designs_edit_the_header_once(name):
+    """chip_backward_designs.py makes each other design of the (12, 10)
+    backward instance by one text edit of the committed header: the text it
+    replaces is there exactly once, and the edit changes it."""
+    _, mod = _designs()
+    header = (CSRC / mod.HEADER).read_text()
+    assert set(mod.DESIGNS) == {"instance", "two buffers", "7-block cap",
+                                "lane kept", "triangles unfolded",
+                                "Z rolled"}
+    old, new = mod.DESIGNS[name]
+    assert header.count(old) == 1 and new not in header
+
+
+def test_backward_designs_refuse_without_a_card():
+    """No CUDA device: chip_backward_designs.py exits non-zero and prints no
+    result."""
+    import subprocess
+    import sys
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    path, _ = _designs()
+    out = subprocess.run([sys.executable, str(path)], cwd=path.parent,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"turns_ms"' not in out.stdout
 
 
 @pytest.mark.parametrize("nx,nu", [(12, 4), (10, 1), (4, 1), (4, 2),
