@@ -213,6 +213,37 @@ Phases (each raises, and the script exits non-zero, on failure):
    re-plan under record (its histogram and its lockstep tail: when the
    slow members' KKT error reaches 10x tol and when they are done); then
    utils.profiling.profile_solver's phases on phase 4's fleet.
+4o. Parallel-in-time sweep (solve/pscan.py, PyTorch ops, no kernel of
+   its own): riccati_sweep_pscan against the plain sweep on the card on
+   seeded cases at (B, H, nx, nu) = (256, 512, 2, 1) and (64, 50, 12, 4),
+   δ = 0 and δ per problem (0 or 10, the first control's curvature at -3:
+   the δ = 0 members fail), equal ok flags, the scaled error within 2x
+   the port's own on the CPU (tests/measure_torch_pscan.py --sweeps), no
+   sweep kernel and no plain sweep launched; its time a call and its
+   device work beside the fused kernel's device time at (256, 512, 2, 1).
+4p. Long-horizon LV fleet (tools/bench_horizon_tpu.py's build_mpc,
+   copied: the LV ODE itself, H=512, DT=2/H, B=256): cold + 3 warm
+   re-plans under kkt="riccati_pscan" (no sweep kernel, no plain sweep)
+   and kkt="riccati" (the staged fused kernel alone); converged counts at
+   least the JAX package's own less 0.5% of B (cold: the lower of its two
+   backends' counts, which part 4 members), pscan plans against the
+   kernel's within 2x the JAX package's own pscan-vs-riccati difference on
+   the members converged under both (tests/measure_torch_pscan.py); B=8,
+   cold + 1 warm, timed and gated on warm convergence (8/8); 16 pscan
+   members card against CPU, cold and one warm re-plan (the CPU solves in
+   worker processes meanwhile; converged masks compared where ±1e-7 on
+   the start does not flip the CPU's, plans where both converged).
+4q. Horizon sharding: make_sharded_sweep on a (2, 4) mesh of the one card
+   against plain under 4o's gate; NMPC(mesh=make_horizon_mesh(1, 4)) on
+   4p's fleet (kkt_backend "riccati_horizon", no sweep kernel): one warm
+   re-plan from 4p's pscan cold carry, its count and plans held to 4p's
+   first pscan warm re-plan under 4p's gates.
+4r. Scenario sharding: ShardedNMPC over 4 shards of the one card on phase
+   4's fleet (B=4096), cold and one warm re-plan with the carry from the
+   cold plans' first states: converged masks equal to the unsharded
+   solve's, |du| <= 1e-3, each shard's results on its device; the warm
+   re-plan converges all members in at most the cold call's iterations;
+   both timed against the unsharded ones.
 5. Card vs CPU: 16 LV problems, 16 quadrotor problems, 16 EQ/border
    quadrotor problems and 16 budgeted LV problems solved on the card and on
    the CPU, and the budgeted fleet's closed loop (B=16, steps=4) on both;
@@ -402,6 +433,46 @@ DIFF_DENSE_B = 64
 # members whose trace is summarised (the lockstep tail)
 PROFILE_ITERS = 1
 TAIL_ITERS = 10
+# phases 4o-4r: the parallel-in-time sweep (solve/pscan.py), the
+# long-horizon LV fleet, the horizon-sharded sweep and solve, scenario
+# sharding.  4o: seeded cases (sweep_cases.py) at the long-horizon fleet's
+# shape and the quadrotor's; the pscan sweep is held to PSCAN_SPREAD times
+# its own scaled error against the plain sweep on the CPU
+# (tests/measure_torch_pscan.py --sweeps)
+PSCAN_SHAPES = ((256, 512, 2, 1), (64, 50, 12, 4))
+PSCAN_CASES = {"delta0": 0, "delta_rescue": 4}
+PSCAN_CPU_ERR = {(256, 512, 2, 1): {"delta0": 5.661e-07,
+                                    "delta_rescue": 5.522e-07},
+                 (64, 50, 12, 4): {"delta0": 6.095e-07,
+                                   "delta_rescue": 5.340e-07}}
+PSCAN_SPREAD = 2.0
+# 4p, 4q: tools/bench_horizon_tpu.py's fleet (the LV ODE itself, H=512,
+# DT=2/H), cold + LH_WARM warm re-plans.  The JAX package's own numbers on
+# it, on the CPU (tests/measure_torch_pscan.py): the converged counts (cold,
+# then each warm re-plan), and its pscan plans' largest |du| against its
+# riccati ones on the members converged under both (cold; the largest of
+# the warm re-plans).  The plans are held to LH_SPREAD times those; the
+# warm counts to each backend's own less MU_SLACK of B, and the cold ones
+# to the lower of the two backends' cold counts less MU_SLACK of B: a
+# cold count is fixed by f32 only to the few members that stop at
+# max_iter near tol, and the JAX package's own two backends (the same
+# arithmetic, rounded apart) part 4 members there.  B=8 takes a cold solve
+# and LH_SMALL_WARM warm re-plans.
+LH_H, LH_B, LH_SMALL_B, LH_WARM, LH_SMALL_WARM = 512, 256, 8, 3, 1
+LH_REFERENCE = {"riccati": [230, 256, 256, 256],
+                "riccati_pscan": [226, 256, 256, 256]}
+LH_JAX_DU = {"cold": 1.330e-04, "warm": 5.794e-05}
+LH_SPREAD = 2.0
+# 4q: NMPC(mesh=...) on a (1, HORIZON_SHARDS) mesh of the one card
+HORIZON_SHARDS = 4
+# 4r: ShardedNMPC over SCEN_SHARDS shards of the one card; its plans
+# against the unsharded solve's (tests/test_parallel.py's bound)
+SCEN_SHARDS = 4
+SHARDED_DU = 1e-3
+# the CPU halves of the LV fleets' card-vs-CPU checks (4k, 4l, 4p, 5) run
+# in CPU_WORKERS spawned processes of CPU_WORKER_THREADS torch threads
+# each, while the card solves its halves
+CPU_WORKERS, CPU_WORKER_THREADS = 3, 2
 
 
 def log(*a):
@@ -2053,6 +2124,77 @@ def lv_plant(nempc):
     return plant_from_model(nempc.torch_dynamics(f_true, 2, 1), "rk4", DT)
 
 
+# ---- the CPU halves of the LV fleet's card-vs-CPU checks, in workers ----
+
+_POOL = []
+
+
+def cpu_pool():
+    """Worker processes (spawned: they share nothing with the card's
+    process) that solve the CPU halves of the card-vs-CPU checks while the
+    card solves its own."""
+    if not _POOL:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        _POOL.append(ProcessPoolExecutor(
+            CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+            initializer=torch.set_num_threads,
+            initargs=(CPU_WORKER_THREADS,)))
+    return _POOL[0]
+
+
+def lv_solve(kind, device, starts, params, **options):
+    """One of the LV fleet's solves of a card-vs-CPU check on ``device``:
+    phase 4's controller with IPConfig ``options`` ("lv"), under
+    ALMConfig() ("alm"), with the move-suppression cost ("moves"), the
+    budgeted fleet's cold solve ("budget") or its closed loop, 4 steps
+    ("budget_loop"); ``starts`` numpy, ``params`` the surrogate's.  A
+    closed loop's trajectory comes back on the CPU."""
+    import pyneuralempc_tpu_torch as nempc
+    params = [{k: v.to(device) for k, v in layer.items()}
+              for layer in params]
+    xs = torch.as_tensor(starts, device=device)
+    if kind in ("budget", "budget_loop"):
+        from pyneuralempc_tpu_torch.api.simulate import closed_loop_batch
+        from pyneuralempc_tpu_torch.examples.lotka_volterra import (
+            make_budget_mpc)
+        mpc = make_budget_mpc(nempc.MLPDynamics.make(
+            x_dim=2, u_dim=1, hidden=[32, 32]), device, H=H, DT=DT)
+        if kind == "budget_loop":
+            out = closed_loop_batch(mpc, lv_plant(nempc), xs, steps=4,
+                                    replan_every=CL_REPLAN, params=params)
+            return out._replace(x=out.x.cpu(), converged=out.converged.cpu(),
+                                iterations=out.iterations.cpu())
+    elif kind == "alm":
+        mpc = make_controller(nempc, device, config=nempc.ALMConfig())
+        if mpc.kkt_backend != "alm":
+            raise RuntimeError(f"ALM: kkt backend {mpc.kkt_backend}")
+    else:
+        mpc = make_controller(nempc, device, cost=move_cost if
+                              kind == "moves" else None, **options)
+    return mpc.next_batch(xs, params=params)[1]
+
+
+def lv_runs(kind, starts, params, **options):
+    """``run(device, eps)`` for the card-vs-CPU helpers: :func:`lv_solve`
+    from ``starts[eps]`` (eps -> numpy starts), the card's in this process,
+    the CPU's submitted to the workers now."""
+    on_cpu = [{k: v.cpu() for k, v in layer.items()} for layer in params]
+    cpu = {eps: cpu_pool().submit(lv_solve, kind, "cpu", xs, on_cpu,
+                                  **options) for eps, xs in starts.items()}
+
+    def run(device, eps):
+        if device == "cpu":
+            return cpu[eps].result()
+        return lv_solve(kind, device, starts[eps], params, **options)
+    return run
+
+
+def moved_starts(xs):
+    """The starts and the starts moved by ±PERTURB (eps -> numpy)."""
+    return {eps: xs + np.float32(eps) for eps in (0.0, PERTURB, -PERTURB)}
+
+
 def phase_budget(nempc, rk, rg, card, params, x0s, fused_ms):
     from pyneuralempc_tpu_torch.api.simulate import closed_loop_batch
     from pyneuralempc_tpu_torch.examples.lotka_volterra import (
@@ -2688,14 +2830,9 @@ def phase_dense(nempc, rk, rg, card, params, x0s, mono):
                                          res.x[:, 0].contiguous(), res,
                                          times, card, params))
 
-    def moves(dev):
-        return make_controller(nempc, dev, cost=move_cost).next_batch(
-            torch.as_tensor(x0s[:N_CARD_VS_CPU], device=dev),
-            params=[{k: v.to(dev) for k, v in layer.items()}
-                    for layer in params])[1]
-
+    moves = lv_runs("moves", {0.0: x0s[:N_CARD_VS_CPU]}, params)
     card_vs_cpu(f"LV with move suppression (dense), {N_CARD_VS_CPU} cold "
-                "solves", moves)
+                "solves", lambda dev: moves(dev, 0.0))
     return out
 
 
@@ -2705,17 +2842,9 @@ def phase_alm(nempc, rk, rg, card, params, x0s, mono):
     outer-iteration histogram, the plans against phase 4's interior-point
     plans where both converged and the objectives agree, and 16 members
     against the CPU port."""
-    def alm(dev, starts):
-        mpc = make_controller(nempc, dev, config=nempc.ALMConfig())
-        if mpc.kkt_backend != "alm":
-            raise RuntimeError(f"ALM: kkt backend {mpc.kkt_backend}")
-        return mpc.next_batch(torch.as_tensor(starts, device=dev),
-                              params=[{k: v.to(dev) for k, v in
-                                       layer.items()} for layer in params])[1]
-
     reset_counters(rk, rg)
     t0 = time.perf_counter()
-    res = alm("cuda", x0s[:ALM_B])
+    res = lv_solve("alm", "cuda", x0s[:ALM_B], params)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     no_kernel_launched(rk, rg, "ALM")
@@ -2767,9 +2896,7 @@ def phase_alm(nempc, rk, rg, card, params, x0s, mono):
     # batch of its own, as the card's: ALM's looser plans move with the
     # batch's composition (48 stacked members put one fixed member 1e-3
     # off the card's 16)
-    def run(dev, eps):
-        return alm(dev, x0s[:N_CARD_VS_CPU] + np.float32(eps))
-
+    run = lv_runs("alm", moved_starts(x0s[:N_CARD_VS_CPU]), params)
     budget_card_vs_cpu("ALM, cold, |du|", run,
                        lambda a, b: (a.u.cpu() - b.u.cpu()).abs()
                        .amax(dim=(1, 2)), same_masks)
@@ -3008,6 +3135,416 @@ def budget_trace(nempc, params, xs):
     return out
 
 
+# ---- phases 4o-4r: the parallel-in-time sweep, the long-horizon fleet, ----
+# ---- the horizon-sharded sweep and solve, scenario sharding ----
+
+def on_card(tag, tensors):
+    """Every tensor lies on the card: no path quietly moves one to the
+    CPU."""
+    where = {str(t.device) for t in tensors if isinstance(t, torch.Tensor)}
+    if where != {"cuda:0"}:
+        raise RuntimeError(f"{tag}: outputs on {where}, not on the card")
+
+
+def device_work_ms(fn, runs=3):
+    """The device time of one call of ``fn`` (its kernels and copies, from
+    a torch.profiler trace of ``runs`` calls) and its device events a
+    call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.time_range.elapsed_us() for e in dev) / 1e3 / runs,
+            len(dev) / runs)
+
+
+def pscan_gate(rk, rg, fn, Bn, Hn, nx, nu, kind, tag):
+    """``fn`` (a parallel-in-time sweep) against the plain sweep on the
+    seeded case on the card: equal ok flags (the expected ones), its
+    outputs on the card, the scaled error within PSCAN_SPREAD times the
+    port's own on the CPU; no sweep kernel and no plain sweep launched
+    by ``fn``.  Returns the case and the error."""
+    from pyneuralempc_tpu_torch.ops.cuda.sweep_cases import scaled_error
+    args = sweep_case(kind, PSCAN_CASES[kind], Bn, Hn, nx, nu)
+    n0 = counters(rk, rg)
+    out = fn(*args)
+    torch.cuda.synchronize()
+    if counters(rk, rg) != n0:
+        raise RuntimeError(f"{tag}: a sweep kernel or the plain sweep ran")
+    on_card(tag, out)
+    ref = rk.riccati_sweep_plain(*args)
+    want = (torch.arange(Bn, device="cuda") % 2 == 1
+            if kind == "delta_rescue" else torch.ones(Bn, dtype=torch.bool,
+                                                      device="cuda"))
+    err = scaled_error(out[:3], ref[:3], ref[3])
+    limit = PSCAN_SPREAD * PSCAN_CPU_ERR[(Bn, Hn, nx, nu)][kind]
+    same = bool(torch.equal(out[3], ref[3]))
+    log(f"  {tag} vs plain, {kind}, (B, H, nx, nu) = {(Bn, Hn, nx, nu)}: "
+        f"scaled error {err:.3e} (limit {limit:.3e}: {PSCAN_SPREAD} x the "
+        f"port's on the CPU), ok {int(out[3].sum())}/{Bn} equal to plain's: "
+        f"{same}")
+    if not (same and torch.equal(ref[3], want) and err <= limit):
+        raise RuntimeError(f"{tag}: the sweep disagrees with plain")
+    return args, err
+
+
+def phase_pscan_sweep(rk, rg, card):
+    """Phase 4o: the parallel-in-time sweep alone against the plain one on
+    the card, and its time beside the fused kernel's at (256, 512, 2, 1)."""
+    from pyneuralempc_tpu_torch.solve.pscan import riccati_sweep_pscan
+    out = {}
+    for shape in PSCAN_SHAPES:
+        for kind in PSCAN_CASES:
+            args, err = pscan_gate(rk, rg, riccati_sweep_pscan, *shape,
+                                   kind, "pscan")
+            out[f"{shape} {kind}"] = err
+            if (shape, kind) != (PSCAN_SHAPES[0], "delta0"):
+                continue
+            plan = rk.kernel_plan(shape[1], 2, 1, "cuda")
+            fused_ms, how = kernel_device_ms(
+                lambda: rk.riccati_sweep_cuda(*args), plan["kernel"],
+                strict=True)
+            fused_call = cuda_median_ms(lambda: rk.riccati_sweep_cuda(*args))
+            call_ms = cuda_median_ms(lambda: riccati_sweep_pscan(*args),
+                                     runs=10, warmup=2)
+            work_ms, events = device_work_ms(
+                lambda: riccati_sweep_pscan(*args))
+            plain_ms = cuda_median_ms(lambda: rk.riccati_sweep_plain(*args),
+                                      runs=1, warmup=0)
+            log(f"[{card}] sweeps at (B, H, nx, nu) = {shape}: pscan "
+                f"{call_ms:.3f} ms a call between CUDA events, its device "
+                f"work {work_ms:.3f} ms in {events:.0f} kernels and copies "
+                f"a call; the fused kernel ({plan['kernel']}) device time "
+                f"{fused_ms * 1e3:.2f} us ({how}), {fused_call * 1e3:.1f} "
+                f"us a wrapper call; the plain sweep {plain_ms:.1f} ms")
+            out.update(pscan_call_ms=call_ms, pscan_device_ms=work_ms,
+                       pscan_events=events, fused_ms=fused_ms,
+                       fused_call_ms=fused_call, plain_ms=plain_ms)
+    return out
+
+
+def long_horizon_mpc(nempc, device, kkt="riccati", mesh=None):
+    """tools/bench_horizon_tpu.py's build_mpc, copied: the normalised LV
+    ODE itself as the model, RK4, the cost 1.1·Σu, the box, H=LH_H,
+    DT=2/H, tol 1e-5."""
+    model = nempc.torch_dynamics(f_true, x_dim=2, u_dim=1)
+    cost = nempc.StageCost(stage=lambda x, u: 1.1 * torch.sum(u))
+    box = nempc.DomainConstraint(
+        states_constraint=[[-1.0, 1.0], [-1.0, 0.35]],
+        control_constraint=[[0.0, 1.2]])
+    return nempc.NMPC(model, cost, [box], H=LH_H, DT=2.0 / LH_H,
+                      integrator="rk4", config=nempc.IPConfig(tol=1e-5,
+                                                              kkt=kkt),
+                      mesh=mesh, device=device)
+
+
+def long_horizon_starts(Bn):
+    """tools/bench_horizon_tpu.py's measure starts."""
+    rng = np.random.default_rng(0)
+    return np.stack([rng.uniform(0.2, 0.8, Bn),
+                     rng.uniform(-0.9, -0.3, Bn)], axis=1).astype(np.float32)
+
+
+def long_horizon_run(mpc, Bn, tag, warm=LH_WARM):
+    """A cold solve and ``warm`` warm re-plans from the plans' first states
+    (tools/bench_horizon_tpu.py's protocol): per step the result, the
+    carry it returned and the time."""
+    xs = torch.as_tensor(long_horizon_starts(Bn), device="cuda")
+    steps, carries, times = [], [], []
+    carry = None
+    for k in range(warm + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, res = mpc.next_batch(xs, carry=carry)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        on_card(tag, [res.u, res.x, res.converged, res.iterations,
+                      carry.w])
+        check_plan(res, LH_H, 2, 1, Bn)
+        steps.append(res)
+        carries.append(carry)
+        log(f"  {tag} B={Bn} {'cold' if k == 0 else f'warm {k - 1}'}: "
+            f"{times[-1] * 1e3:.1f} ms  " + telemetry("", res))
+        xs = res.x[:, 0].contiguous()
+    return steps, carries, times
+
+
+def hold_counts(tag, steps, floor, reference):
+    """Converged counts (cold, each warm re-plan) at least ``floor``."""
+    got = [int(r.converged.sum()) for r in steps]
+    log(f"  {tag}: converged {got} (at least {floor[:len(got)]}; the JAX "
+        f"package on the CPU: {reference[:len(got)]})")
+    if any(g < f for g, f in zip(got, floor)):
+        raise RuntimeError(f"{tag}: convergence {got} below {floor}")
+    return got
+
+
+def hold_plans(tag, steps, ref_steps, rerun, same_inputs=None, first=0):
+    """Plans against ``ref_steps``' on the members converged under both:
+    cold (step 0) within LH_SPREAD x the JAX package's own pscan-vs-riccati
+    cold difference, warm within LH_SPREAD x its warm one; ``first`` is
+    the step ``steps`` starts at.  The cost is linear in u, and a warm
+    re-plan starts from each run's own previous plan and carry, so a
+    member's plan may be fixed only loosely by what came before.  A member
+    past the limit is held to the limit + SPREAD x the reference's own
+    move when ``rerun(k, eps)`` re-solves step k of the reference from its
+    starts moved by ±PERTURB (the budgeted fleet's rule), with the
+    candidate's plan re-solved from the reference's own starts and carry
+    (``same_inputs(k)``) where the two runs' inputs differ.  Returns the
+    largest |du| a step."""
+    dus = []
+    for k, (a, b) in enumerate(zip(steps, ref_steps), start=first):
+        both = a.converged & b.converged
+        d = (a.u - b.u).abs().amax(dim=(1, 2))
+        du = float(d[both].max())
+        limit = LH_SPREAD * LH_JAX_DU["cold" if k == 0 else "warm"]
+        over = torch.nonzero(both & (d > limit)).flatten()
+        dus.append(du)
+        step = "cold" if k == 0 else f"warm {k - 1}"
+        log(f"  {tag} {step}: max |du| {du:.3e} on the {int(both.sum())} "
+            f"members converged under both (limit {limit:.3e}); not "
+            f"compared: {int((~both).sum())}; past the limit: "
+            f"{over.tolist()}")
+        if not len(over):
+            continue
+        same = a if same_inputs is None else same_inputs(k)
+        d_same = (same.u - b.u).abs().amax(dim=(1, 2))
+        moved = torch.zeros_like(d)
+        if bool((d_same[over] > limit).any()):
+            for eps in (PERTURB, -PERTURB):
+                alt = rerun(k, eps)
+                moved = torch.maximum(moved, (alt.u - b.u).abs().amax(
+                    dim=(1, 2)))
+        log(f"    those members' |du| {d[over].tolist()}; from the "
+            f"reference's own starts and carry {d_same[over].tolist()} "
+            f"(converged {same.converged[over].tolist()}); the reference's "
+            f"own move under ±{PERTURB} on the start, where that is past "
+            f"the limit too, {moved[over].tolist()} (limit {limit:.3e} + "
+            f"{SPREAD} x that)")
+        if not bool((same.converged[over]
+                     & (d_same[over] <= limit + SPREAD * moved[over])).all()):
+            raise RuntimeError(f"{tag}: plans differ by {du:.3e}")
+    return dus
+
+
+def lh_rerun(mpc, steps, carries, k, eps):
+    """Step k of a long-horizon run again, from its starts moved by
+    ``eps`` (the cold starts, or the previous step's plans' first states
+    with its carry)."""
+    if k == 0:
+        xs = torch.as_tensor(long_horizon_starts(LH_B), device="cuda")
+        return mpc.next_batch(xs + eps)[1]
+    xs = steps[k - 1].x[:, 0].contiguous()
+    return mpc.next_batch(xs + eps, carry=carries[k - 1])[1]
+
+
+def lh_floor(kkt, Bn=LH_B):
+    """The converged-count floors: cold, the lower of the JAX package's
+    two backends' counts, each warm re-plan its own backend's, less
+    MU_SLACK of B."""
+    cold = min(v[0] for v in LH_REFERENCE.values())
+    return [n - int(MU_SLACK * Bn)
+            for n in [cold] + LH_REFERENCE[kkt][1:]]
+
+
+def long_horizon_16(device, eps):
+    """The first N_CARD_VS_CPU members of the long-horizon fleet, their
+    starts moved by ``eps``, under kkt="riccati_pscan" on ``device``: a cold
+    solve and one warm re-plan, (u, converged, iterations) as numpy a step.
+    On the CPU it runs in a worker process while the card works."""
+    import pyneuralempc_tpu_torch as nempc
+    mpc = long_horizon_mpc(nempc, device, "riccati_pscan")
+    xs = torch.as_tensor(long_horizon_starts(LH_B)[:N_CARD_VS_CPU]
+                         + np.float32(eps), device=device)
+    carry, out = None, []
+    for _ in range(2):
+        carry, res = mpc.next_batch(xs, carry=carry)
+        out.append(tuple(t.cpu().numpy() for t in
+                         (res.u, res.converged, res.iterations)))
+        xs = res.x[:, 0].contiguous()
+    return out
+
+
+def phase_long_horizon(nempc, rk, rg, card):
+    """Phase 4p: the long-horizon LV fleet (H=512, B=256) cold + LH_WARM
+    warm under kkt="riccati_pscan" and kkt="riccati" (the staged fused
+    kernel at (2, 1)); counts and plans against the JAX package's own;
+    B=8 cold + LH_SMALL_WARM warm, gated on warm convergence; 16 pscan
+    members against the CPU (the CPU solves run in worker processes
+    meanwhile)."""
+    from types import SimpleNamespace
+    out, steps, carries, mpcs = {}, {}, {}, {}
+    cpu = {eps: cpu_pool().submit(long_horizon_16, "cpu", eps)
+           for eps in (0.0, PERTURB, -PERTURB)}
+    for kkt in ("riccati_pscan", "riccati"):
+        mpc = mpcs[kkt] = long_horizon_mpc(nempc, "cuda", kkt)
+        if mpc.kkt_backend != kkt:
+            raise RuntimeError(f"kkt backend {mpc.kkt_backend}")
+        reset_counters(rk, rg)
+        steps[kkt], carries[kkt], times = long_horizon_run(mpc, LH_B, kkt)
+        n = counters(rk, rg)
+        if kkt == "riccati_pscan":
+            no_kernel_launched(rk, rg, "kkt='riccati_pscan'")
+        elif not only_launched(n, "fused", "fused_staged"):
+            raise RuntimeError(f"kkt='riccati' at H={LH_H}: {n}")
+        conv = hold_counts(kkt, steps[kkt], lh_floor(kkt),
+                           LH_REFERENCE[kkt])
+        p50 = statistics.median(times[1:])
+        log(f"[{card}] long-horizon LV, {kkt}, B={LH_B}, H={LH_H}: cold "
+            f"{times[0]:.2f} s, warm p50 {p50 * 1e3:.1f} ms -> "
+            f"{LH_B / p50:,.1f} solves/s (fused launches {n['fused']})")
+        out[kkt] = {"cold_s": times[0], "p50_ms": p50 * 1e3,
+                    "converged": conv, "fused_launches": n["fused"],
+                    "iterations_max": [int(r.iterations.max())
+                                       for r in steps[kkt]]}
+    out["du"] = hold_plans(
+        "pscan vs riccati", steps["riccati_pscan"], steps["riccati"],
+        lambda k, eps: lh_rerun(mpcs["riccati"], steps["riccati"],
+                                carries["riccati"], k, eps),
+        lambda k: lh_rerun(mpcs["riccati_pscan"], steps["riccati"],
+                           carries["riccati"], k, 0.0))
+    # few long problems: B=8, gated on warm convergence only
+    for kkt in ("riccati_pscan", "riccati"):
+        small, _, times = long_horizon_run(
+            long_horizon_mpc(nempc, "cuda", kkt), LH_SMALL_B, kkt,
+            warm=LH_SMALL_WARM)
+        warm = [int(r.converged.sum()) for r in small[1:]]
+        p50 = statistics.median(times[1:])
+        log(f"[{card}] long-horizon LV, {kkt}, B={LH_SMALL_B}: cold "
+            f"{times[0]:.2f} s, converged {int(small[0].converged.sum())}"
+            f"; warm {warm} (all {LH_SMALL_B} needed, as the JAX "
+            f"package's), p50 {p50 * 1e3:.1f} ms")
+        if min(warm) < LH_SMALL_B:
+            raise RuntimeError(f"B={LH_SMALL_B}, {kkt}: warm convergence "
+                               f"{warm}")
+        out[f"{kkt}_b{LH_SMALL_B}"] = {"cold_s": times[0],
+                                       "p50_ms": p50 * 1e3}
+
+    t0 = time.perf_counter()
+    card16 = long_horizon_16("cuda", 0.0)
+    for step, name in ((0, "cold solves"), (1, "warm re-plans")):
+        def pscan16(dev, eps, step=step):
+            u, conv, it = (cpu[eps].result() if dev == "cpu"
+                           else card16)[step]
+            return SimpleNamespace(u=torch.as_tensor(u),
+                                   converged=torch.as_tensor(conv),
+                                   iterations=torch.as_tensor(it))
+        converged_card_vs_cpu(
+            f"long-horizon LV, riccati_pscan, H={LH_H}, {N_CARD_VS_CPU} "
+            f"{name}", pscan16, loose_masks=True)
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+    return (out, mpcs["riccati_pscan"], steps["riccati_pscan"],
+            carries["riccati_pscan"])
+
+
+def phase_horizon(nempc, rk, rg, card, pscan_mpc, pscan_steps,
+                  pscan_carries, pscan_call_ms):
+    """Phase 4q: the horizon-sharded sweep against plain on the card (a
+    (2, 4) mesh of the one card), then NMPC(mesh=...) on a (1, 4) mesh on
+    4p's fleet: one warm re-plan from 4p's pscan cold carry and starts,
+    held to 4p's first pscan warm re-plan under 4p's gates."""
+    from pyneuralempc_tpu_torch.parallel import (make_horizon_mesh,
+                                                 make_sharded_sweep)
+    dev = torch.device("cuda", 0)
+    sharded = make_sharded_sweep(make_horizon_mesh(2, 4, devices=[dev] * 8))
+    args, err = pscan_gate(rk, rg, sharded, *PSCAN_SHAPES[0], "delta0",
+                           "horizon-sharded (2, 4)")
+    call_ms = cuda_median_ms(lambda: sharded(*args), runs=5, warmup=1)
+    log(f"[{card}] horizon-sharded sweep (2, 4) at {PSCAN_SHAPES[0]}: "
+        f"{call_ms:.3f} ms a call between CUDA events (pscan "
+        f"{pscan_call_ms:.3f})")
+    mpc = long_horizon_mpc(nempc, "cuda", mesh=make_horizon_mesh(
+        1, HORIZON_SHARDS, devices=[dev] * HORIZON_SHARDS))
+    if mpc.kkt_backend != "riccati_horizon":
+        raise RuntimeError(f"kkt backend {mpc.kkt_backend}")
+    reset_counters(rk, rg)
+    xs = pscan_steps[0].x[:, 0].contiguous()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, res = mpc.next_batch(xs, carry=pscan_carries[0])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    on_card("NMPC(mesh=...)", [res.u, res.x, res.converged])
+    check_plan(res, LH_H, 2, 1, LH_B)
+    log(f"  riccati_horizon B={LH_B}, warm 0 from 4p's pscan carry: "
+        f"{secs * 1e3:.1f} ms  " + telemetry("", res))
+    no_kernel_launched(rk, rg, "NMPC(mesh=...)")
+    conv = hold_counts("riccati_horizon, warm 0", [res],
+                       lh_floor("riccati_pscan")[1:],
+                       LH_REFERENCE["riccati_pscan"][1:])
+    dus = hold_plans("horizon vs pscan", [res], pscan_steps[1:2],
+                     lambda k, eps: lh_rerun(pscan_mpc, pscan_steps,
+                                             pscan_carries, k, eps), first=1)
+    log(f"[{card}] long-horizon LV on a (1, {HORIZON_SHARDS}) mesh, B={LH_B}"
+        f": a warm re-plan {secs * 1e3:.1f} ms -> {LH_B / secs:,.1f} "
+        "solves/s")
+    return {"sweep_err": err, "sweep_call_ms": call_ms,
+            "warm_ms": secs * 1e3, "converged": conv, "du": dus}
+
+
+def phase_scenario(nempc, rk, rg, card, params, x0s):
+    """Phase 4r: ShardedNMPC over a mesh of the card named SCEN_SHARDS
+    times on phase 4's fleet (B=4096): cold, then one warm re-plan with the
+    carry from the cold plans' first states (phase 4's protocol), each
+    against the unsharded solve's (equal converged masks, |du| within
+    SHARDED_DU), each shard's results on its device; the warm re-plan
+    converges all members in at most the cold call's iterations."""
+    from pyneuralempc_tpu_torch.parallel import ShardedNMPC, make_mesh
+    dev = torch.device("cuda", 0)
+    mpc = make_controller(nempc, "cuda")
+    times, runs = {}, {}
+    reset_counters(rk, rg)
+    sharded = ShardedNMPC(mpc, make_mesh(devices=[dev] * SCEN_SHARDS))
+    for name, runner in (("unsharded", mpc), ("sharded", sharded)):
+        xs = torch.as_tensor(x0s, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, cold = runner.next_batch(xs, params=params)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        carry, warm = runner.next_batch(cold.x[:, 0].contiguous(),
+                                        params=params, carry=carry)
+        torch.cuda.synchronize()
+        times[name] = (t1 - t0, time.perf_counter() - t1)
+        runs[name] = (cold, warm, carry)
+    plain = runs["unsharded"]
+    for res in runs["sharded"]:
+        for s, d in zip(res.shards, sharded.devices):
+            if {t.device for t in s if isinstance(t, torch.Tensor)} != {d}:
+                raise RuntimeError(f"a shard's results are not on its "
+                                   f"device {d}")
+    cold, warm, _ = runs["sharded"]
+    du = [float((a.u - b.u).abs().max()) for a, b in zip(runs["sharded"][:2],
+                                                         plain[:2])]
+    same = all(bool(torch.equal(a.converged, b.converged))
+               for a, b in zip(runs["sharded"][:2], plain[:2]))
+    warm_ok = (int(warm.converged.sum()) == B
+               and int(warm.iterations.max()) <= int(cold.iterations.max()))
+    log(f"ShardedNMPC, {SCEN_SHARDS} shards of the card, B={B}: converged "
+        f"masks equal to the unsharded solve's (cold, warm): {same}, max "
+        f"|du| {du[0]:.3e}, {du[1]:.3e} (limit {SHARDED_DU}); warm: "
+        f"converged {int(warm.converged.sum())}/{B}, iterations max "
+        f"{int(warm.iterations.max())} (cold {int(cold.iterations.max())}"
+        f"; unsharded {int(plain[1].iterations.max())}, "
+        f"{int(plain[0].iterations.max())}); shards "
+        f"{[tuple(s.u.shape) for s in cold.shards]}")
+    if not (same and max(du) <= SHARDED_DU and warm_ok):
+        raise RuntimeError("ShardedNMPC differs from the unsharded solve")
+    n = counters(rk, rg)
+    if not only_launched(n, "fused", "fused_staged"):
+        raise RuntimeError(f"ShardedNMPC: {n}")
+    log(f"[{card}] LV fleet B={B}, cold then one warm re-plan: unsharded "
+        f"{times['unsharded'][0]:.2f} s + {times['unsharded'][1] * 1e3:.1f} "
+        f"ms, {SCEN_SHARDS} shards one after another "
+        f"{times['sharded'][0]:.2f} s + {times['sharded'][1] * 1e3:.1f} ms")
+    return {"du": du, "times_s": times}
+
+
 # ---- phase 5: card vs CPU ----
 
 def card_vs_cpu(tag, solve, iterations=False):
@@ -3125,7 +3662,7 @@ def phase_card_vs_cpu_new(gd, rnn_params, z0s, qm_model, qm_params,
         raise RuntimeError("the multi-start winners differ")
 
 
-def phase_card_vs_cpu_wide_options(nempc, params, x0s, w_x0s):
+def phase_card_vs_cpu_wide_options(params, x0s, w_x0s):
     """The wide fleet's 16 cold solves, and the solver options on 16 LV
     members (adaptive and mehrotra; polish_fresh=True at OPT_SMALL_B;
     hessian="gauss_newton", its converged members' plans held as the
@@ -3133,22 +3670,23 @@ def phase_card_vs_cpu_wide_options(nempc, params, x0s, w_x0s):
     CPU."""
     from pyneuralempc_tpu_torch.examples.fleet_wide import make_fleet_wide_mpc
 
+    option_sets = ({"mu_strategy": "adaptive"}, {"mu_strategy": "mehrotra"},
+                   {"polish_fresh": True})
+    sizes = [N_CARD_VS_CPU if "mu_strategy" in o else OPT_SMALL_B
+             for o in option_sets]
+    # the CPU halves go to the workers first, the wide fleet's meanwhile
+    runs = [lv_runs("lv", {0.0: x0s[:n]}, params, **o)
+            for o, n in zip(option_sets, sizes)]
+    gn = lv_runs("lv", moved_starts(x0s[:N_CARD_VS_CPU]), params,
+                 hessian="gauss_newton")
     card_vs_cpu(
         f"wide fleet, H={W_H}, {N_CARD_VS_CPU} cold solves",
         lambda dev: make_fleet_wide_mpc(dev, H=W_H).next_batch(
             torch.as_tensor(w_x0s[:N_CARD_VS_CPU], device=dev))[1])
 
-    def lv(dev, n, **options):
-        return make_controller(nempc, dev, **options).next_batch(
-            torch.as_tensor(x0s[:n], device=dev),
-            params=[{k: v.to(dev) for k, v in layer.items()}
-                    for layer in params])[1]
-
-    for options in ({"mu_strategy": "adaptive"}, {"mu_strategy": "mehrotra"},
-                    {"polish_fresh": True}):
-        n = (N_CARD_VS_CPU if "mu_strategy" in options else OPT_SMALL_B)
+    for options, n, run in zip(option_sets, sizes, runs):
         out = card_vs_cpu(f"LV, {options}, {n} cold solves",
-                          lambda dev: lv(dev, n, **options))
+                          lambda dev: run(dev, 0.0))
         log(f"  converged {int(out['cuda'].converged.sum())}/{n} on the "
             f"card, {int(out['cpu'].converged.sum())}/{n} on the CPU")
 
@@ -3158,36 +3696,49 @@ def phase_card_vs_cpu_wide_options(nempc, params, x0s, w_x0s):
     # by ~1e-2.  So the masks are held equal, the converged members' plans
     # as the budgeted fleet's (fixed by f32: 1e-4; flat: 1e-4 + SPREAD x
     # their move), the unconverged members' iterates not at all
-    def gn(dev, eps):
-        return make_controller(nempc, dev, hessian="gauss_newton").next_batch(
-            torch.as_tensor(x0s[:N_CARD_VS_CPU] + np.float32(eps),
-                            device=dev),
-            params=[{k: v.to(dev) for k, v in layer.items()}
-                    for layer in params])[1]
+    converged_card_vs_cpu(f"LV, hessian='gauss_newton', {N_CARD_VS_CPU} "
+                          "cold solves", gn)
 
+
+def converged_card_vs_cpu(tag, run, loose_masks=False):
+    """``run(device, eps)`` (N_CARD_VS_CPU members, their starts moved by
+    eps) on the card and on the CPU, the CPU also at ±PERTURB: equal
+    converged masks (with ``loose_masks``, on the members whose CPU flag
+    the ±PERTURB moves do not change: where a member stops at max_iter
+    near tol, f32 decides whether it converged); the members converged on
+    both whose CPU plan moves by at most DETERMINED with the same
+    iterations (fixed by f32) held to CARD_VS_CPU_DU in u and to equal
+    iterations, the other converged ones to CARD_VS_CPU_DU + SPREAD times
+    their move; unconverged members' iterates are not compared."""
     def du(a, b):
         return (a.u.cpu() - b.u).abs().amax(dim=(1, 2))
 
-    card, cpu = gn("cuda", 0.0), gn("cpu", 0.0)
+    card, cpu = run("cuda", 0.0), run("cpu", 0.0)
     moved = torch.zeros(N_CARD_VS_CPU)
     same_iters = torch.ones(N_CARD_VS_CPU, dtype=torch.bool)
+    flips = torch.zeros(N_CARD_VS_CPU, dtype=torch.bool)
     for eps in (PERTURB, -PERTURB):
-        alt = gn("cpu", eps)
+        alt = run("cpu", eps)
         moved = torch.maximum(moved, du(alt, cpu))
         same_iters &= alt.iterations == cpu.iterations
-    conv = cpu.converged
+        flips |= alt.converged != cpu.converged
+    conv = cpu.converged & card.converged.cpu()
     fixed = conv & (moved <= DETERMINED) & same_iters
     d = du(card, cpu)
     limit = torch.where(fixed, torch.tensor(CARD_VS_CPU_DU),
                         CARD_VS_CPU_DU + SPREAD * moved)
-    same = bool(torch.equal(card.converged.cpu(), conv))
+    held = ~flips if loose_masks else torch.ones_like(flips)
+    same = bool(torch.equal(card.converged.cpu()[held], cpu.converged[held]))
     iters = bool(torch.equal(card.iterations.cpu()[fixed],
                              cpu.iterations[fixed]))
     flat = torch.nonzero(conv & ~fixed).flatten().tolist()
-    log(f"card vs CPU (LV, hessian='gauss_newton', {N_CARD_VS_CPU} cold "
-        f"solves): converged {int(card.converged.sum())}/{N_CARD_VS_CPU} on "
-        f"the card, {int(conv.sum())} on the CPU, masks equal: {same}; "
-        f"{int(fixed.sum())} converged members fixed by f32, max |du| "
+    log(f"card vs CPU ({tag}): converged {int(card.converged.sum())}/"
+        f"{N_CARD_VS_CPU} on the card, {int(cpu.converged.sum())} on the "
+        f"CPU, masks equal: {same}"
+        + (f" (on the {int(held.sum())} members whose CPU flag ±{PERTURB} "
+           "does not change)" if loose_masks else "")
+        + f"; {int(fixed.sum())} converged members fixed by f32, "
+        f"max |du| "
         f"{float(d[fixed].max()) if bool(fixed.any()) else 0.0:.3e} on them "
         f"(limit {CARD_VS_CPU_DU}), iterations equal on them: {iters}; "
         f"converged and flat: {flat}, moved "
@@ -3195,24 +3746,20 @@ def phase_card_vs_cpu_wide_options(nempc, params, x0s, w_x0s):
         f"{[float(d[i]) for i in flat]} (limit {CARD_VS_CPU_DU} + {SPREAD} x "
         "moved)")
     if not (same and iters and bool((d <= limit)[conv].all())):
-        raise RuntimeError("hessian='gauss_newton': card and CPU solves "
-                           "differ")
+        raise RuntimeError(f"{tag}: card and CPU solves differ")
 
 
-def phase_card_vs_cpu(nempc, params, x0s, q_x0s, eq_x0s):
-    from pyneuralempc_tpu_torch.api.simulate import closed_loop_batch
+def phase_card_vs_cpu(params, x0s, q_x0s, eq_x0s):
     from pyneuralempc_tpu_torch.examples.fleet_eq import make_fleet_eq_mpc
-    from pyneuralempc_tpu_torch.examples.lotka_volterra import (
-        U_FLOOR, make_budget_mpc)
+    from pyneuralempc_tpu_torch.examples.lotka_volterra import U_FLOOR
     from pyneuralempc_tpu_torch.examples.quadrotor import make_quadrotor_mpc
 
-    def on(dev):
-        return [{k: v.to(dev) for k, v in layer.items()} for layer in params]
-
-    def lv(dev):
-        mpc = make_controller(nempc, dev)
-        return mpc.next_batch(torch.as_tensor(x0s[:N_CARD_VS_CPU],
-                                              device=dev), params=on(dev))[1]
+    # the CPU halves of the LV fleet's checks go to the workers first, the
+    # quadrotor ones meanwhile
+    starts = x0s[:N_CARD_VS_CPU]
+    lv = lv_runs("lv", {0.0: starts}, params)
+    budget = lv_runs("budget", moved_starts(starts), params)
+    loop = lv_runs("budget_loop", moved_starts(starts), params)
 
     def quad(dev):
         mpc = make_quadrotor_mpc(dev, H=QH)
@@ -3224,18 +3771,10 @@ def phase_card_vs_cpu(nempc, params, x0s, q_x0s, eq_x0s):
         return mpc.next_batch(torch.as_tensor(eq_x0s[:N_CARD_VS_CPU],
                                               device=dev))[1]
 
-    card_vs_cpu(f"LV, {N_CARD_VS_CPU} cold solves", lv)
     card_vs_cpu(f"quadrotor, H={QH}, {N_CARD_VS_CPU} cold solves", quad)
     card_vs_cpu(f"EQ/border quadrotor, H={QH}, {N_CARD_VS_CPU} cold solves",
                 fleet_eq)
-
-    surrogate = nempc.MLPDynamics.make(x_dim=2, u_dim=1, hidden=[32, 32])
-    starts = x0s[:N_CARD_VS_CPU]
-
-    def budget(dev, eps):
-        mpc = make_budget_mpc(surrogate, dev, H=H, DT=DT)
-        xs = torch.as_tensor(starts + np.float32(eps), device=dev)
-        return mpc.next_batch(xs, params=on(dev))[1]
+    card_vs_cpu(f"LV, {N_CARD_VS_CPU} cold solves", lambda dev: lv(dev, 0.0))
 
     def compare_plans(card, cpu, determined):
         same = bool(torch.equal(card.converged.cpu(), cpu.converged))
@@ -3250,14 +3789,6 @@ def phase_card_vs_cpu(nempc, params, x0s, q_x0s, eq_x0s):
     budget_card_vs_cpu("budgeted LV, cold, |du|", budget,
                        lambda alt, ref: (alt.u.cpu() - ref.u).abs()
                        .amax(dim=(1, 2)), compare_plans)
-
-    def loop(dev, eps):
-        mpc = make_budget_mpc(surrogate, dev, H=H, DT=DT)
-        xs = torch.as_tensor(starts + np.float32(eps), device=dev)
-        out = closed_loop_batch(mpc, lv_plant(nempc), xs, steps=4,
-                                replan_every=CL_REPLAN, params=on(dev))
-        return out._replace(x=out.x.cpu(), converged=out.converged.cpu(),
-                            iterations=out.iterations.cpu())
 
     def compare_loops(card, cpu, determined):
         conv_same = bool(torch.equal(card.converged, cpu.converged))
@@ -3280,6 +3811,14 @@ def main():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         sys.exit(1)
+    try:
+        run()
+    finally:
+        for pool in _POOL:
+            pool.shutdown(cancel_futures=True)
+
+
+def run():
     import pyneuralempc_tpu_torch as nempc
     from pyneuralempc_tpu_torch.ops.cuda import build
     rk = nempc.riccati_kernel
@@ -3355,17 +3894,28 @@ def main():
     fused["ift_forward_launches"] = diff["forward_launches"]
     fused["ift_backward_launches"] = diff["backward_launches"]
     record = phase_record(nempc, rk, rg, card, params, x0s)
+    # phases 4o-4r: the parallel-in-time sweep, the long-horizon fleet, the
+    # horizon-sharded sweep and solve, scenario sharding
+    pscan = phase_pscan_sweep(rk, rg, card)
+    long_horizon, *pscan_run = phase_long_horizon(nempc, rk, rg, card)
+    fused["long_horizon_launches"] = long_horizon["riccati"]["fused_launches"]
+    horizon = phase_horizon(nempc, rk, rg, card, *pscan_run,
+                            pscan["pscan_call_ms"])
+    scenario = phase_scenario(nempc, rk, rg, card, params, x0s)
 
     # phase 5: card vs CPU
-    phase_card_vs_cpu(nempc, params, x0s, q_x0s, eq_x0s)
+    phase_card_vs_cpu(params, x0s, q_x0s, eq_x0s)
     phase_card_vs_cpu_new(gd, rnn_params, z0s, qm_model, qm_params, qm_x0s)
-    phase_card_vs_cpu_wide_options(nempc, params, x0s, w_x0s)
+    phase_card_vs_cpu_wide_options(params, x0s, w_x0s)
     log(f"paths: GRU fleet {json.dumps(rnn_split)}; cartpole "
         f"{json.dumps(cp_run)}; quadrotor MLP {json.dumps(qm_split)}; wide "
         f"fleet {json.dumps(w_split)}; solver options "
         f"{json.dumps(options)}; import {json.dumps(imported)}; dense "
         f"{json.dumps(dense)}; ALM {json.dumps(alm)}; differentiable "
-        f"{json.dumps(diff)}; record {json.dumps(record)}")
+        f"{json.dumps(diff)}; record {json.dumps(record)}; pscan sweep "
+        f"{json.dumps(pscan)}; long horizon {json.dumps(long_horizon)}; "
+        f"horizon mesh {json.dumps(horizon)}; scenario sharding "
+        f"{json.dumps(scenario)}")
 
     print(json.dumps({"kernels": [fused, bwd, fwd, gbwd, gfwd, gfused,
                                   rnn_bwd, rnn_fwd, cp_bwd, cp_fwd, w_bwd,

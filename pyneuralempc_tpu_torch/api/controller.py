@@ -13,6 +13,7 @@ CPU it is its plain PyTorch version.
 
 from __future__ import annotations
 
+import functools
 import warnings
 from typing import Any, NamedTuple, Optional, Tuple
 
@@ -25,10 +26,12 @@ from ..core.structure import SeparableObjective, probe_stage_separable
 from ..core.transcription import NLP, transcribe
 from ..ops.integrators import step_fn
 from ..ops.rollout import simulate
+from ..parallel.horizon import horizon_sweep
 from ..solve import riccati
 from ..solve.alm import ALMConfig, make_alm_solver
 from ..solve.diff import make_differentiable_solver
 from ..solve.interior_point import IPConfig, IPResult, make_solver
+from ..solve.pscan import riccati_sweep_pscan
 
 
 class NMPCResult(NamedTuple):
@@ -137,6 +140,12 @@ class NMPC:
                  the augmented-Lagrangian solver.
     differentiable: results carry gradients with respect to x0, p, tvp
                  and params by the implicit function theorem.
+    mesh:        a (scenario, horizon) :class:`~pyneuralempc_tpu_torch.
+                 parallel.Mesh` (:func:`~pyneuralempc_tpu_torch.parallel.
+                 make_horizon_mesh`): every batched solve's Riccati sweep
+                 runs split over its devices (``kkt_backend`` is
+                 "riccati_horizon"); ``next`` and ``step`` (one problem)
+                 take the single-device parallel-in-time sweep.
     device:      where the solver runs: "cuda" (default) or "cpu".
     """
 
@@ -144,9 +153,10 @@ class NMPC:
                  DT: float = 0.1, integrator: str = "rk4",
                  config: IPConfig = IPConfig(), differentiable: bool = False,
                  mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: multi-device solves are ROADMAP Queue 1 #14")
+        self._args = dict(model=model, objective=objective,
+                          constraints=constraints, H=H, DT=DT,
+                          integrator=integrator, config=config,
+                          differentiable=differentiable, mesh=mesh)
         self.device = torch.device(device)
         box, path = _split_constraints(constraints)
         if box is None:
@@ -175,10 +185,33 @@ class NMPC:
             self.kkt_backend = "alm"
             self._ipcfg = config.ip
             self._solve = make_alm_solver(self.nlp, config)
+            self._solve_one = self._solve
         else:
             self._ipcfg = config
-            if config.kkt == "riccati" or (config.kkt == "auto"
-                                           and riccati.eligible(self.nlp)):
+            one = None         # the single-problem direction, where it differs
+            if mesh is not None:
+                # sequence-parallel solve: every batched IP iteration's
+                # Riccati sweep runs split over the (scenario, horizon) mesh
+                if set(mesh.shape) != {"scenario", "horizon"}:
+                    raise ValueError(
+                        "mesh must have axes ('scenario', 'horizon'); "
+                        "use parallel.make_horizon_mesh")
+                if H % mesh.shape["horizon"] != 0:
+                    raise ValueError(
+                        f"H={H} not divisible by horizon axis "
+                        f"{mesh.shape['horizon']}")
+                sweep = horizon_sweep(mesh)
+                direction = functools.partial(riccati.make_riccati_direction,
+                                              sweep_impl=sweep)
+                one = functools.partial(riccati.make_riccati_direction,
+                                        sweep_impl=sweep.unbatched)
+                self.kkt_backend = "riccati_horizon"
+            elif config.kkt == "riccati_pscan":
+                direction = functools.partial(riccati.make_riccati_direction,
+                                              sweep_impl=riccati_sweep_pscan)
+                self.kkt_backend = "riccati_pscan"
+            elif config.kkt == "riccati" or (config.kkt == "auto"
+                                             and riccati.eligible(self.nlp)):
                 direction = riccati.make_riccati_direction
                 self.kkt_backend = "riccati"
             else:
@@ -194,18 +227,23 @@ class NMPC:
                     "the O(H) Riccati backend (trajectory-level "
                     "PathConstraints ride it as a low-rank border).",
                     stacklevel=2)
-            if differentiable:
-                # gradients flow through next_batch()/step() results by the
-                # implicit function theorem (solve/diff.py)
-                self._solve = make_differentiable_solver(
-                    self.nlp, config, direction=direction)
-            else:
-                self._solve = make_solver(self.nlp, config,
-                                          direction=direction)
+            # differentiable: gradients flow through next_batch()/step()
+            # results by the implicit function theorem (solve/diff.py)
+            make = (make_differentiable_solver if differentiable
+                    else make_solver)
+            self._solve = make(self.nlp, config, direction=direction)
+            self._solve_one = (self._solve if one is None
+                               else make(self.nlp, config, direction=one))
         self.H, self.DT = H, DT
         self.model = model
         # instance warm-start state for next()
         self._carry: Optional[WarmStart] = None
+
+    def replica(self, device) -> "NMPC":
+        """A controller with this one's spec and configuration on
+        ``device`` (:class:`~pyneuralempc_tpu_torch.parallel.ShardedNMPC`
+        builds one a device of its mesh)."""
+        return NMPC(**self._args, device=device)
 
     # ---- functional core (batch-first) ----
 
@@ -273,9 +311,12 @@ class NMPC:
         return WarmStart(w=self.nlp.pack(X, U, s), lam=carry.lam,
                          zl=carry.zl, zu=carry.zu, mu=mu, valid=carry.valid)
 
-    def _step(self, carry: WarmStart, rt) -> Tuple[WarmStart, NMPCResult]:
-        out_ = self._solve(rt, carry.w, carry.lam, carry.zl, carry.zu,
-                           carry.mu)
+    def _step(self, carry: WarmStart, rt, one: bool = False
+              ) -> Tuple[WarmStart, NMPCResult]:
+        """Solve from ``carry``; ``one``: a single problem (``next``,
+        ``step``), which a horizon mesh solves on one device."""
+        solve = self._solve_one if one else self._solve
+        out_ = solve(rt, carry.w, carry.lam, carry.zl, carry.zu, carry.mu)
         res, trace = out_ if self._record else (out_, None)
         res: IPResult
         X, U, s = self.nlp.unpack(res.w)
@@ -292,8 +333,8 @@ class NMPC:
             mu=res.mu, valid=res.converged)
         return new_carry, out
 
-    def _warm_step(self, carry: WarmStart, rt):
-        return self._step(self.shift(carry), rt)
+    def _warm_step(self, carry: WarmStart, rt, one: bool = False):
+        return self._step(self.shift(carry), rt, one)
 
     def _runtime(self, x0s, p, tvp, params, batched=True):
         """The solver's runtime dict; ``_per_member`` names the inputs that
@@ -316,7 +357,7 @@ class NMPC:
         (carry', result)."""
         rt = self._runtime(torch.as_tensor(x0)[None], p, tvp, params,
                            batched=False)
-        new, res = self._warm_step(_lead(carry), rt)
+        new, res = self._warm_step(_lead(carry), rt, one=True)
         return _unlead(new), _unlead(res)
 
     # ---- stateful convenience API (reference ``NMPC.next`` shape) ----
@@ -332,9 +373,9 @@ class NMPC:
                                     None if init_u is None
                                     else torch.as_tensor(init_u)[None],
                                     p, tvp, params, per_member=())
-            self._carry, res = self._step(carry, rt)
+            self._carry, res = self._step(carry, rt, one=True)
         else:
-            self._carry, res = self._warm_step(self._carry, rt)
+            self._carry, res = self._warm_step(self._carry, rt, one=True)
         return _unlead(res)
 
     def reset(self):

@@ -3,11 +3,13 @@ batch, receding-horizon with warm carries, and optionally the whole fleet
 closed loop (plant stepping, warm re-plans, failure policy) through
 :func:`~pyneuralempc_tpu_torch.api.simulate.closed_loop_batch`.
 
-The port's copy of the JAX package's ``examples/fleet.py`` on one device
-(its ``--mesh`` scenario sharding is ROADMAP Queue 1 #14).
+The port's copy of the JAX package's ``examples/fleet.py``.  ``--mesh N``
+shards the fleet over N devices (:class:`~pyneuralempc_tpu_torch.parallel.
+ShardedNMPC`): the first N CUDA devices, or N shards on the CPU under
+``--cpu``.
 
 Run:  python -m pyneuralempc_tpu_torch.examples.fleet [--cpu]
-      [--batch 16384] [--H 50] [--steps 5] [--closed-loop T]
+      [--batch 16384] [--H 50] [--steps 5] [--mesh N] [--closed-loop T]
 """
 
 from __future__ import annotations
@@ -21,8 +23,14 @@ import torch
 from ..api.controller import NMPC
 from ..api.simulate import closed_loop_batch, plant_from_model
 from ..models.base import torch_dynamics
+from ..parallel.sharding import ShardedNMPC, make_mesh
 from ..solve.interior_point import IPConfig
 from .quadrotor import quad_box, quad_cost, quad_f, quad_x0s
+
+
+def mesh_of(n: int, device):
+    """``--mesh n``: the first n CUDA devices, or n shards on the CPU."""
+    return make_mesh(n, devices=[device] * n if device == "cpu" else None)
 
 
 def main(argv=None):
@@ -37,10 +45,6 @@ def main(argv=None):
                     help="also run a T-step closed-loop fleet evaluation "
                          "(cost + violations)")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: scenario sharding over several devices is ROADMAP "
-            "Queue 1 #14")
     device = "cpu" if args.cpu else "cuda"
 
     def sync():
@@ -56,18 +60,24 @@ def main(argv=None):
 
     x0s = torch.as_tensor(quad_x0s(np.random.default_rng(0), B),
                           device=device)
+    runner = mpc
+    if args.mesh:
+        runner = ShardedNMPC(mpc, mesh_of(args.mesh, device))
+        print(f"scenario-sharded over {args.mesh} devices "
+              f"({B // args.mesh} problems/device)")
     t0 = time.perf_counter()
-    carry, res = mpc.next_batch(x0s)
+    carry, res = runner.next_batch(x0s)
     sync()
     print(f"cold fleet solve: {time.perf_counter() - t0:.1f}s  "
           f"converged {int(res.converged.sum())}/{B}")
 
     # receding horizon: plant = plan head (perfect-model fleet rollout)
-    carry, res = mpc.next_batch(res.x[:, 0].contiguous(), carry=carry)
+    carry, res = runner.next_batch(res.x[:, 0].contiguous(), carry=carry)
     sync()
     t0 = time.perf_counter()
     for _ in range(args.steps):
-        carry, res = mpc.next_batch(res.x[:, 0].contiguous(), carry=carry)
+        carry, res = runner.next_batch(res.x[:, 0].contiguous(),
+                                       carry=carry)
     sync()
     dt_step = (time.perf_counter() - t0) / max(args.steps, 1)
     print(f"warm fleet step: {dt_step * 1e3:.0f}ms -> "

@@ -12,8 +12,10 @@ unmeasured first-order filter: what a recurrent surrogate must capture and
 a feed-forward one cannot.  Its training sequences are drawn by numpy from
 a seed.
 
+``--mesh N`` shards the fleet over N devices, as :mod:`.fleet` does.
+
 Run:  python -m pyneuralempc_tpu_torch.examples.fleet_rnn [--cpu]
-      [--batch 16384] [--H 100]
+      [--batch 16384] [--H 100] [--mesh N]
 """
 
 from __future__ import annotations
@@ -27,7 +29,9 @@ import torch
 from ..api.controller import NMPC
 from ..core.problem import StageCost
 from ..models.rnn import fit_gru_on_sequences, gru_dynamics
+from ..parallel.sharding import ShardedNMPC
 from ..solve.interior_point import IPConfig
+from .fleet import mesh_of
 
 DT = 1.0
 TARGET = (0.3, 0.2)
@@ -98,9 +102,6 @@ def main(argv=None):
     ap.add_argument("--fit-steps", type=int, default=FIT_STEPS)
     ap.add_argument("--mesh", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: multi-device solves are ROADMAP Queue 1 #14")
     device = "cpu" if args.cpu else "cuda"
 
     def sync():
@@ -118,17 +119,22 @@ def main(argv=None):
           f"lifted state={gd.model.dims.x}")
 
     z0s = fleet_starts(gd, B, device=device)
+    runner = mpc
+    if args.mesh:
+        runner = ShardedNMPC(mpc, mesh_of(args.mesh, device))
+        print(f"scenario-sharded over {args.mesh} devices")
     t0 = time.perf_counter()
-    carry, res = mpc.next_batch(z0s, params=params)
+    carry, res = runner.next_batch(z0s, params=params)
     sync()
     print(f"cold fleet solve: {time.perf_counter() - t0:.1f}s  converged "
           f"{int(res.converged.sum())}/{B}")
 
-    carry, res = mpc.next_batch(res.x[:, 0], params=params, carry=carry)
+    carry, res = runner.next_batch(res.x[:, 0], params=params, carry=carry)
     sync()
     t0 = time.perf_counter()
     for _ in range(args.steps):
-        carry, res = mpc.next_batch(res.x[:, 0], params=params, carry=carry)
+        carry, res = runner.next_batch(res.x[:, 0], params=params,
+                                       carry=carry)
     sync()
     dt = (time.perf_counter() - t0) / max(args.steps, 1)
     print(f"warm fleet step: {dt * 1e3:.0f}ms -> {B / dt:,.0f} solves/s  "

@@ -38,7 +38,11 @@ def sweep_case(kind, B=4, H=5, nx=2, nu=1, seed=0):
       exactly, with B = 0 there) just below zero, rescued at the 1e-6 bump
       on odd problems and only at the 1e-4 bump on problems 2 mod 4; that
       control is decoupled from the states and the other controls (Qux, qu
-      and Quu's off-diagonal zero) so the rescued gains stay bounded.
+      and Quu's off-diagonal zero) so the rescued gains stay bounded;
+    * ``delta_rescue``: every problem's first control at -3 on M's
+      diagonal and δ cycling 0, 10, so the problems at δ = 0 report
+      ok=False and those at δ = 10 pass (the solver's δ ladder; the
+      parallel-in-time sweep's stage-wise test agrees here).
     """
     args = sweep_data(B=B, H=H, nx=nx, nu=nu, seed=seed)
     A, Bm, G, M, mx, mu_, c, delta = args
@@ -56,6 +60,9 @@ def sweep_case(kind, B=4, H=5, nx=2, nu=1, seed=0):
                 X[sel, 1, nx, nx] = diag
             M[sel, 1, nx, nx] = -G[sel, 1, nx, nx] - gap
             mu_[sel, 1] = 0.0
+    elif kind == "delta_rescue":
+        M[:, :, nx, nx] = -3.0
+        delta[:] = np.resize(np.float32([0.0, 10.0]), B)
     elif kind != "delta0":
         raise ValueError(kind)
     return args
@@ -111,3 +118,15 @@ def general_sweep_case(kind, B=4, H=5, nx=2, nu=1, R=2, r=1, seed=0):
             E[sel, 1, :, 1:] += np.eye(r, nu - 1) - np.eye(r, nu)[:, 1:]
     return [np.ascontiguousarray(a, np.float32)
             for a in (A, Bm, G, M, mx, mu_, c, delta, dc, E, F, h, Jx)]
+
+
+def scaled_error(outs, refs, ok):
+    """The largest |out − ref| of each output over the ok problems, over
+    max(1, max|ref|) there, the largest of the outputs: the measure the
+    parallel-in-time sweeps are held to the plain one with.  numpy arrays
+    or tensors."""
+    err = 0.0
+    for o, r in zip(outs, refs):
+        d = abs(o - r)[ok]
+        err = max(err, float(d.max()) / max(1.0, float(abs(r[ok]).max())))
+    return err

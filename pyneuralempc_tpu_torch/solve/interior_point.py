@@ -65,13 +65,12 @@ class IPConfig:
     ``polish_fresh`` re-derives the stage blocks at the converged point
     before the polish steps instead of reusing the last iteration's.
     ``kkt``: "auto" (the controller takes Riccati where the problem is
-    eligible, else dense), "riccati" or "dense".  ``record=True`` runs
+    eligible, else dense), "riccati", "riccati_pscan" (the Riccati
+    direction through the O(log H) parallel-in-time sweep,
+    :mod:`.pscan`) or "dense".  ``record=True`` runs
     exactly ``max_iter`` iterations and ``solve`` returns ``(result,
     trace)``, the trace a dict of (B, max_iter) tensors; ``debug=True``
     prints one line a member an iteration.
-
-    Not ported yet, and raising ``NotImplementedError``:
-    ``kkt="riccati_pscan"`` (ROADMAP Queue 1 #14).
     """
 
     max_iter: int = 60
@@ -104,7 +103,8 @@ class IPConfig:
     hessian: str = "exact"         # "exact" | "objective" | "gauss_newton"
     gn_reg: float = 1e-6           # curvature floor of the non-exact modes
                                    # (dense backend only)
-    kkt: str = "auto"              # "auto" | "riccati" | "dense"
+    kkt: str = "auto"              # "auto" | "riccati" | "riccati_pscan"
+                                   # | "dense"
     auto_scale: bool = True        # gradient-based objective scaling
     scale_gmax: float = 100.0
     debug: bool = False
@@ -117,10 +117,6 @@ class IPConfig:
             raise ValueError(f"unknown mu_strategy {self.mu_strategy!r}")
         if self.kkt not in ("auto", "riccati", "dense", "riccati_pscan"):
             raise ValueError(f"unknown kkt backend {self.kkt!r}")
-        if self.kkt == "riccati_pscan":
-            raise NotImplementedError(
-                "kkt='riccati_pscan': parallel-in-time sweeps are ROADMAP "
-                "Queue 1 #14")
 
 
 # Regularisation ladder of the dense backend's inertia correction (tried in

@@ -86,8 +86,14 @@ def eligible(nlp: NLP) -> bool:
     return eq_rows_per_stage <= spec.dims.u and border_rows <= 64
 
 
-def make_riccati_direction(nlp: NLP, cfg) -> Callable:
+def make_riccati_direction(nlp: NLP, cfg, sweep_impl=None) -> Callable:
     """KKT backend factory for :func:`..interior_point.make_solver`.
+
+    ``sweep_impl``: the plain sweep to call in place of
+    :func:`riccati_sweep` (the same contract), e.g.
+    :func:`..pscan.riccati_sweep_pscan` for the O(log H) parallel-in-time
+    sweep or :func:`..parallel.horizon.horizon_sweep`'s.  Only the plain
+    path (no stage EQ rows, no trajectory border) takes one.
 
     Returns ``direction(w, lam, rt, Sigma, r_tilde, c) -> (dw, dlam, ok,
     resolve)`` with the split protocol attributes ``direction.prepare``
@@ -148,6 +154,12 @@ def make_riccati_direction(nlp: NLP, cfg) -> Callable:
     r_eq_total = sum(s["n_eq"] for s in stage_pcs)
     q_total = sum(t["q"] for t in traj_pcs)
     fast = (r_eq_total == 0 and q_total == 0)
+    if not fast and sweep_impl is not None:
+        raise ValueError(
+            "custom sweep implementations (horizon sharding / pscan) "
+            "support only the plain Riccati path; stage EQ rows and "
+            "trajectory-level border constraints use the general sweep")
+    the_sweep = riccati_sweep if sweep_impl is None else sweep_impl
 
     def phi1(x, u, p, tvp_t, params):
         """Single-stage step: (nx,), (nu,) -> (nx,)."""
@@ -461,8 +473,8 @@ def make_riccati_direction(nlp: NLP, cfg) -> Callable:
         no_eq = c2.new_zeros(c2.shape[:2] + (0,))
 
         def sweep(delta):
-            dX, dU, dLam, okc = riccati_sweep(A, Bm, G, M, m_x, m_u, c2,
-                                              per_problem(delta, c2))
+            dX, dU, dLam, okc = the_sweep(A, Bm, G, M, m_x, m_u, c2,
+                                          per_problem(delta, c2))
             dw, dlam, okp = _recover(dX, dU, dLam, no_eq, Jgs, Sig_ss,
                                      cg_ins, rss, [])
             return dw, dlam, okc & okp

@@ -15,6 +15,7 @@ import torch
 
 import pyneuralempc_tpu as J
 import pyneuralempc_tpu_torch as T
+from pyneuralempc_tpu_torch.parallel import make_horizon_mesh
 from pyneuralempc_tpu.models.train import fit_surrogate, sample_transitions
 from pyneuralempc_tpu.ops.integrators import step_fn
 
@@ -92,19 +93,22 @@ def test_next_single_problem_matches_jax(surrogate):
 
 
 def test_unported_features_raise():
-    """Only the parallel-in-time and multi-device solves (ROADMAP Queue 1
-    #14) are left to port; the dense backend, ALM, the differentiable
-    solve and record/debug (#10, #15) build."""
-    with pytest.raises(NotImplementedError, match="Queue 1 #14"):
-        T.IPConfig(kkt="riccati_pscan")
-    for kw in ({"record": True}, {"kkt": "dense"}, {"debug": True}):
+    """Nothing is left to port: the parallel-in-time and multi-device
+    solves (#14), the dense backend, ALM, the differentiable solve and
+    record/debug (#10, #15) build, each under its backend's name."""
+    for kw in ({"record": True}, {"kkt": "dense"}, {"debug": True},
+               {"kkt": "riccati_pscan"}):
         T.IPConfig(**kw)               # ported: no raise
     with pytest.raises(ValueError):
         T.IPConfig(kkt="nope")
     model = T.MLPDynamics.make(x_dim=2, u_dim=1, hidden=[4])
     cost = lambda x, u: torch.sum(u)  # noqa: E731
-    with pytest.raises(NotImplementedError, match="Queue 1 #14"):
-        T.NMPC(model, cost, H=4, mesh=object(), device="cpu")
+    stage = T.StageCost(stage=lambda x, u: torch.sum(u))
+    assert T.NMPC(model, stage, H=4, config=T.IPConfig(kkt="riccati_pscan"),
+                  device="cpu").kkt_backend == "riccati_pscan"
+    mesh = make_horizon_mesh(1, 2, devices=["cpu"] * 2)
+    assert T.NMPC(model, stage, H=4, mesh=mesh,
+                  device="cpu").kkt_backend == "riccati_horizon"
     # a constraint the Riccati backend cannot take (more equality rows a
     # stage than controls) and a stage-coupled cost take the dense one
     two_eq = T.StageConstraint(stage=lambda x, u: torch.cat([u, u]), dim=2,

@@ -41,7 +41,12 @@ def test_fresh_import_pulls_in_no_jax():
             "pyneuralempc_tpu_torch.solve.diff, "
             "pyneuralempc_tpu_torch.utils.native, "
             "pyneuralempc_tpu_torch.utils.profiling, "
-            "pyneuralempc_tpu_torch.utils.timing; "
+            "pyneuralempc_tpu_torch.utils.timing, "
+            "pyneuralempc_tpu_torch.ops.scan, "
+            "pyneuralempc_tpu_torch.solve.pscan, "
+            "pyneuralempc_tpu_torch.parallel, "
+            "pyneuralempc_tpu_torch.parallel.horizon, "
+            "pyneuralempc_tpu_torch.parallel.sharding; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -218,7 +218,7 @@ def test_fleet_rnn_main(capsys):
     assert "cold fleet solve" in out and "warm fleet step" in out
 
 
-def test_fleet_rnn_plant_and_mesh():
+def test_fleet_rnn_plant_and_mesh(capsys):
     X, U = fleet_rnn.plant_sequences(0, n=3, T=5)
     assert X.shape == (3, 6, 2) and U.shape == (3, 5, 1)
     # one step by hand: the hidden lag starts at 0
@@ -226,5 +226,9 @@ def test_fleet_rnn_plant_and_mesh():
     np.testing.assert_allclose(X[:, 1, 0],
                                X[:, 0, 0] + 0.5 * (-0.4 * X[:, 0, 0] + w),
                                rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="Queue 1 #14"):
-        fleet_rnn.main(["--cpu", "--mesh", "2"])
+    # --mesh (once refused) shards the fleet over two shards of the CPU
+    fleet_rnn.main(["--cpu", "--mesh", "2", "--batch", "4", "--H", "8",
+                    "--hidden", "4", "--steps", "1", "--fit-steps", "30"])
+    out = capsys.readouterr().out
+    assert "scenario-sharded over 2 devices" in out
+    assert "warm fleet step" in out and "(converged 4/4)" in out
