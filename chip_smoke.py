@@ -27,7 +27,7 @@ Phases (each raises, and the script exits non-zero, on failure):
    raises when five do), its time per wrapper call (CUDA
    events, host work included), the plain version's time and the least
    time the card could take (bound); then both designs' device times in
-   turns (riccati_sweep.cu, staged, staged, riccati_sweep.cu), warm and
+   turns (riccati_sweep.cu, staged; once a,b,b,a), warm and
    with L2 flushed, and ptxas's report of both.
 3b. Streamed pair vs plain: the backward and forward kernels
    (csrc/riccati_streamed.cu) at the quadrotor path's shapes (B=4096, H=50,
@@ -42,7 +42,7 @@ Phases (each raises, and the script exits non-zero, on failure):
    csrc/riccati_forward_fixed.cuh); each is also held against its run-time
    kernel (riccati_backward_runtime_cuda, riccati_forward_runtime_cuda) on
    the same inputs, and the two designs of each are timed in turns
-   (run-time, instance, instance, run-time), warm and with L2 flushed,
+   (run-time, instance; once a,b,b,a), warm and with L2 flushed,
    with ptxas's report of each.  Times as in 3.
 3c. General pair vs plain: the general backward and forward kernels
    (csrc/riccati_general.cu) at the EQ/border quadrotor path's shapes
@@ -76,7 +76,7 @@ Phases (each raises, and the script exits non-zero, on failure):
    every output, the gains it writes when asked), against the direct
    kernel (the first design) and against the streamed general pair on the
    same inputs.  Times as in 3 for the staged kernel; then both kernels'
-   device times in turns (direct, staged, staged, direct), as the path
+   device times in turns (direct, staged; once a,b,b,a), as the path
    finds the inputs (warm in L2) and with a 256 MB write before each
    launch (L2 flushed); the staged kernel's phases (prologue, backward,
    forward, epilogue) from its per-block clock stamps, warm and flushed;
@@ -87,7 +87,8 @@ Phases (each raises, and the script exits non-zero, on failure):
    4 times on the card) and cartpole's (4, 1) at H=50 (the four cases at
    B=4096, and each case's first problem alone, the path's B=1), as 3b
    against the plain halves, the run-time kernels and the plain sweep;
-   timed as in 3b at the paths' shapes ((4, 1) at B=4096 too).  Then the
+   timed as in 3b at the paths' shapes ((4, 1) at B=4096 too, and at the
+   multi-start's B=8 without the turns).  Then the
    wide fleet's (12, 10) at H=50, B=4096 (the cases drawn at B=1024 and
    repeated 4 times): the backward entry takes its instance
    riccati_general_backward_fixed<12, 10, 1, 0> there (Quu factored one
@@ -142,7 +143,7 @@ Phases (each raises, and the script exits non-zero, on failure):
 4e. GRU fleet (pyneuralempc_tpu_torch/examples/fleet_rnn.py at its full
    size, BASELINE config 5): the GRU fit on the card (3000 Adam steps on
    512 x 32 plant sequences), then B=16384 lifted (10-state) problems,
-   H=100: a cold solve, one untimed and 3 timed warm re-plans.  Counters
+   H=100: a cold solve, one untimed and 1 timed warm re-plan.  Counters
    as in 4b: both instances, at (10, 1); at least 16368/16384 converged on
    every solve.
 4f. Cartpole (pyneuralempc_tpu_torch/examples/cartpole.py, BASELINE
@@ -153,12 +154,12 @@ Phases (each raises, and the script exits non-zero, on failure):
    0.  Counters over all of it as in 4b: both instances, at (4, 1).
 4g. Quadrotor MLP fleet (examples/quadrotor.py --mlp): the normalised
    surrogate fit on the card at the JAX example's settings, then B=1024,
-   H=50: a cold solve, one untimed and 2 timed warm re-plans.  Counters as
+   H=50: a cold solve, one untimed and 1 timed warm re-plan.  Counters as
    in 4b; at least 994/1024 converged on every solve; the cold plans
    approach hover.
 4h. Wide fleet (pyneuralempc_tpu_torch/examples/fleet_wide.py, the JAX
    package's tools/fleet_wide_tpu.py: 12 states, 10 thrusts, H=50, RK4,
-   B=4096, not cut): a cold solve, one untimed and 2 timed warm re-plans.
+   B=4096, not cut): a cold solve, one untimed and 1 timed warm re-plan.
    Counters: the streamed pair alone, every backward and every forward
    launch through its instance (the run-time kernels never); at least
    4092/4096 converged on every solve.
@@ -222,7 +223,7 @@ Phases (each raises, and the script exits non-zero, on failure):
    sweep kernel and no plain sweep launched; its time a call and its
    device work beside the fused kernel's device time at (256, 512, 2, 1).
 4p. Long-horizon LV fleet (tools/bench_horizon_tpu.py's build_mpc,
-   copied: the LV ODE itself, H=512, DT=2/H, B=256): cold + 3 warm
+   copied: the LV ODE itself, H=512, DT=2/H, B=256): cold + 2 warm
    re-plans under kkt="riccati_pscan" (no sweep kernel, no plain sweep)
    and kkt="riccati" (the staged fused kernel alone); converged counts at
    least the JAX package's own less 0.5% of B (cold: the lower of its two
@@ -244,6 +245,37 @@ Phases (each raises, and the script exits non-zero, on failure):
    solve's, |du| <= 1e-3, each shard's results on its device; the warm
    re-plan converges all members in at most the cold call's iterations;
    both timed against the unsharded ones.
+4s. Out of every kernel's envelope: riccati_sweep at nu=17 and
+   riccati_sweep_general at R=66 on seeded cases (plan "plain_fallback":
+   the plain version on the card, one warning, FALLBACK_CALLS, no kernel,
+   the plain version's outputs bit for bit); then the stacked-LSTM fleet
+   (examples/fleet_rnn.py lstm_fleet_model("stacked_lstm"): hiddens
+   (8, 8), seeded weights, lifted to (34, 1), past nx <= 32; the GRU
+   fleet's MPC, H=100, B=1024, cold + 1 warm): every sweep the plain
+   fallback, one warning for the run, no kernel; converged counts at least
+   the JAX package's own on the same weights less 0.5% of B
+   (tests/measure_torch_parity_gaps.py); the first 128 members' cold plans
+   card vs CPU (held as 4p's); the fallback sweep's time a call and its
+   device work at the fleet's shape.
+4t. The LSTM fleet (lstm_fleet_model("lstm"): hidden 8, lifted to
+   (18, 1), H=100, B=4096, cold + 2 warm): the run-time streamed pair
+   (riccati_backward_kernel, riccati_forward_kernel) against its plain
+   halves on the four seeded cases and timed at the fleet's shape (two
+   entries of the kernels line); every sweep of the fleet through the
+   run-time pair, no fallback; counts and card vs CPU as in 4s.
+4u. bf16: phase 4's fleet and surrogate with MLPDynamics(compute_dtype=
+   bfloat16), B=4096, cold + 2 warm, through the staged fused kernel:
+   counts at least the JAX package's own on the same fit less 0.5% of B,
+   plans within 2e-2 of phase 4's float32 cold plans on the members
+   converged under both, the first 128 members card vs CPU.
+4v. BASELINE config 1 (the LV ODE itself, Euler, H=10, one NMPC.next on
+   the card): converged, its plan within 1e-4 of the CPU's; phase 4's
+   warm re-plan with batch_chunk=1024 against the whole B=4096 re-plan
+   (|du| <= 1e-4, + 2x their own move on members f32 fixes loosely; equal
+   masks); then `python -m pyneuralempc_tpu_torch.utils.profiling` at
+   PROF_BATCH=1024 in a subprocess beside phase 5, which must exit 0.
+   Every phase before 4s runs with FALLBACK_CALLS from 0 and must leave it
+   at 0 (logged after each).
 5. Card vs CPU: 16 LV problems, 16 quadrotor problems, 16 EQ/border
    quadrotor problems and 16 budgeted LV problems solved on the card and on
    the CPU, and the budgeted fleet's closed loop (B=16, steps=4) on both;
@@ -266,23 +298,29 @@ Phases (each raises, and the script exits non-zero, on failure):
 6. Numbers: warm re-plan p50 latency, solves/s, the time split and the
    device busy share, for each path.
 
-The last two lines of stdout are the kernels' JSON line and
-``{"ok": true, "device": {...}}``.
+Before them, one JSON line for each of phases 4s-4v.  The last three
+lines of stdout are the kernels' JSON line, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
+import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
 
 B, H, DT, REG = 4096, 20, 0.1, 1e-4
-# timed warm re-plans of the LV paths (once 8, cut to keep the whole run
-# inside its time since the GRU, cartpole and quadrotor MLP paths joined)
-WARM_STEPS = 4
+# timed warm re-plans of the LV paths (once 8, then 4, cut to keep the
+# whole run inside its time as paths joined; the other paths' warm
+# repeats were cut with it: one timed warm re-plan each, the long-horizon
+# fleet's 3 to 2)
+WARM_STEPS = 2
 MIN_WARM_CONVERGED = 4092
 # kernel vs plain, f32: every element within SWEEP_TOL·max(1, |plain|), and
 # every output within SWEEP_TOL·max(1, max|plain|) absolute (dLam reaches
@@ -300,7 +338,7 @@ PALLAS = "pyneuralempc_tpu/ops/pallas/riccati_kernel.py"
 CSRC = "pyneuralempc_tpu_torch/csrc/"
 # the quadrotor path (bench.py's BASELINE config 4)
 QH, QNX, QNU = 50, 12, 4
-Q_WARM_STEPS = 2             # once 4, cut as WARM_STEPS
+Q_WARM_STEPS = 1             # once 4, cut as WARM_STEPS
 # the EQ/border quadrotor path: R right-hand sides (1 + one budget row), r
 # stage equality rows
 QR, QEQ = 2, 1
@@ -350,7 +388,7 @@ NEW_STREAMED_SHAPES = (
      "cartpole"),
 )
 # phase 4e: the GRU fleet (examples/fleet_rnn.py at its full size)
-RNN_WARM_STEPS = 3
+RNN_WARM_STEPS = 1
 RNN_MIN_CONVERGED = RNN_B - 16     # the 4-in-4096 rate of the other paths
 # phase 4f: the cartpole swing-up (examples/cartpole.py)
 CP_STEPS = 60
@@ -362,7 +400,7 @@ CP_STARTS = 8
 # re-plans do not converge in 120; tests/test_torch_cartpole.py)
 CP_FIRST_ITERS = 20
 # phase 4g: the quadrotor MLP fleet (examples/quadrotor.py --mlp)
-QM_B, QM_WARM_STEPS = 1024, 2
+QM_B, QM_WARM_STEPS = 1024, 1
 QM_MIN_CONVERGED = 994             # 97%
 # phase 4: per-member params give the shared solve's plans to this
 PER_MEMBER_DU = 1e-5
@@ -370,7 +408,7 @@ PER_MEMBER_DU = 1e-5
 # package's tools/fleet_wide_tpu.py) at its full size: stage (12, 10),
 # H=50, B=4096; seeded kernel cases drawn at W_CASE_B and repeated
 W_H, W_NX, W_NU, W_CASE_B = 50, 12, 10, 1024
-W_WARM_STEPS = 2
+W_WARM_STEPS = 1
 # the forward instance's other candidate ring depth at (12, 10), built as a
 # second library of riccati_streamed.cu for the turns (at depth 2 eight
 # blocks of four warps fit an SM, at 3 six)
@@ -458,7 +496,7 @@ PSCAN_SPREAD = 2.0
 # max_iter near tol, and the JAX package's own two backends (the same
 # arithmetic, rounded apart) part 4 members there.  B=8 takes a cold solve
 # and LH_SMALL_WARM warm re-plans.
-LH_H, LH_B, LH_SMALL_B, LH_WARM, LH_SMALL_WARM = 512, 256, 8, 3, 1
+LH_H, LH_B, LH_SMALL_B, LH_WARM, LH_SMALL_WARM = 512, 256, 8, 2, 1
 LH_REFERENCE = {"riccati": [230, 256, 256, 256],
                 "riccati_pscan": [226, 256, 256, 256]}
 LH_JAX_DU = {"cold": 1.330e-04, "warm": 5.794e-05}
@@ -473,6 +511,44 @@ SHARDED_DU = 1e-3
 # in CPU_WORKERS spawned processes of CPU_WORKER_THREADS torch threads
 # each, while the card solves its halves
 CPU_WORKERS, CPU_WORKER_THREADS = 3, 2
+# phases 4s-4v: paths the card had not run.  4s, 4t: the LSTM fleets
+# (examples/fleet_rnn.py lstm_fleet_model: seeded weights, not fitted, in
+# the GRU fleet's MPC, H=LSTM_H): the stacked LSTM lifted to (34, 1), past
+# every kernel's nx <= 32, so every sweep runs the plain version on the
+# card (kernel_plan's "plain_fallback"), B=1024, cold + 1 warm; the single
+# LSTM lifted to (18, 1), the run-time streamed pair, B=4096, cold + 2
+# warm.  Converged counts at least the JAX package's own on the same
+# weights less MU_SLACK of B (tests/measure_torch_parity_gaps.py, on the
+# CPU); the first LSTM_N_CPU members' cold plans card vs CPU (the CPU
+# halves, and their starts moved by ±PERTURB, in the workers from the start
+# of the run: they need nothing the card computes).
+LSTM_H, LSTM_N_CPU = 100, 128
+LSTM_B = {"stacked_lstm": 1024, "lstm": 4096}
+LSTM_WARM = {"stacked_lstm": 1, "lstm": 2}
+LSTM_JAX_CONVERGED = {"stacked_lstm": [941, 993],
+                      "lstm": [4045, 4069, 4074]}
+# 4s: the dispatches outside every kernel's envelope on seeded cases, (B, H,
+# nx, nu, R, r): nu=17 (the plain sweep) and R=66 right-hand sides (the
+# general one); each the plain version's result bit for bit
+FALLBACK_CASES = ((256, 50, 12, 17, 1, 0), (256, 20, 2, 1, 66, 0))
+# 4u: phase 4's fleet and surrogate with bf16 matmuls, cold + BF16_WARM
+# warm; the bf16 model's function values carry its rounding while its
+# derivatives do not, so the KKT error floors near 1e-3 and most members
+# stop at max_iter above the bench tol 1e-5, in both packages: the counts
+# are held to the JAX package's own on the same fit (on the CPU) less
+# MU_SLACK of B; plans against phase 4's float32 cold plans within
+# BF16_VS_F32 on the members converged under both (the model-level bound
+# of tests/test_torch_multi_member.py); the first LSTM_N_CPU members card
+# vs CPU as the float32 fleets are: a member that converges on both does
+# so where bf16's rounding left its plan where float32's is (within 1e-6
+# of phase 4's), and its card and CPU plans agreed bit for bit on an H100
+# (19 of 128)
+BF16_WARM = 2
+BF16_JAX_CONVERGED = [711, 605, 493]
+BF16_VS_F32 = 2e-2
+# 4v: next_batch(batch_chunk=CHUNK) against the whole solve; the profiling
+# CLI at PROF_BATCH members in a subprocess, overlapped with phase 5
+CHUNK, PROF_BATCH = 1024, 1024
 
 
 def log(*a):
@@ -501,7 +577,7 @@ def reset_counters(rk, rg):
     rk.STAGED_LAUNCHES = rk.DIRECT_LAUNCHES = 0
     rk.BACKWARD_INSTANCE_LAUNCHES = rk.BACKWARD_RUNTIME_LAUNCHES = 0
     rk.FORWARD_INSTANCE_LAUNCHES = rk.FORWARD_RUNTIME_LAUNCHES = 0
-    rk.PLAIN_CALLS = 0
+    rk.PLAIN_CALLS = rk.FALLBACK_CALLS = 0
     rg.BACKWARD_LAUNCHES = rg.FORWARD_LAUNCHES = rg.FUSED_LAUNCHES = 0
     rg.BACKWARD_INSTANCE_LAUNCHES = rg.BACKWARD_RUNTIME_LAUNCHES = 0
     rg.FORWARD_INSTANCE_LAUNCHES = rg.FORWARD_RUNTIME_LAUNCHES = 0
@@ -517,7 +593,7 @@ def counters(rk, rg):
             "forward": rk.FORWARD_LAUNCHES,
             "forward_instance": rk.FORWARD_INSTANCE_LAUNCHES,
             "forward_runtime": rk.FORWARD_RUNTIME_LAUNCHES,
-            "plain": rk.PLAIN_CALLS,
+            "plain": rk.PLAIN_CALLS, "fallback": rk.FALLBACK_CALLS,
             "general_backward": rg.BACKWARD_LAUNCHES,
             "general_backward_instance": rg.BACKWARD_INSTANCE_LAUNCHES,
             "general_backward_runtime": rg.BACKWARD_RUNTIME_LAUNCHES,
@@ -837,8 +913,7 @@ def phase_kernels(rk, build_logs):
         f"B={B}, H={H}, nx=2, nu=1", strict=True)
     turns = design_turns({"riccati_sweep.cu": (direct, rk.SWEEP_KERNEL),
                           "staged": (staged, staged_name)},
-                         ("riccati_sweep.cu", "staged", "staged",
-                          "riccati_sweep.cu"))
+                         turn_order(("riccati_sweep.cu", "staged")))
     mean = {k: statistics.mean(v) for k, v in turns.items()}
     direct_call_ms = cuda_median_ms(direct)
     P = plan["block_problems"]
@@ -852,7 +927,7 @@ def phase_kernels(rk, build_logs):
         f"{mean['flushed', 'staged'] * 1e3:.2f} us L2 flushed, "
         f"riccati_sweep.cu {mean['warm', 'riccati_sweep.cu'] * 1e3:.2f} us / "
         f"{mean['flushed', 'riccati_sweep.cu'] * 1e3:.2f} us (device time, "
-        f"means of two turns each): the staged kernel takes "
+        f"one turn each): the staged kernel takes "
         f"{mean['warm', 'staged'] / mean['warm', 'riccati_sweep.cu']:.2%} of "
         f"riccati_sweep.cu's time warm; wrapper calls "
         f"{entry['call_ms'] * 1e3:.1f} us staged, {direct_call_ms * 1e3:.1f} "
@@ -937,16 +1012,17 @@ def worse(worst, got):
             for k, v in worst.items()}
 
 
-def abba(labels):
-    """Turns in the order a, b, ..., z, z, ..., b, a."""
-    return tuple(labels) + tuple(reversed(labels))
+def turn_order(labels):
+    """One turn a design, in the order given (a, b, b, a until the run
+    passed its time limit on a slow host)."""
+    return tuple(labels)
 
 
 def instance_entries(rk, name, args, path, build_log, plain_runs=5):
     """Kernel-line entries of the streamed backward and forward instances on
     ``args``: device time, wrapper call, plain version and bound as in phase
     3, each instance with its run-time kernel timed beside it in turns
-    (run-time, instance, instance, run-time), warm and with L2 flushed.
+    (run-time, instance), warm and with L2 flushed.
     ``path`` names the path whose launches
     phase 4 fills in; ``name`` tags the entries."""
     Bn, Hn, nx = args[6].shape
@@ -981,7 +1057,7 @@ def instance_entries(rk, name, args, path, build_log, plain_runs=5):
             plain_runs=plain_runs, strict=True)
         turns = design_turns({"run-time": (runtime, rt_name),
                               "instance": (call, kname)},
-                             abba(("run-time", "instance")),
+                             turn_order(("run-time", "instance")),
                              bound_ms=entry["bound_ms"])
         mean = {k: statistics.mean(v) for k, v in turns.items()}
         rt_call_ms = cuda_median_ms(runtime)
@@ -989,7 +1065,7 @@ def instance_entries(rk, name, args, path, build_log, plain_runs=5):
             + ", ".join(f"{who} {mean['warm', who] * 1e3:.2f} us warm / "
                         f"{mean['flushed', who] * 1e3:.2f} us L2 flushed"
                         for who in ("run-time", "instance"))
-            + f" (device time, means of two turns each): the instance "
+            + f" (device time, one turn each): the instance "
               f"({kname}) takes "
               f"{mean['warm', 'instance'] / mean['warm', 'run-time']:.2%} "
               f"of the run-time kernel's time warm; wrapper calls "
@@ -1274,7 +1350,7 @@ def phase_general(rk, rg, build_log):
     turns = design_turns(
         {"run-time": (runtime, "riccati_general_forward_kernel"),
          "instance": (inst, fwd_instance)},
-        ("run-time", "instance", "instance", "run-time"),
+        turn_order(("run-time", "instance")),
         bound_ms=fwd["bound_ms"], after_turn=same_as_checked)
     mean = {k: statistics.mean(v) for k, v in turns.items()}
     rt_call_ms = cuda_median_ms(runtime)
@@ -1286,7 +1362,7 @@ def phase_general(rk, rg, build_log):
         + ", ".join(f"{who} {mean['warm', who] * 1e3:.2f} us warm / "
                     f"{mean['flushed', who] * 1e3:.2f} us L2 flushed"
                     for who in ("run-time", "instance"))
-        + f" (device time, means of two turns each): the instance takes "
+        + f" (device time, one turn each): the instance takes "
           f"{mean['warm', 'instance'] / mean['warm', 'run-time']:.2%} of the "
           f"run-time kernel's time warm; wrapper calls "
           f"{fwd['call_ms'] * 1e3:.1f} us instance, {rt_call_ms * 1e3:.1f} "
@@ -1438,7 +1514,7 @@ def phase_fused_general(rk, rg, build_log):
     # and with L2 flushed before each launch
     turns = design_turns({"direct": (direct, rk.DIRECT_KERNEL),
                           "staged": (staged, rk.STAGED_KERNEL)},
-                         ("direct", "staged", "staged", "direct"),
+                         turn_order(("direct", "staged")),
                          strict=False)
     split = {cache: phase_split(rg, args, wrap)
              for cache, wrap in (("warm", lambda fn: fn),
@@ -1461,7 +1537,7 @@ def phase_fused_general(rk, rg, build_log):
         f"{mean['flushed', 'staged'] * 1e3:.2f} us L2 flushed, direct "
         f"kernel {mean['warm', 'direct'] * 1e3:.2f} us / "
         f"{mean['flushed', 'direct'] * 1e3:.2f} us (device time, means of "
-        f"two turns each): the staged kernel takes "
+        f"one turn each): the staged kernel takes "
         f"{mean['warm', 'staged'] / mean['warm', 'direct']:.2%} of the "
         f"direct kernel's time warm; wrapper calls "
         f"{entry['call_ms'] * 1e3:.1f} us staged, "
@@ -1556,6 +1632,12 @@ def phase_streamed_new_shapes(rk, build_log):
                 e.update({f"b{b_case}_{k}": e_big[k] for k in (
                     "ms", "call_ms", "plain_ms", "bound_ms", "runtime_ms",
                     "flushed_ms", "runtime_flushed_ms")})
+            # the multi-start's B=CP_STARTS: the instances timed at it too
+            for e, e_small in zip((bwd, fwd), pair_entries(
+                    rk, f" [{tag}, B={CP_STARTS}]",
+                    [a[:CP_STARTS].contiguous() for a in args])):
+                e.update({f"b{CP_STARTS}_{k}": e_small[k] for k in (
+                    "ms", "call_ms", "plain_ms", "bound_ms")})
         else:
             bwd, fwd, pair_ms = instance_entries(rk, f" [{tag}]", args, path,
                                                  build_log)
@@ -1564,6 +1646,32 @@ def phase_streamed_new_shapes(rk, build_log):
         del args
         torch.cuda.empty_cache()
     return out
+
+
+def pair_entries(rk, name, args):
+    """Kernel-line entries of the kernels that the streamed backward and
+    forward entries launch on ``args`` (an instance or the run-time
+    kernel): device time, wrapper call, plain version and bound as in
+    phase 3, no turns."""
+    Bn, Hn, nx = args[6].shape
+    nu = args[1].shape[-1]
+    dims = (Bn, Hn, nx, nu)
+    A, Bm, c = args[0], args[1], args[6]
+    gains, _ = rk.riccati_backward_cuda(*args)
+    torch.cuda.synchronize()
+    label = f"B={Bn}, H={Hn}, nx={nx}, nu={nu}"
+    return [kernel_entry(
+        f"riccati_backward{name}", "riccati_streamed.cu", f"{PALLAS}:468",
+        lambda: rk.riccati_backward_cuda(*args), rk.backward_kernel(nx, nu),
+        lambda: rk.riccati_backward_plain(*args), rk.backward_bytes(*dims),
+        rk.backward_flops(*dims), label, plain_runs=5, strict=True),
+        kernel_entry(
+        f"riccati_forward{name}", "riccati_streamed.cu", f"{PALLAS}:488",
+        lambda: rk.riccati_forward_cuda(A, Bm, c, gains),
+        rk.forward_kernel(nx, nu),
+        lambda: rk.riccati_forward_plain(A, Bm, c, gains),
+        rk.forward_bytes(*dims), rk.forward_flops(*dims), label,
+        plain_runs=5, strict=True)]
 
 
 def same_bits(a, b):
@@ -1668,14 +1776,14 @@ def phase_streamed_wide(rk, build_log, alt_forward, alt_log):
         {"run-time": (lambda: rk.riccati_backward_runtime_cuda(*args),
                       "riccati_backward_kernel"),
          "instance": (bwd_call, bname)},
-        abba(("run-time", "instance")), bound_ms=bwd["bound_ms"])
+        turn_order(("run-time", "instance")), bound_ms=bwd["bound_ms"])
     b_mean = {k: statistics.mean(v) for k, v in b_turns.items()}
     log(f"riccati_backward at {label}: run-time "
         f"{b_mean['warm', 'run-time'] * 1e3:.2f} / "
         f"{b_mean['flushed', 'run-time'] * 1e3:.2f} us, instance "
         f"{b_mean['warm', 'instance'] * 1e3:.2f} / "
         f"{b_mean['flushed', 'instance'] * 1e3:.2f} us (warm / L2 flushed, "
-        "means of two turns): the instance takes "
+        "one turn each): the instance takes "
         f"{b_mean['warm', 'instance'] / b_mean['warm', 'run-time']:.2%} of "
         "the run-time kernel's time warm, "
         f"{bwd['bound_ms'] / b_mean['warm', 'instance']:.2%} of its bound")
@@ -1690,21 +1798,22 @@ def phase_streamed_wide(rk, build_log, alt_forward, alt_log):
                                                               gains),
                       "riccati_forward_kernel"),
          "instance": (fwd_call, fname)},
-        abba(("run-time", "instance")), bound_ms=fwd["bound_ms"])
+        turn_order(("run-time", "instance")), bound_ms=fwd["bound_ms"])
     mean = {k: statistics.mean(v) for k, v in turns.items()}
     depth = rk._FORWARD_INSTANCES[nx, nu]
     d_turns = design_turns(
         {f"D={depth}": (fwd_call, fname),
          f"D={W_ALT_DEPTH}": (lambda: alt_forward(A, Bm, c, gains),
                               alt_name)},
-        abba((f"D={W_ALT_DEPTH}", f"D={depth}")), bound_ms=fwd["bound_ms"])
+        turn_order((f"D={W_ALT_DEPTH}", f"D={depth}")),
+        bound_ms=fwd["bound_ms"])
     d_mean = {k: statistics.mean(v) for k, v in d_turns.items()}
     log(f"riccati_forward at {label}: run-time "
         f"{mean['warm', 'run-time'] * 1e3:.2f} / "
         f"{mean['flushed', 'run-time'] * 1e3:.2f} us, instance "
         f"{mean['warm', 'instance'] * 1e3:.2f} / "
         f"{mean['flushed', 'instance'] * 1e3:.2f} us (warm / L2 flushed, "
-        "means of two turns); ring depths "
+        "one turn each); ring depths "
         + ", ".join(f"{who} {d_mean['warm', who] * 1e3:.2f} / "
                     f"{d_mean['flushed', who] * 1e3:.2f} us"
                     for who in (f"D={depth}", f"D={W_ALT_DEPTH}")))
@@ -1795,12 +1904,12 @@ def check_plan(res, Hn, nx, nu, Bn=B):
 
 
 def report_split(nempc, mpc, carry, xs, res, times, sweeps, sweep_ms, card,
-                 params=None):
+                 params=None, busy=True):
     """Time split of the last warm step (stage blocks and sweeps timed
     alone at the same shapes, times their call counts; one block
-    preparation per solver iteration of the lockstep batch), and the device
-    busy share of one more warm re-plan (same carry, result dropped) from
-    torch.profiler's kernel and copy events."""
+    preparation per solver iteration of the lockstep batch), and, with
+    ``busy``, the device busy share of one more warm re-plan (same carry,
+    result dropped) from torch.profiler's kernel and copy events."""
     Bn = xs.shape[0]
     solver_rt = nempc.runtime(xs, params=params)
     solver_rt["_s_obj"] = torch.ones(Bn, device="cuda")
@@ -1817,7 +1926,8 @@ def report_split(nempc, mpc, carry, xs, res, times, sweeps, sweep_ms, card,
         f"{sweeps_ms:.2f} ms ({sweeps} x {sweep_ms:.4f} ms a wrapper "
         "call, host work included), rest "
         f"{step_ms - blocks_ms - sweeps_ms:.1f} ms of p50 {step_ms:.1f} ms")
-    busy = busy_share(mpc, xs, carry, step_ms, card, params, "one")
+    busy = (busy_share(mpc, xs, carry, step_ms, card, params, "one")
+            if busy else None)
     p50 = statistics.median(times)
     log(f"[{card}] warm re-plan B={Bn}: p50 {p50 * 1e3:.1f} ms, min "
         f"{min(times) * 1e3:.1f} ms -> {Bn / p50:,.0f} solves/s")
@@ -1959,7 +2069,7 @@ def phase_main_path(nempc, rk, rg, card):
             and int(determined.sum()) >= B // 2):
         raise RuntimeError("per-member params do not give the shared "
                            "solve's plans")
-    return params, x0s, n["fused_staged"], cold
+    return params, x0s, n["fused_staged"], cold, (carry, res, xs)
 
 
 def phase_quadrotor(nempc, rk, rg, card, pair_ms):
@@ -2145,8 +2255,8 @@ def cpu_pool():
 
 def lv_solve(kind, device, starts, params, **options):
     """One of the LV fleet's solves of a card-vs-CPU check on ``device``:
-    phase 4's controller with IPConfig ``options`` ("lv"), under
-    ALMConfig() ("alm"), with the move-suppression cost ("moves"), the
+    phase 4's controller with IPConfig ``options`` ("lv"), with bf16
+    matmuls ("bf16"), under ALMConfig() ("alm"), with the move-suppression cost ("moves"), the
     budgeted fleet's cold solve ("budget") or its closed loop, 4 steps
     ("budget_loop"); ``starts`` numpy, ``params`` the surrogate's.  A
     closed loop's trajectory comes back on the CPU."""
@@ -2165,6 +2275,9 @@ def lv_solve(kind, device, starts, params, **options):
                                     replan_every=CL_REPLAN, params=params)
             return out._replace(x=out.x.cpu(), converged=out.converged.cpu(),
                                 iterations=out.iterations.cpu())
+    elif kind == "bf16":
+        mpc = make_controller(nempc, device, model=nempc.MLPDynamics.make(
+            x_dim=2, u_dim=1, hidden=[32, 32], compute_dtype=torch.bfloat16))
     elif kind == "alm":
         mpc = make_controller(nempc, device, config=nempc.ALMConfig())
         if mpc.kkt_backend != "alm":
@@ -3701,22 +3814,23 @@ def phase_card_vs_cpu_wide_options(params, x0s, w_x0s):
 
 
 def converged_card_vs_cpu(tag, run, loose_masks=False):
-    """``run(device, eps)`` (N_CARD_VS_CPU members, their starts moved by
-    eps) on the card and on the CPU, the CPU also at ±PERTURB: equal
-    converged masks (with ``loose_masks``, on the members whose CPU flag
-    the ±PERTURB moves do not change: where a member stops at max_iter
-    near tol, f32 decides whether it converged); the members converged on
-    both whose CPU plan moves by at most DETERMINED with the same
-    iterations (fixed by f32) held to CARD_VS_CPU_DU in u and to equal
+    """``run(device, eps)`` (N_CARD_VS_CPU members or any other number,
+    their starts moved by eps) on the card and on the CPU, the CPU also at
+    ±PERTURB: equal converged masks (with ``loose_masks``, on the members
+    whose CPU flag the ±PERTURB moves do not change: where a member stops
+    at max_iter near tol, f32 decides whether it converged); the members
+    converged on both whose CPU plan moves by at most DETERMINED with the
+    same iterations (fixed by f32) held to CARD_VS_CPU_DU in u and to equal
     iterations, the other converged ones to CARD_VS_CPU_DU + SPREAD times
     their move; unconverged members' iterates are not compared."""
     def du(a, b):
         return (a.u.cpu() - b.u).abs().amax(dim=(1, 2))
 
     card, cpu = run("cuda", 0.0), run("cpu", 0.0)
-    moved = torch.zeros(N_CARD_VS_CPU)
-    same_iters = torch.ones(N_CARD_VS_CPU, dtype=torch.bool)
-    flips = torch.zeros(N_CARD_VS_CPU, dtype=torch.bool)
+    n = cpu.converged.numel()
+    moved = torch.zeros(n)
+    same_iters = torch.ones(n, dtype=torch.bool)
+    flips = torch.zeros(n, dtype=torch.bool)
     for eps in (PERTURB, -PERTURB):
         alt = run("cpu", eps)
         moved = torch.maximum(moved, du(alt, cpu))
@@ -3733,7 +3847,7 @@ def converged_card_vs_cpu(tag, run, loose_masks=False):
                              cpu.iterations[fixed]))
     flat = torch.nonzero(conv & ~fixed).flatten().tolist()
     log(f"card vs CPU ({tag}): converged {int(card.converged.sum())}/"
-        f"{N_CARD_VS_CPU} on the card, {int(cpu.converged.sum())} on the "
+        f"{n} on the card, {int(cpu.converged.sum())} on the "
         f"CPU, masks equal: {same}"
         + (f" (on the {int(held.sum())} members whose CPU flag ±{PERTURB} "
            "does not change)" if loose_masks else "")
@@ -3741,10 +3855,10 @@ def converged_card_vs_cpu(tag, run, loose_masks=False):
         f"max |du| "
         f"{float(d[fixed].max()) if bool(fixed.any()) else 0.0:.3e} on them "
         f"(limit {CARD_VS_CPU_DU}), iterations equal on them: {iters}; "
-        f"converged and flat: {flat}, moved "
-        f"{[float(moved[i]) for i in flat]}, card vs CPU "
-        f"{[float(d[i]) for i in flat]} (limit {CARD_VS_CPU_DU} + {SPREAD} x "
-        "moved)")
+        f"converged and flat: {len(flat)} {flat[:10]}, moved "
+        f"{[float(moved[i]) for i in flat[:10]]}, card vs CPU "
+        f"{[float(d[i]) for i in flat[:10]]} (limit {CARD_VS_CPU_DU} + "
+        f"{SPREAD} x moved)")
     if not (same and iters and bool((d <= limit)[conv].all())):
         raise RuntimeError(f"{tag}: card and CPU solves differ")
 
@@ -3806,6 +3920,426 @@ def phase_card_vs_cpu(params, x0s, q_x0s, eq_x0s):
                        compare_loops)
 
 
+# ---- phases 4s-4v: the LSTM fleets, bf16, config 1 and batch_chunk ----
+
+_PROCS = []      # subprocesses the run started (the profiling CLI)
+
+
+def no_fallback(rk, tag, fn, *args, **kwargs):
+    """One of the paths that predate the out-of-envelope route: every plan
+    of it is inside a kernel's envelope, so FALLBACK_CALLS, from 0 before
+    it, must still be 0 after it.  Returns ``fn``'s result."""
+    rk.FALLBACK_CALLS = 0
+    out = fn(*args, **kwargs)
+    log(f"{tag}: FALLBACK_CALLS {rk.FALLBACK_CALLS}")
+    if rk.FALLBACK_CALLS:
+        raise RuntimeError(f"{tag}: {rk.FALLBACK_CALLS} sweeps took the "
+                           "plain fallback inside the kernels' envelope")
+    return out
+
+
+def first_members(res, n):
+    """The first n members of every batched field of a result."""
+    return type(res)(*[v[:n] if isinstance(v, torch.Tensor) and v.dim()
+                       else v for v in res])
+
+
+def lstm_solve(kind, z0s, eps):
+    """A worker's half of 4s/4t's card-vs-CPU check: the ``kind`` LSTM
+    fleet's cold solve on the CPU from the lifted starts ``z0s`` (numpy),
+    their physical part moved by ``eps``."""
+    from pyneuralempc_tpu_torch.examples import fleet_rnn
+    bundle, params = fleet_rnn.lstm_fleet_model(kind, device="cpu")
+    mpc = fleet_rnn.make_fleet_rnn_mpc(bundle, "cpu", H=LSTM_H)
+    z = torch.as_tensor(z0s).clone()
+    z[:, :bundle.x_dim] += eps
+    return mpc.next_batch(z, params=params)[1]
+
+
+def lstm_cpu_runs():
+    """4s/4t's CPU halves, submitted to the workers: each LSTM fleet's first
+    LSTM_N_CPU members from their starts and from them moved by ±PERTURB.
+    Returns {kind: {eps: future}}."""
+    from pyneuralempc_tpu_torch.examples import fleet_rnn
+    out = {}
+    for kind in LSTM_B:
+        bundle, _ = fleet_rnn.lstm_fleet_model(kind, device="cpu")
+        z0s = fleet_rnn.fleet_starts(bundle, LSTM_N_CPU, device="cpu").numpy()
+        out[kind] = {eps: cpu_pool().submit(lstm_solve, kind, z0s, eps)
+                     for eps in (0.0, PERTURB, -PERTURB)}
+    return out
+
+
+def fleet_steps(mpc, xs, params, warm, tag, counter):
+    """A cold solve and ``warm`` warm re-plans, each from the plans' first
+    states: per step the result, the carry, the time and the sweeps
+    ``counter()`` saw."""
+    steps, carries, times, sweeps = [], [], [], []
+    carry = None
+    for k in range(warm + 1):
+        n0 = counter()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, res = mpc.next_batch(xs, params=params, carry=carry)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        sweeps.append(counter() - n0)
+        on_card(tag, [res.u, res.x, res.converged, carry.w])
+        check_plan(res, mpc.H, mpc.spec.dims.x, mpc.spec.dims.u,
+                   xs.shape[0])
+        steps.append(res)
+        carries.append(carry)
+        log(f"  {tag} B={xs.shape[0]} {'cold' if k == 0 else f'warm {k - 1}'}"
+            f": {times[-1] * 1e3:.1f} ms, sweeps {sweeps[-1]}  "
+            + telemetry("", res))
+        xs = res.x[:, 0].contiguous()
+    return steps, carries, times, sweeps
+
+
+def jax_floor(reference, Bn):
+    """The JAX package's counts less MU_SLACK of B."""
+    return [c - int(MU_SLACK * Bn) for c in reference]
+
+
+def fallback_cases(rk, rg):
+    """4s's direct dispatches outside every kernel's envelope: each seeded
+    case warns once, counts its calls in FALLBACK_CALLS and launches no
+    kernel, and gives the plain version's outputs bit for bit; its time a
+    call."""
+    from pyneuralempc_tpu_torch.ops.cuda import sweep_cases
+    out = {}
+    for Bn, Hn, nx, nu, R, r in FALLBACK_CASES:
+        if (R, r) == (1, 0):
+            case = sweep_cases.sweep_case("delta_per_problem", B=Bn, H=Hn,
+                                          nx=nx, nu=nu, seed=1)
+            fn, plain, sweep = rk.riccati_sweep, rk.riccati_sweep_plain, \
+                "plain"
+        else:
+            case = sweep_cases.general_sweep_case(
+                "delta_per_problem", B=Bn, H=Hn, nx=nx, nu=nu, R=R, r=r,
+                seed=1)
+            fn, plain, sweep = (rg.riccati_sweep_general,
+                                rg.riccati_sweep_general_plain, "general")
+        args = [torch.as_tensor(a, device="cuda") for a in case]
+        label = f"(B, H, nx, nu, R, r) = {(Bn, Hn, nx, nu, R, r)}"
+        plan = rk.kernel_plan(Hn, nx, nu, "cuda", R=R, r=r)
+        rk._WARNED.discard((sweep, Hn, nx, nu, R, r))
+        reset_counters(rk, rg)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            got = fn(*args)
+            again = fn(*args)
+        torch.cuda.synchronize()
+        n = counters(rk, rg)
+        ref = plain(*args)
+        same = all(same_bits(a, b) for o in (got, again)
+                   for a, b in zip(o, ref))
+        warned = [str(w.message) for w in caught
+                  if "outside every CUDA kernel's envelope" in
+                  str(w.message)]
+        ms = cuda_median_ms(lambda: fn(*args), runs=5, warmup=1)
+        log(f"fallback dispatch at {label}: plan {plan['path']} "
+            f"({plan['reason']}); FALLBACK_CALLS {n['fallback']} for 2 "
+            f"calls, {len(warned)} warning(s), kernels launched "
+            f"{sum(v for k, v in n.items() if k not in ('fallback', 'plain'))}"
+            f"; outputs and ok flags equal to the plain version's bit for "
+            f"bit: {same}; ok {int(ref[-1].sum())}/{Bn}; {ms:.2f} ms a "
+            "call (CUDA events)")
+        if not (plan["path"] == "plain_fallback" and n["fallback"] == 2
+                and len(warned) == 1 and only_launched(n, "fallback",
+                                                        "plain")
+                and same and all(t.device.type == "cuda" for t in got)):
+            raise RuntimeError(f"fallback dispatch at {label} failed its "
+                               "gates")
+        out[label] = ms
+    return out
+
+
+def phase_stacked_lstm(nempc, rk, rg, card, cpu_runs):
+    """4s: the stacked-LSTM fleet, lifted past every kernel's nx, solved
+    through the plain fallback on the card (one warning, no kernel), its
+    counts against the JAX package's, its first members against the CPU;
+    the fallback's time a call at the fleet's shape; the direct dispatches
+    outside the envelope (fallback_cases)."""
+    from pyneuralempc_tpu_torch.examples import fleet_rnn
+    kind = "stacked_lstm"
+    out = {"dispatch_ms": fallback_cases(rk, rg)}
+    bundle, params = fleet_rnn.lstm_fleet_model(kind, device="cuda")
+    nx, Bn = bundle.model.dims.x, LSTM_B[kind]
+    plan = rk.kernel_plan(LSTM_H, nx, 1, "cuda")
+    mpc = fleet_rnn.make_fleet_rnn_mpc(bundle, "cuda", H=LSTM_H)
+    log(f"stacked-LSTM fleet (hiddens {bundle.hiddens}, seed "
+        f"{fleet_rnn.LSTM_SEEDS[kind]}): kkt backend {mpc.kkt_backend}; "
+        f"lifted state {nx}; sweep plan: {plan}")
+    if plan["path"] != "plain_fallback" or f"nx={nx} > " not in plan[
+            "reason"]:
+        raise RuntimeError(f"the stacked-LSTM fleet plans {plan}")
+    z0s = fleet_rnn.fleet_starts(bundle, Bn)
+    rk._WARNED.discard(("plain", LSTM_H, nx, 1, 1, 0))
+    reset_counters(rk, rg)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        steps, carries, times, sweeps = fleet_steps(
+            mpc, z0s, params, LSTM_WARM[kind], "stacked LSTM",
+            lambda: rk.FALLBACK_CALLS)
+    n = counters(rk, rg)
+    warned = [str(w.message) for w in caught
+              if "outside every CUDA kernel's envelope" in str(w.message)]
+    log(f"stacked-LSTM path: FALLBACK_CALLS {n['fallback']} (plain calls "
+        f"{n['plain']}), kernels launched "
+        f"{sum(v for k, v in n.items() if k not in ('fallback', 'plain'))}"
+        f", warnings {len(warned)}: {warned[:1]}")
+    if not (only_launched(n, "fallback", "plain") and len(warned) == 1):
+        raise RuntimeError("the stacked-LSTM path did not take the plain "
+                           "fallback alone, with one warning")
+    conv = hold_counts("stacked LSTM", steps,
+                       jax_floor(LSTM_JAX_CONVERGED[kind], Bn),
+                       LSTM_JAX_CONVERGED[kind])
+    runs = cpu_runs[kind]
+    card0 = first_members(steps[0], LSTM_N_CPU)
+    converged_card_vs_cpu(
+        f"stacked-LSTM fleet, H={LSTM_H}, the first {LSTM_N_CPU} cold "
+        "solves", lambda dev, eps: card0 if dev == "cuda"
+        else runs[eps].result(), loose_masks=True)
+    # the fallback sweep at the fleet's shape: its time a call and its
+    # device work (PyTorch ops, no kernel of its own)
+    args = tiled_sweep_case("delta0", 0, Bn // 4, LSTM_H, nx, 1, 4)
+    sweep_ms = cuda_median_ms(lambda: rk.riccati_sweep(*args), runs=5,
+                              warmup=1)
+    dev_ms, events = device_work_ms(lambda: rk.riccati_sweep(*args))
+    bound_ms = rk.sweep_bytes(Bn, LSTM_H, nx, 1) / HBM_BYTES_PER_S * 1e3
+    log(f"[{card}] plain fallback sweep at B={Bn}, H={LSTM_H}, nx={nx}, "
+        f"nu=1: {sweep_ms:.2f} ms a call (CUDA events), {dev_ms:.2f} ms of "
+        f"device work in {events:.0f} kernels and copies; a fused sweep's "
+        f"byte bound {bound_ms * 1e3:.2f} us")
+    # no traced re-plan: a fallback sweep is ~12k kernels, and one traced
+    # warm re-plan of this fleet, 4.5M device events, took 15 minutes
+    split = report_split(nempc, mpc, carries[-1], steps[-1].x[:, 0]
+                         .contiguous(), steps[-1], times[1:], sweeps[-1],
+                         sweep_ms, card, params=params, busy=False)
+    del args
+    torch.cuda.empty_cache()
+    out.update(split, cold_s=times[0], converged=conv,
+               fallback_calls=n["fallback"], sweep_ms=sweep_ms,
+               sweep_device_ms=dev_ms, sweep_events=events,
+               fused_bound_ms=bound_ms,
+               iterations_max=[int(r.iterations.max()) for r in steps])
+    return out
+
+
+def phase_lstm(nempc, rk, rg, card, cpu_runs):
+    """4t: the single-LSTM fleet at (18, 1): the run-time streamed pair
+    held against its plain halves on the four seeded cases and timed, then
+    the fleet, every sweep through the run-time pair, its counts against
+    the JAX package's and its first members against the CPU."""
+    from pyneuralempc_tpu_torch.examples import fleet_rnn
+    kind = "lstm"
+    bundle, params = fleet_rnn.lstm_fleet_model(kind, device="cuda")
+    nx, Bn = bundle.model.dims.x, LSTM_B[kind]
+    plan = rk.kernel_plan(LSTM_H, nx, 1, "cuda")
+    if (plan["path"], plan.get("backward_kernel"),
+            plan.get("forward_kernel")) != ("cuda_streamed",
+                                            "riccati_backward_kernel",
+                                            "riccati_forward_kernel"):
+        raise RuntimeError(f"({nx}, 1) plans {plan}, not the run-time pair")
+    worst = None
+    label = f"B={Bn}, H={LSTM_H}, nx={nx}, nu=1"
+    for case, seed in CASES.items():
+        args = tiled_sweep_case(case, seed, Bn // 4, LSTM_H, nx, 1, 4)
+        worst = worse(worst, hold_streamed_pair(rk, case, args, label))
+        del args
+    args = tiled_sweep_case("delta0", 0, Bn // 4, LSTM_H, nx, 1, 4)
+    bwd, fwd = pair_entries(rk, f" [lstm, {label}]", args)
+    for entry, kernel in ((bwd, "riccati_backward_kernel"),
+                          (fwd, "riccati_forward_kernel")):
+        entry.update(design=f"run-time kernel {kernel}", path="lstm",
+                     shape={"B": Bn, "H": LSTM_H, "nx": nx, "nu": 1})
+    pair_ms = cuda_median_ms(lambda: rk.riccati_sweep_streamed_cuda(*args))
+    log(f"streamed sweep [lstm, {label}] (backward + forward, one wrapper "
+        f"call): {pair_ms * 1e3:.1f} us")
+    set_worst(bwd, fwd, worst)
+    del args
+    torch.cuda.empty_cache()
+
+    mpc = fleet_rnn.make_fleet_rnn_mpc(bundle, "cuda", H=LSTM_H)
+    log(f"LSTM fleet (hidden {bundle.hidden}, seed "
+        f"{fleet_rnn.LSTM_SEEDS[kind]}): kkt backend {mpc.kkt_backend}; "
+        f"lifted state {nx}; sweep plan: {plan}")
+    z0s = fleet_rnn.fleet_starts(bundle, Bn)
+    reset_counters(rk, rg)
+    steps, carries, times, sweeps = fleet_steps(
+        mpc, z0s, params, LSTM_WARM[kind], "LSTM",
+        lambda: rk.BACKWARD_LAUNCHES)
+    n = counters(rk, rg)
+    log(f"LSTM path: streamed backward launches {n['backward']} (the "
+        f"instance {n['backward_instance']}), forward {n['forward']} (the "
+        f"instance {n['forward_instance']}): every one the run-time kernel; "
+        f"FALLBACK_CALLS {n['fallback']}, plain calls {n['plain']}")
+    if not (only_launched(n, "backward", "forward")
+            and n["backward"] == n["forward"]):
+        raise RuntimeError("the LSTM path did not go through the run-time "
+                           "streamed pair alone")
+    conv = hold_counts("LSTM", steps, jax_floor(LSTM_JAX_CONVERGED[kind],
+                                                 Bn),
+                       LSTM_JAX_CONVERGED[kind])
+    runs = cpu_runs[kind]
+    card0 = first_members(steps[0], LSTM_N_CPU)
+    converged_card_vs_cpu(
+        f"LSTM fleet, H={LSTM_H}, the first {LSTM_N_CPU} cold solves",
+        lambda dev, eps: card0 if dev == "cuda" else runs[eps].result(),
+        loose_masks=True)
+    # no traced re-plan, to keep the run inside its time (an H100 was busy
+    # 86.5% of one)
+    split = report_split(nempc, mpc, carries[-1], steps[-1].x[:, 0]
+                         .contiguous(), steps[-1], times[1:], sweeps[-1],
+                         pair_ms, card, params=params, busy=False)
+    split.update(cold_s=times[0], converged=conv,
+                 iterations_max=[int(r.iterations.max()) for r in steps])
+    bwd["launches"], fwd["launches"] = n["backward"], n["forward"]
+    return bwd, fwd, split
+
+
+def phase_bf16(nempc, rk, rg, card, params, x0s, mono, cpu_run):
+    """4u: phase 4's fleet and surrogate with bf16 matmuls: counts against
+    the JAX package's, plans against phase 4's float32 ones, the first
+    members against the CPU."""
+    model = nempc.MLPDynamics.make(x_dim=2, u_dim=1, hidden=[32, 32],
+                                   compute_dtype=torch.bfloat16)
+    mpc = make_controller(nempc, "cuda", model=model)
+    reset_counters(rk, rg)
+    steps, _, times, sweeps = fleet_steps(
+        mpc, torch.as_tensor(x0s, device="cuda"), params, BF16_WARM,
+        "bf16 LV", lambda: rk.LAUNCHES)
+    n = counters(rk, rg)
+    log(f"bf16 LV path: fused kernel launches {n['fused']} (staged "
+        f"{n['fused_staged']}), FALLBACK_CALLS {n['fallback']}, plain calls "
+        f"{n['plain']}")
+    cold = steps[0]
+    both = cold.converged & mono.converged
+    d = (cold.u - mono.u).abs().amax(dim=(1, 2))
+    q = torch.quantile(d, torch.tensor([0.5, 0.9, 0.99], device="cuda"))
+    log(f"bf16 vs phase 4's float32 cold plans: converged under both "
+        f"{int(both.sum())}/{B}, max |du| {float(d[both].max()):.3e} there "
+        f"(limit {BF16_VS_F32}); over every member: median "
+        f"{float(q[0]):.3e}, 90% {float(q[1]):.3e}, 99% {float(q[2]):.3e}, "
+        f"max {float(d.max()):.3e} (bf16's unconverged iterates); "
+        f"KKT error median {float(cold.kkt_error.median()):.3e}")
+    if not (only_launched(n, "fused", "fused_staged")
+            and n["fused_staged"] == n["fused"]):
+        raise RuntimeError("the bf16 LV path did not go through the staged "
+                           "fused kernel alone")
+    conv = hold_counts("bf16 LV", steps, jax_floor(BF16_JAX_CONVERGED, B),
+                       BF16_JAX_CONVERGED)
+    if not float(d[both].max()) <= BF16_VS_F32:
+        raise RuntimeError("bf16 plans differ from float32's past "
+                           f"{BF16_VS_F32}")
+    converged_card_vs_cpu(
+        f"bf16 LV, the first {LSTM_N_CPU} cold solves",
+        lambda dev, eps: (first_members(cold, LSTM_N_CPU) if dev == "cuda"
+                          else cpu_run("cpu", eps)), loose_masks=True)
+    return {"cold_s": times[0], "warm_ms": [t * 1e3 for t in times[1:]],
+            "converged": conv, "sweeps": sweeps,
+            "vs_f32_both": int(both.sum()),
+            "vs_f32_du": float(d[both].max())}
+
+
+def phase_config1_chunk(nempc, rk, rg, card, params, lv_last):
+    """4v: BASELINE config 1 (the LV ODE, Euler, H=10, one NMPC.next)
+    against the CPU; phase 4's warm re-plan with batch_chunk=CHUNK against
+    the whole one; then the profiling CLI started in a subprocess (phase 5
+    runs beside it)."""
+    from pyneuralempc_tpu_torch.examples.lotka_volterra import (
+        CONFIG1_X0, make_config1_mpc)
+    out = {}
+    x0 = torch.tensor(CONFIG1_X0)
+    reset_counters(rk, rg)
+    t0 = time.perf_counter()
+    res = make_config1_mpc("cuda").next(x0.cuda())
+    torch.cuda.synchronize()
+    out["config1_s"] = time.perf_counter() - t0
+    n = counters(rk, rg)
+    ref = make_config1_mpc("cpu").next(x0)
+    du = float((res.u.cpu() - ref.u).abs().max())
+    dx = float((res.x.cpu() - ref.x).abs().max())
+    log(f"config 1 (LV ODE, Euler, H=10, NMPC.next): {out['config1_s']:.2f} "
+        f"s, converged {bool(res.converged)} in {int(res.iterations)} "
+        f"iterations (CPU: {bool(ref.converged)} in {int(ref.iterations)}),"
+        f" card vs CPU max |du| {du:.3e}, |dx| {dx:.3e} (limit "
+        f"{CARD_VS_CPU_DU}); fused launches {n['fused']} (staged "
+        f"{n['fused_staged']})")
+    if not (bool(res.converged) and bool(ref.converged)
+            and du <= CARD_VS_CPU_DU and dx <= CARD_VS_CPU_DU
+            and only_launched(n, "fused", "fused_staged")):
+        raise RuntimeError("config 1 failed its gates")
+    out.update(config1_du=du, config1_iterations=int(res.iterations))
+
+    # batch_chunk: phase 4's last carry re-planned whole and in slices.
+    # Each slice solves its members as the whole batch does, but f32 fixes
+    # some members' plans only loosely (phase 4's per-member check): the
+    # whole re-plan is repeated from starts moved by ±PERTURB, and a member
+    # it moves by more than DETERMINED (or whose iterations change) is held
+    # to CARD_VS_CPU_DU + SPREAD times its move
+    carry, _, xs = lv_last
+    mpc = make_controller(nempc, "cuda")
+    timed = {}
+    for chunk in (None, CHUNK):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed[chunk] = mpc.next_batch(xs, params=params, carry=carry,
+                                      batch_chunk=chunk)[1]
+        torch.cuda.synchronize()
+        out[f"chunk_{chunk}_ms"] = (time.perf_counter() - t0) * 1e3
+    whole, chunked = timed[None], timed[CHUNK]
+    moved = torch.zeros(B, device="cuda")
+    same_iters = torch.ones(B, dtype=torch.bool, device="cuda")
+    for eps in (PERTURB, -PERTURB):
+        alt = mpc.next_batch(xs + eps, params=params, carry=carry)[1]
+        moved = torch.maximum(moved, (alt.u - whole.u).abs().amax(dim=(1, 2)))
+        same_iters &= alt.iterations == whole.iterations
+    determined = (moved <= DETERMINED) & same_iters
+    d = (chunked.u - whole.u).abs().amax(dim=(1, 2))
+    limit = torch.where(determined, torch.full_like(moved, CARD_VS_CPU_DU),
+                        CARD_VS_CPU_DU + SPREAD * moved)
+    same = bool(torch.equal(chunked.converged, whole.converged))
+    log(f"batch_chunk={CHUNK} vs the whole B={B} warm re-plan: "
+        f"{out[f'chunk_{CHUNK}_ms']:.1f} against {out['chunk_None_ms']:.1f} "
+        f"ms; converged {int(chunked.converged.sum())} / "
+        f"{int(whole.converged.sum())}, masks equal: {same}; "
+        f"{int(determined.sum())}/{B} members fixed by f32, max |du| "
+        f"{float(d[determined].max()):.3e} on them (limit {CARD_VS_CPU_DU}),"
+        f" {float(d.max()):.3e} on all, every member within its limit: "
+        f"{bool((d <= limit).all())}")
+    if not (same and bool((d <= limit).all())
+            and int(determined.sum()) >= B // 2):
+        raise RuntimeError("the chunked re-plan differs from the whole one")
+    out.update(chunk_du=float(d[determined].max()),
+               chunk_fixed=int(determined.sum()))
+
+    # the profiling CLI, the card's default device, in its own process
+    env = dict(os.environ, PROF_BATCH=str(PROF_BATCH))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pyneuralempc_tpu_torch.utils.profiling"],
+        cwd=str(Path(__file__).resolve().parent), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    _PROCS.append(proc)
+    log(f"profiling CLI started (PROF_BATCH={PROF_BATCH}, pid {proc.pid})")
+    return out, proc
+
+
+def finish_profiling(proc, out):
+    """Wait for the profiling CLI: it must exit 0 and print its table."""
+    t0 = time.perf_counter()
+    stdout, stderr = proc.communicate(timeout=900)
+    log(f"profiling CLI exited {proc.returncode} (waited "
+        f"{time.perf_counter() - t0:.1f} s after phase 5):\n"
+        + stderr.strip() + ("\n" + stdout.strip() if stdout.strip() else ""))
+    if proc.returncode != 0 or "full warm step" not in stderr:
+        raise RuntimeError("the profiling CLI failed")
+    out["profiling_rc"] = proc.returncode
+    out["profiling_table"] = [line for line in stderr.splitlines()
+                              if line.strip().endswith(" ms")]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3814,6 +4348,10 @@ def main():
     try:
         run()
     finally:
+        for proc in _PROCS:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         for pool in _POOL:
             pool.shutdown(cancel_futures=True)
 
@@ -3852,61 +4390,93 @@ def run():
                 log(f"  ptxas: {line.strip()}")
     log(f"build phase {time.perf_counter() - t0:.1f} s")
 
-    # phases 3, 3b, 3c, 3d: kernels vs plain
+    # the CPU halves of 4s/4t's card-vs-CPU checks need nothing the card
+    # computes: the workers take them now, while the card runs phases 3-4r
+    lstm_cpu = lstm_cpu_runs()
+
+    # phases 3, 3b, 3c, 3d: kernels vs plain; every path here predates the
+    # out-of-envelope route, so none may take it (no_fallback)
     logs = {src: r.log for src, r in zip(sources, built)}
-    fused = phase_kernels(rk, logs)
-    bwd, fwd, pair_ms = phase_streamed(rk, logs[rk.STREAMED_SOURCE])
-    gbwd, gfwd, gpair_ms = phase_general(rk, rg, logs[rk.GENERAL_SOURCE])
-    gfused = phase_fused_general(rk, rg, logs[rk.GENERAL_FUSED_SOURCE])
+    fused = no_fallback(rk, "3", phase_kernels, rk, logs)
+    bwd, fwd, pair_ms = no_fallback(rk, "3b", phase_streamed, rk,
+                                    logs[rk.STREAMED_SOURCE])
+    gbwd, gfwd, gpair_ms = no_fallback(rk, "3c", phase_general, rk, rg,
+                                       logs[rk.GENERAL_SOURCE])
+    gfused = no_fallback(rk, "3d", phase_fused_general, rk, rg,
+                         logs[rk.GENERAL_FUSED_SOURCE])
     # phase 3e: the streamed instances at the new paths' stages
-    new_shapes = phase_streamed_new_shapes(rk, logs[rk.STREAMED_SOURCE])
+    new_shapes = no_fallback(rk, "3e", phase_streamed_new_shapes, rk,
+                             logs[rk.STREAMED_SOURCE])
     rnn_bwd, rnn_fwd, rnn_pair_ms = new_shapes["fleet_rnn"]
     cp_bwd, cp_fwd, _ = new_shapes["cartpole"]
-    w_bwd, w_fwd, w_pair_ms = phase_streamed_wide(
-        rk, logs[rk.STREAMED_SOURCE], library_forward(alt_built.path),
-        alt_built.log)
+    w_bwd, w_fwd, w_pair_ms = no_fallback(
+        rk, "3e wide", phase_streamed_wide, rk, logs[rk.STREAMED_SOURCE],
+        library_forward(alt_built.path), alt_built.log)
 
     # phases 4-4j, 6: main paths and their numbers
-    params, x0s, fused["launches"], mono = phase_main_path(nempc, rk, rg,
-                                                          card)
-    q_x0s, bwd["launches"], fwd["launches"] = phase_quadrotor(
-        nempc, rk, rg, card, pair_ms)
-    eq_x0s, gbwd["launches"], gfwd["launches"] = phase_fleet_eq(
-        nempc, rk, rg, card, gpair_ms)
-    gfused["launches"], gfused["closed_loop_launches"] = phase_budget(
-        nempc, rk, rg, card, params, x0s, gfused["call_ms"])
+    params, x0s, fused["launches"], mono, lv_last = no_fallback(
+        rk, "4", phase_main_path, nempc, rk, rg, card)
+    bf16_cpu = lv_runs("bf16", moved_starts(x0s[:LSTM_N_CPU]), params)
+    q_x0s, bwd["launches"], fwd["launches"] = no_fallback(
+        rk, "4b", phase_quadrotor, nempc, rk, rg, card, pair_ms)
+    eq_x0s, gbwd["launches"], gfwd["launches"] = no_fallback(
+        rk, "4c", phase_fleet_eq, nempc, rk, rg, card, gpair_ms)
+    gfused["launches"], gfused["closed_loop_launches"] = no_fallback(
+        rk, "4d", phase_budget, nempc, rk, rg, card, params, x0s,
+        gfused["call_ms"])
     (gd, rnn_params, z0s, rnn_bwd["launches"], rnn_fwd["launches"],
-     rnn_split) = phase_fleet_rnn(nempc, rk, rg, card, rnn_pair_ms)
-    cp_bwd["launches"], cp_fwd["launches"], cp_run = phase_cartpole(
-        nempc, rk, rg, card)
+     rnn_split) = no_fallback(rk, "4e", phase_fleet_rnn, nempc, rk, rg,
+                              card, rnn_pair_ms)
+    cp_bwd["launches"], cp_fwd["launches"], cp_run = no_fallback(
+        rk, "4f", phase_cartpole, nempc, rk, rg, card)
     (qm_model, qm_params, qm_x0s, bwd["quadrotor_mlp_launches"],
-     qm_split) = phase_quadrotor_mlp(nempc, rk, rg, card)
+     qm_split) = no_fallback(rk, "4g", phase_quadrotor_mlp, nempc, rk, rg,
+                             card)
     bwd["quadrotor_mlp_instance_launches"] = bwd["quadrotor_mlp_launches"]
     fwd["quadrotor_mlp_launches"] = bwd["quadrotor_mlp_launches"]
-    w_x0s, w_bwd["launches"], w_fwd["launches"], w_split = phase_fleet_wide(
-        nempc, rk, rg, card, w_pair_ms)
-    options = phase_options(nempc, rk, rg, params, x0s, mono)
-    imported = phase_import(nempc, rk, rg, params, x0s, mono)
+    w_x0s, w_bwd["launches"], w_fwd["launches"], w_split = no_fallback(
+        rk, "4h", phase_fleet_wide, nempc, rk, rg, card, w_pair_ms)
+    options = no_fallback(rk, "4i", phase_options, nempc, rk, rg, params,
+                          x0s, mono)
+    imported = no_fallback(rk, "4j", phase_import, nempc, rk, rg, params,
+                           x0s, mono)
     # phases 4k-4n: the dense backend, ALM, the IFT backward, record
-    dense = phase_dense(nempc, rk, rg, card, params, x0s, mono)
-    alm = phase_alm(nempc, rk, rg, card, params, x0s, mono)
-    diff = phase_diff(nempc, rk, rg, card, params, x0s)
+    dense = no_fallback(rk, "4k", phase_dense, nempc, rk, rg, card, params,
+                        x0s, mono)
+    alm = no_fallback(rk, "4l", phase_alm, nempc, rk, rg, card, params, x0s,
+                      mono)
+    diff = no_fallback(rk, "4m", phase_diff, nempc, rk, rg, card, params,
+                       x0s)
     fused["ift_forward_launches"] = diff["forward_launches"]
     fused["ift_backward_launches"] = diff["backward_launches"]
-    record = phase_record(nempc, rk, rg, card, params, x0s)
+    record = no_fallback(rk, "4n", phase_record, nempc, rk, rg, card,
+                         params, x0s)
     # phases 4o-4r: the parallel-in-time sweep, the long-horizon fleet, the
     # horizon-sharded sweep and solve, scenario sharding
-    pscan = phase_pscan_sweep(rk, rg, card)
-    long_horizon, *pscan_run = phase_long_horizon(nempc, rk, rg, card)
+    pscan = no_fallback(rk, "4o", phase_pscan_sweep, rk, rg, card)
+    long_horizon, *pscan_run = no_fallback(rk, "4p", phase_long_horizon,
+                                           nempc, rk, rg, card)
     fused["long_horizon_launches"] = long_horizon["riccati"]["fused_launches"]
-    horizon = phase_horizon(nempc, rk, rg, card, *pscan_run,
-                            pscan["pscan_call_ms"])
-    scenario = phase_scenario(nempc, rk, rg, card, params, x0s)
+    horizon = no_fallback(rk, "4q", phase_horizon, nempc, rk, rg, card,
+                          *pscan_run, pscan["pscan_call_ms"])
+    scenario = no_fallback(rk, "4r", phase_scenario, nempc, rk, rg, card,
+                           params, x0s)
+    # phases 4s-4v: the stacked-LSTM fleet through the plain fallback, the
+    # LSTM fleet through the run-time pair, bf16, config 1 and batch_chunk
+    lstm_bwd, lstm_fwd, lstm = phase_lstm(nempc, rk, rg, card, lstm_cpu)
+    stacked = phase_stacked_lstm(nempc, rk, rg, card, lstm_cpu)
+    bf16 = no_fallback(rk, "4u", phase_bf16, nempc, rk, rg, card, params,
+                       x0s, mono, bf16_cpu)
+    config1, prof = no_fallback(rk, "4v", phase_config1_chunk, nempc, rk, rg,
+                                card, params, lv_last)
 
-    # phase 5: card vs CPU
-    phase_card_vs_cpu(params, x0s, q_x0s, eq_x0s)
-    phase_card_vs_cpu_new(gd, rnn_params, z0s, qm_model, qm_params, qm_x0s)
-    phase_card_vs_cpu_wide_options(params, x0s, w_x0s)
+    # phase 5: card vs CPU (the profiling CLI runs meanwhile)
+    no_fallback(rk, "5", phase_card_vs_cpu, params, x0s, q_x0s, eq_x0s)
+    no_fallback(rk, "5 new paths", phase_card_vs_cpu_new, gd, rnn_params,
+                z0s, qm_model, qm_params, qm_x0s)
+    no_fallback(rk, "5 wide, options", phase_card_vs_cpu_wide_options,
+                params, x0s, w_x0s)
+    finish_profiling(prof, config1)
     log(f"paths: GRU fleet {json.dumps(rnn_split)}; cartpole "
         f"{json.dumps(cp_run)}; quadrotor MLP {json.dumps(qm_split)}; wide "
         f"fleet {json.dumps(w_split)}; solver options "
@@ -3917,9 +4487,12 @@ def run():
         f"horizon mesh {json.dumps(horizon)}; scenario sharding "
         f"{json.dumps(scenario)}")
 
+    for tag, phase in (("4s", stacked), ("4t", lstm), ("4u", bf16),
+                       ("4v", config1)):
+        print(json.dumps({"phase": tag, **phase}))
     print(json.dumps({"kernels": [fused, bwd, fwd, gbwd, gfwd, gfused,
                                   rnn_bwd, rnn_fwd, cp_bwd, cp_fwd, w_bwd,
-                                  w_fwd]}))
+                                  w_fwd, lstm_bwd, lstm_fwd]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

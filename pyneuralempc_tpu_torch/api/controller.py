@@ -384,7 +384,8 @@ class NMPC:
     # ---- batched API ----
 
     def next_batch(self, x0s, p=None, tvp=None, params=None,
-                   carry: Optional[WarmStart] = None
+                   carry: Optional[WarmStart] = None,
+                   batch_chunk: Optional[int] = None
                    ) -> Tuple[WarmStart, NMPCResult]:
         """Solve a batch of MPC problems as one batch-first solve.
 
@@ -394,7 +395,25 @@ class NMPC:
         different model per member).  Returns the batched warm-start carry
         (pass it back in for receding-horizon use) and a batched
         :class:`NMPCResult`.
+
+        ``batch_chunk``: solve the batch as B / batch_chunk slices of that
+        many members, one after another, and concatenate every field of the
+        carry and the result along the batch axis (the JAX package's
+        semantics: ``None`` or ``0``, or a chunk of at least B, is one whole
+        solve; a B that the chunk does not divide raises ``ValueError``).
+        The x0s, the carry and every per-member ``p``/``tvp``/``params``
+        are sliced; shared ones go to every slice whole.  Unlike the JAX
+        package, ``None`` never picks a chunk by itself: its automatic
+        choice works round a TPU's per-dispatch limit, which the card does
+        not have.
         """
+        B = torch.as_tensor(x0s).shape[0]
+        if batch_chunk and B > batch_chunk:
+            if B % batch_chunk:
+                raise ValueError(f"batch {B} not divisible by batch_chunk "
+                                 f"{batch_chunk}")
+            return self._chunked_batch(x0s, p, tvp, params, carry,
+                                       batch_chunk)
         rt = self._runtime(x0s, p, tvp, params)
         if carry is None:
             carry = self.cold_start(rt["x0"], p=rt["p"], tvp=rt["tvp"],
@@ -402,6 +421,25 @@ class NMPC:
                                     per_member=rt["_per_member"])
             return self._step(carry, rt)
         return self._warm_step(carry, rt)
+
+    def _chunked_batch(self, x0s, p, tvp, params, carry, chunk):
+        """``next_batch`` as B / chunk slices solved one after another, each
+        field of the carries and results concatenated along the batch."""
+        x0s = torch.as_tensor(x0s, device=self.device)
+        B = x0s.shape[0]
+        inputs = {"p": None if p is None else torch.as_tensor(p),
+                  "tvp": None if tvp is None else torch.as_tensor(tvp),
+                  "params": params}
+        per = per_member_keys(B, **inputs)
+        outs = []
+        for i in range(0, B, chunk):
+            sl = slice(i, i + chunk)
+            own = {k: (_index(v, sl) if k in per else v)
+                   for k, v in inputs.items()}
+            outs.append(self.next_batch(
+                x0s[sl], carry=None if carry is None else _pick(carry, sl),
+                **own))
+        return tuple(_concat([o[j] for o in outs]) for j in range(2))
 
     def next_multi_start(self, x0, n_starts: int = 8, noise: float = 0.3,
                          p=None, tvp=None, params=None,
@@ -482,12 +520,33 @@ def multi_start_winner(res: NMPCResult) -> torch.Tensor:
 
 def _index(v, idx):
     """``v[idx]`` for a tensor and for each tensor of a dict (the record
-    trace); anything else passes."""
+    trace) or a list (per-member params); anything else passes."""
     if isinstance(v, torch.Tensor):
         return v[idx]
     if isinstance(v, dict):
         return {k: _index(t, idx) for k, t in v.items()}
+    if isinstance(v, list):
+        return [_index(t, idx) for t in v]
     return v
+
+
+def _cat(vs):
+    """The slices of one field joined along the batch axis: tensors (and
+    the tensors of a params list or a record trace dict) concatenated;
+    anything else (None, a shared scalar) is the first slice's."""
+    v = vs[0]
+    if isinstance(v, torch.Tensor) and v.dim():
+        return torch.cat(vs)
+    if isinstance(v, dict):
+        return {k: _cat([d[k] for d in vs]) for k in v}
+    if isinstance(v, list):
+        return [_cat([d[i] for d in vs]) for i in range(len(v))]
+    return v
+
+
+def _concat(tups):
+    """Field by field, the slices of a batched NamedTuple joined."""
+    return type(tups[0])(*[_cat(list(vs)) for vs in zip(*tups)])
 
 
 def _pick(tup, idx):

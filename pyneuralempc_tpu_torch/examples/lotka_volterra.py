@@ -78,6 +78,20 @@ def bench_cost(x, u):
     return 1.1 * torch.sum(u) + REG * torch.sum(u * u)
 
 
+# BASELINE config 1: the known ODE as the model, Euler, H=10, one solve
+# from the reference example's start (prey 50, predators 5).
+CONFIG1_X0 = (50.0 / 30 - 1, 5.0 / 30 - 1)
+
+
+def make_config1_mpc(device="cuda") -> NMPC:
+    """BASELINE config 1's NMPC: the normalised LV ODE itself as the
+    model, the example's feed cost 1.1·Σu and box, Euler, H=10, DT=0.1;
+    its one solve is ``next(torch.tensor(CONFIG1_X0))``."""
+    return NMPC(torch_dynamics(normalized_lv(), x_dim=2, u_dim=1),
+                lambda x, u: torch.sum(u * 1.1), [Box.make(**BENCH_BOX)],
+                H=10, DT=0.1, integrator="euler", device=device)
+
+
 def make_budget_mpc(model, device="cuda", H: int = 20,
                     DT: float = 0.1) -> NMPC:
     """The budgeted LV fleet's NMPC for ``model`` (the surrogate or the

@@ -57,8 +57,10 @@ Beside them:
   hold the two designs of each against each other.  The solver never
   calls them.
 * :func:`riccati_sweep_general` — the dispatch the solver calls, on
-  :func:`~.riccati_kernel.kernel_plan`.  It never drops a CUDA tensor to a
-  plain version, and a kernel that fails to launch raises.
+  :func:`~.riccati_kernel.kernel_plan`.  A CUDA tensor takes its kernel
+  wherever the plan names one; only a shape outside every general kernel's
+  envelope runs the plain version on the card, as a CUDA graph replay (one
+  warning a shape).  A kernel that fails to build or launch raises.
 
 ``FUSED_LAUNCHES`` counts the fused kernels' launches, of which
 ``FUSED_STAGED_LAUNCHES`` took the staged kernel and
@@ -91,7 +93,7 @@ from .riccati_kernel import (GENERAL_FUSED_SOURCE, GENERAL_MAX_R,
                              STREAMED_MAX_NX, _GENERAL_BACKWARD_INSTANCES,
                              _GENERAL_FORWARD_INSTANCES, _GENERAL_INSTANCES,
                              _aligned_mask, _check, _chol_local_retry,
-                             _entry, _general_fits, _stream, backward_bytes,
+                             _entry, _general_fits, cho_solve, _stream, backward_bytes,
                              backward_flops, forward_bytes, forward_flops,
                              gain_width, kernel_plan, staged_block_problems,
                              sweep_bytes, sweep_flops)
@@ -168,16 +170,16 @@ def _backward(A, B, G, M, mx, mu, c, delta, delta_c, E, F, h):
         qu = Pc_p @ B_t + c_t @ Mxu + mu[:, t]           # (Bn, R, nu)
 
         L, ok_t = _chol_local_retry(Quu, eye_u)
-        K = -torch.cholesky_solve(Qux, L)                # (Bn, nu, nx)
-        k = -torch.cholesky_solve(qu.mT, L)              # (Bn, nu, R)
+        K = -cho_solve(Qux, L)                           # (Bn, nu, nx)
+        k = -cho_solve(qu.mT, L)                         # (Bn, nu, R)
         if r:
             # the stage QP's equality rows: Schur complement on Quu's factor
             E_t, F_t = E[:, t], F[:, t]
-            Y = torch.cholesky_solve(E_t.mT, L)          # (Bn, nu, r)
+            Y = cho_solve(E_t.mT, L)                     # (Bn, nu, r)
             S = E_t @ Y + dc * eye_r
             Ls, ok_s = _chol_local_retry(0.5 * (S + S.mT), eye_r)
-            Knu = torch.cholesky_solve(E_t @ K + F_t, Ls)            # (r, nx)
-            knu = torch.cholesky_solve(E_t @ k - h[:, t].mT, Ls)     # (r, R)
+            Knu = cho_solve(E_t @ K + F_t, Ls)                       # (r, nx)
+            knu = cho_solve(E_t @ k - h[:, t].mT, Ls)                # (r, R)
             K = K - Y @ Knu
             k = k - Y @ knu
             ok_t = ok_t & ok_s
@@ -249,13 +251,17 @@ def riccati_general_forward_plain(A, B, c, Jx, gains):
     return _forward(A, B, c, Jx, gains)
 
 
+def _sweep(A, B, G, M, mx, mu, c, delta, delta_c, E, F, h, Jx):
+    gains, ok = _backward(A, B, G, M, mx, mu, c, delta, delta_c, E, F, h)
+    return _forward(A, B, c, Jx, gains) + (ok,)
+
+
 def riccati_sweep_general_plain(A, B, G, M, mx, mu, c, delta, delta_c, E, F,
                                 h, Jx):
     """Plain general sweep: :func:`riccati_general_backward_plain` then
     :func:`riccati_general_forward_plain`."""
     _rk.PLAIN_CALLS += 1
-    gains, ok = _backward(A, B, G, M, mx, mu, c, delta, delta_c, E, F, h)
-    return _forward(A, B, c, Jx, gains) + (ok,)
+    return _sweep(A, B, G, M, mx, mu, c, delta, delta_c, E, F, h, Jx)
 
 
 # ---- CUDA wrappers ----
@@ -513,21 +519,44 @@ def riccati_sweep_general_fused_direct_cuda(A, B, G, M, mx, mu, c, delta,
                                 F, h, Jx), return_gains)
 
 
-def riccati_sweep_general(A, B, G, M, mx, mu, c, delta, delta_c, E, F, h,
-                          Jx):
+def _no_equality_rows(A, B, c):
+    """E, F, h, Jx of a sweep with no stage equality rows: (B, H, 0, nu),
+    (B, H, 0, nx), (B, H, R, 0), (B, H, 0, nx)."""
+    Bn, H, R, nx = c.shape
+    nu = B.shape[-1]
+    return (A.new_zeros((Bn, H, 0, nu)), A.new_zeros((Bn, H, 0, nx)),
+            A.new_zeros((Bn, H, R, 0)), A.new_zeros((Bn, H, 0, nx)))
+
+
+def riccati_sweep_general(A, B, G, M, mx, mu, c, delta, delta_c=1e-8,
+                          E=None, F=None, h=None, Jx=None):
     """Dispatch on :func:`~.riccati_kernel.kernel_plan`: CPU -> the plain
     version; CUDA -> the fused general kernel for the shapes it
-    instantiates, the general pair for every other (which takes
-    (R, r) = (1, 0) too); anything else raises."""
+    instantiates, the general pair for every other in its envelope (which
+    takes (R, r) = (1, 0) too), and outside it (nx > 32, nu > 16, R > 65,
+    r > nu) the plain version on the card as a CUDA graph replay
+    (``riccati_kernel.replay``), counted in
+    ``riccati_kernel.FALLBACK_CALLS`` with one warning a shape; anything
+    else raises.
+
+    The JAX package's defaults: ``delta_c`` 1e-8 (a float or a (B,)
+    tensor), and ``E=None`` for no stage equality rows (r = 0; F, h and Jx
+    are then ignored and built empty).  R, the right-hand sides, is c's
+    third axis: 1 where there is no border."""
+    if E is None or E.shape[-2] == 0:
+        E, F, h, Jx = _no_equality_rows(A, B, c)
+    if not isinstance(delta_c, torch.Tensor) or delta_c.dim() == 0:
+        delta_c = torch.full_like(delta, float(delta_c))
     Bn, H, R, nx, nu, r = _dims(c, E)
     path = kernel_plan(H, nx, nu, c.device, R=R, r=r)
+    args = (A, B, G, M, mx, mu, c, delta, delta_c, E, F, h, Jx)
+    if path["path"] == "plain_fallback":
+        return _rk.fallback("general", path, _sweep, args,
+                            (Bn, H, nx, nu, R, r))
     if path["path"] == "plain":
-        return riccati_sweep_general_plain(A, B, G, M, mx, mu, c, delta,
-                                           delta_c, E, F, h, Jx)
+        return riccati_sweep_general_plain(*args)
     if path["path"] == "cuda_fused_general":
-        return riccati_sweep_general_fused_cuda(A, B, G, M, mx, mu, c, delta,
-                                                delta_c, E, F, h, Jx)
+        return riccati_sweep_general_fused_cuda(*args)
     if path["path"] == "unsupported":
         raise NotImplementedError(path["reason"])
-    return riccati_sweep_general_streamed_cuda(A, B, G, M, mx, mu, c, delta,
-                                               delta_c, E, F, h, Jx)
+    return riccati_sweep_general_streamed_cuda(*args)

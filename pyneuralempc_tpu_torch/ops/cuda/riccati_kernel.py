@@ -46,7 +46,12 @@ Beside them:
   horizon, so that ``chip_smoke.py`` and the card tests can hold the two
   designs of each against each other.  The solver never calls them.
 * :func:`riccati_sweep` — the dispatch the solver calls, on
-  :func:`kernel_plan`.  It never drops a CUDA tensor to a plain version.
+  :func:`kernel_plan`.  A CUDA tensor takes its kernel wherever the plan
+  names one; only a shape outside every kernel's envelope (the plan's
+  ``"plain_fallback"``: nx > 32 or nu > 16) runs the plain version on the
+  card, captured once a shape as a CUDA graph and replayed
+  (:func:`replay`), with one warning a shape, as the JAX package's sweep
+  takes its scan there.  A kernel that fails to build or launch raises.
 
 ``LAUNCHES`` counts fused launches (``STAGED_LAUNCHES`` those of the
 staged kernel, ``DIRECT_LAUNCHES`` those of ``csrc/riccati_sweep.cu``),
@@ -55,9 +60,11 @@ staged kernel, ``DIRECT_LAUNCHES`` those of ``csrc/riccati_sweep.cu``),
 launches of each that took the compile-time instance;
 ``BACKWARD_RUNTIME_LAUNCHES`` and ``FORWARD_RUNTIME_LAUNCHES`` those of
 :func:`riccati_backward_runtime_cuda` and
-:func:`riccati_forward_runtime_cuda`), and ``PLAIN_CALLS`` calls of a
-plain version (a whole plain sweep counts once), so a run can show which
-path it took.
+:func:`riccati_forward_runtime_cuda`), ``PLAIN_CALLS`` calls of a
+plain version (a whole plain sweep counts once), and ``FALLBACK_CALLS``
+the dispatching calls (:func:`riccati_sweep` and
+:func:`.riccati_general.riccati_sweep_general`) that the plan sent to a
+plain version on the card, so a run can show which path it took.
 
 All functions take batch-first tensors: A (B,H,nx,nx), B (B,H,nx,nu),
 G and M (B,H,ns,ns) symmetric, mx (B,H,nx), mu (B,H,nu), c (B,H,nx),
@@ -70,6 +77,7 @@ row-major).
 from __future__ import annotations
 
 import ctypes
+import warnings
 
 import torch
 
@@ -158,6 +166,9 @@ FORWARD_LAUNCHES = 0    # streamed forward launches by riccati_forward_cuda
 FORWARD_INSTANCE_LAUNCHES = 0    # of them, the compile-time instance's
 FORWARD_RUNTIME_LAUNCHES = 0     # riccati_forward_runtime_cuda's
 PLAIN_CALLS = 0         # calls of a plain version
+FALLBACK_CALLS = 0      # dispatches that ran a plain version on the card
+
+_WARNED = set()         # (sweep, H, nx, nu, R, r) whose fallback warned
 
 SOURCE = "riccati_sweep.cu"
 STREAMED_SOURCE = "riccati_streamed.cu"
@@ -305,15 +316,31 @@ def backward_fixed_smem_bytes(nx: int, nu: int, R: int, r: int) -> int:
                 + _fixed_scratch_floats(nx, nu, R, r))
 
 
+def _caps_exceeded(nx: int, nu: int, R: int = 1, r: int = 0) -> list:
+    """The envelope caps a shape exceeds, as the JAX package's
+    ``kernel_plan`` names them ("nu=17 > 16")."""
+    caps = []
+    if nx > STREAMED_MAX_NX:
+        caps.append(f"nx={nx} > {STREAMED_MAX_NX}")
+    if nu > STREAMED_MAX_NU:
+        caps.append(f"nu={nu} > {STREAMED_MAX_NU}")
+    if R > GENERAL_MAX_R:
+        caps.append(f"R={R} > {GENERAL_MAX_R}")
+    if r > nu:
+        caps.append(f"r={r} > nu={nu}")
+    return caps
+
+
 def kernel_plan(H: int, nx: int, nu: int, device, R: int = 1,
                 r: int = 0) -> dict:
     """Which sweep a problem of these dims takes on ``device``, and why.
 
     A pure function of (H, nx, nu, device type, R, r): ``{"path": "plain" |
     "cuda_fused" | "cuda_streamed" | "cuda_fused_general" |
-    "cuda_streamed_general" | "unsupported", "reason": str}``.  R is the
-    general sweep's number of right-hand sides (1 + trajectory-level border
-    rows) and r its stage equality rows; (R, r) = (1, 0) is the plain sweep.
+    "cuda_streamed_general" | "plain_fallback" | "unsupported", "reason":
+    str}``.  R is the general sweep's number of right-hand sides (1 +
+    trajectory-level border rows) and r its stage equality rows; (R, r) =
+    (1, 0) is the plain sweep.
     A general shape that csrc/riccati_general_fused.cu instantiates takes
     the fused general kernel before the streamed general pair is asked; its
     plan also names the kernel (``"kernel"``: STAGED_KERNEL, or
@@ -322,13 +349,20 @@ def kernel_plan(H: int, nx: int, nu: int, device, R: int = 1,
     direct kernel).  So does the fused plain plan: STAGED_KERNEL (at
     <nx, nu, 1, 0>), or SWEEP_KERNEL (csrc/riccati_sweep.cu) at a horizon
     where not one problem fits.
+    A CUDA shape (H >= 1) outside every kernel's envelope plans
+    ``"plain_fallback"``, its reason naming each cap it exceeds: the
+    dispatch runs the plain PyTorch version on the card, as the JAX
+    package's plan sends such shapes to its scan.  ``"unsupported"`` is
+    left for H < 1 and devices that are neither the CPU nor CUDA.
     """
     kind = torch.device(device).type
     if kind == "cpu":
         return {"path": "plain",
                 "reason": "CPU tensors take the plain PyTorch sweep"}
+    on_card = kind == "cuda" and H >= 1
+    caps = "; ".join(_caps_exceeded(nx, nu, R, r)) or "outside the envelope"
     if (R, r) != (1, 0):
-        if kind == "cuda" and H >= 1 and (nx, nu, R, r) in _GENERAL_INSTANCES:
+        if on_card and (nx, nu, R, r) in _GENERAL_INSTANCES:
             P = staged_block_problems(H, nx, nu, R, r)
             how = (f"{P} problems a block in shared memory" if P else
                    f"not one problem's {H} stages fit in shared memory")
@@ -337,17 +371,22 @@ def kernel_plan(H: int, nx: int, nu: int, device, R: int = 1,
                     "block_problems": P,
                     "reason": f"csrc/{GENERAL_FUSED_SOURCE} instantiates "
                               f"<{nx}, {nu}, {R}, {r}>; {how}"}
-        if kind == "cuda" and H >= 1 and _general_fits(nx, nu, R, r):
+        if on_card and _general_fits(nx, nu, R, r):
             return {"path": "cuda_streamed_general",
                     "reason": f"csrc/{GENERAL_SOURCE} takes nx={nx}, "
                               f"nu={nu}, R={R}, r={r} at run time"}
+        envelope = (f"csrc/{GENERAL_SOURCE} takes nx <= {STREAMED_MAX_NX}, "
+                    f"nu <= {STREAMED_MAX_NU}, 1 <= R <= {GENERAL_MAX_R}, "
+                    "r <= nu")
+        if on_card:
+            return {"path": "plain_fallback",
+                    "reason": (f"no CUDA general sweep for H={H}, nx={nx}, "
+                               f"nu={nu}, R={R}, r={r} ({caps}): {envelope}; "
+                               "the plain PyTorch sweep runs on the card")}
         return {"path": "unsupported",
                 "reason": (f"no CUDA general sweep for H={H}, nx={nx}, "
-                           f"nu={nu}, R={R}, r={r} on {kind}: "
-                           f"csrc/{GENERAL_SOURCE} takes nx <= "
-                           f"{STREAMED_MAX_NX}, nu <= {STREAMED_MAX_NU}, "
-                           f"1 <= R <= {GENERAL_MAX_R}, r <= nu")}
-    if kind == "cuda" and H >= 1:
+                           f"nu={nu}, R={R}, r={r} on {kind}: {envelope}")}
+    if on_card:
         if (nx, nu) in _INSTANCES:
             P = staged_block_problems(H, nx, nu, 1, 0)
             how = (f"csrc/{GENERAL_FUSED_SOURCE}'s staged kernel at <{nx}, "
@@ -366,13 +405,43 @@ def kernel_plan(H: int, nx: int, nu: int, device, R: int = 1,
                     "forward_kernel": forward_kernel(nx, nu),
                     "reason": f"csrc/{STREAMED_SOURCE} takes nx={nx}, "
                               f"nu={nu} at run time"}
+    envelope = (f"csrc/{SOURCE} instantiates {sorted(_INSTANCES)} and "
+                f"csrc/{STREAMED_SOURCE} takes nx <= {STREAMED_MAX_NX}, nu <= "
+                f"{STREAMED_MAX_NU} (the reference kernel's own nu cap)")
+    if on_card:
+        return {"path": "plain_fallback",
+                "reason": (f"no CUDA sweep for H={H}, nx={nx}, nu={nu} "
+                           f"({caps}): {envelope}; the plain PyTorch sweep "
+                           "runs on the card")}
     return {"path": "unsupported",
             "reason": (f"no CUDA sweep for H={H}, nx={nx}, nu={nu} on "
-                       f"{kind}: csrc/{SOURCE} instantiates "
-                       f"{sorted(_INSTANCES)} and csrc/{STREAMED_SOURCE} "
-                       f"takes nx <= {STREAMED_MAX_NX}, nu <= "
-                       f"{STREAMED_MAX_NU} (the reference kernel's own nu "
-                       "cap)")}
+                       f"{kind}: {envelope}")}
+
+
+def fallback(sweep: str, plan: dict, fn, args, dims) -> tuple:
+    """Run ``fn(*args)``, the plain ``sweep`` ("plain" or "general") that
+    ``plan`` (``"plain_fallback"``) sends off the kernels: one CUDA graph
+    replay on the card (:func:`replay`), ``fn`` itself on the CPU.  It
+    counts one plain call and one fallback, and warns the first time a
+    shape ``dims`` = (B, H, nx, nu, R, r) takes it (the JAX package's
+    ``_warn_out_of_envelope``)."""
+    global FALLBACK_CALLS, PLAIN_CALLS
+    FALLBACK_CALLS += 1
+    PLAIN_CALLS += 1
+    Bn, H, nx, nu, R, r = dims
+    key = (sweep, H, nx, nu, R, r)
+    if key not in _WARNED:
+        _WARNED.add(key)
+        warnings.warn(
+            f"Riccati {sweep} sweep (H={H}, nx={nx}, nu={nu}, R={R}, r={r}, "
+            f"batch={Bn}) is outside every CUDA kernel's envelope "
+            f"({plan['reason']}); its plain PyTorch version runs on the "
+            "card, as one CUDA graph captured at the shape's first call "
+            "(see pyneuralempc_tpu_torch.ops.cuda.riccati_kernel."
+            "kernel_plan)", stacklevel=3)
+    if args[0].device.type == "cuda":
+        return replay(fn, args)
+    return fn(*args)
 
 
 # ---- bytes and operations (the least the card must do) ----
@@ -499,6 +568,14 @@ def _chol_local_retry(Q, eye):
     return torch.where(ok_t[:, None, None], L_sel, eye), ok_t
 
 
+def cho_solve(X, L):
+    """L Lᵀ Z = X for Z, as two batched triangular solves (what
+    ``torch.cholesky_solve`` computes; on the card it goes through MAGMA,
+    which a CUDA graph cannot capture, and these through cuBLAS)."""
+    Y = torch.linalg.solve_triangular(L, X, upper=False)
+    return torch.linalg.solve_triangular(L.mT, Y, upper=True)
+
+
 def _mv(Mat, v):
     return (Mat @ v.unsqueeze(-1)).squeeze(-1)
 
@@ -530,8 +607,8 @@ def _backward(A, B, G, M, mx, mu, c, delta):
         qu = _mv(B_t.mT, Pc_p) + _mv(Mxu.mT, c_t) + mu[:, t]
 
         L, ok_t = _chol_local_retry(Quu, eye_u)
-        K = -torch.cholesky_solve(Qux, L)
-        k = -torch.cholesky_solve(qu.unsqueeze(-1), L).squeeze(-1)
+        K = -cho_solve(Qux, L)
+        k = -cho_solve(qu.unsqueeze(-1), L).squeeze(-1)
         okc = okc & ok_t
         P_new = Qxx + Qux.mT @ K
         P = 0.5 * (P_new + P_new.mT)
@@ -581,13 +658,60 @@ def riccati_forward_plain(A, B, c, gains):
     return _forward(A, B, c, gains)
 
 
+def _sweep(A, B, G, M, mx, mu, c, delta):
+    gains, ok = _backward(A, B, G, M, mx, mu, c, delta)
+    return _forward(A, B, c, gains) + (ok,)
+
+
 def riccati_sweep_plain(A, B, G, M, mx, mu, c, delta):
     """Plain sweep: :func:`riccati_backward_plain` then
     :func:`riccati_forward_plain`."""
     global PLAIN_CALLS
     PLAIN_CALLS += 1
-    gains, ok = _backward(A, B, G, M, mx, mu, c, delta)
-    return _forward(A, B, c, gains) + (ok,)
+    return _sweep(A, B, G, M, mx, mu, c, delta)
+
+
+# CUDA graphs of plain sweeps that the fallback replays, keyed by function,
+# device and input shapes and dtypes, the most recently used last; at most
+# GRAPHS_KEPT (a graph keeps its sweep's intermediates: ~3 GB at B=1024,
+# H=100, (34, 1))
+_GRAPHS = {}
+GRAPHS_KEPT = 4
+
+
+def replay(fn, args):
+    """``fn(*args)`` (a plain sweep, on CUDA tensors) as one CUDA graph,
+    captured at the first call of each input shape and replayed after.
+    A plain sweep is ~120 small launches a stage, each some 20 µs of the
+    host's time, where the card is busy for ~2; a replay issues them at
+    once.  The same kernels run in the same order, so the outputs are
+    ``fn``'s bit for bit."""
+    dev = args[0].device
+    key = (fn, dev) + tuple((tuple(a.shape), a.dtype) for a in args)
+    entry = _GRAPHS.pop(key, None)
+    if entry is None:
+        static = [a.clone() for a in args]
+        # no autograd graph: a kernel's outputs carry none either
+        with torch.cuda.device(dev), torch.no_grad():
+            # one call outside the capture, so that cuBLAS and cuSOLVER set
+            # up their workspaces first
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn(*static)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = fn(*static)
+        entry = (graph, static, out)
+    _GRAPHS[key] = entry
+    while len(_GRAPHS) > GRAPHS_KEPT:
+        _GRAPHS.pop(next(iter(_GRAPHS)))
+    graph, static, out = entry
+    for s, a in zip(static, args):
+        s.copy_(a)
+    graph.replay()
+    return tuple(o.clone() for o in out)
 
 
 # ---- CUDA wrappers ----
@@ -833,10 +957,15 @@ def riccati_sweep_streamed_cuda(A, B, G, M, mx, mu, c, delta):
 
 def riccati_sweep(A, B, G, M, mx, mu, c, delta):
     """Dispatch on :func:`kernel_plan`: CPU -> plain version, CUDA -> the
-    fused or the streamed kernels, anything else raises."""
+    fused or the streamed kernels, or, outside every kernel's envelope, the
+    plain version on the card as a CUDA graph replay (counted in
+    ``FALLBACK_CALLS``, one warning a shape); anything else raises."""
     Bn, H, nx = c.shape
     nu = B.shape[-1]
     plan = kernel_plan(H, nx, nu, c.device)
+    if plan["path"] == "plain_fallback":
+        return fallback("plain", plan, _sweep, (A, B, G, M, mx, mu, c, delta),
+                        (Bn, H, nx, nu, 1, 0))
     if plan["path"] == "plain":
         return riccati_sweep_plain(A, B, G, M, mx, mu, c, delta)
     if plan["path"] == "cuda_fused":

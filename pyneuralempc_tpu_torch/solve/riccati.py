@@ -50,13 +50,15 @@ from ..core.structure import SeparableObjective
 from ..core.transcription import NLP
 from ..models.base import _call_user_fn
 from ..ops.cuda.riccati_general import riccati_sweep_general
+from ..ops.cuda.riccati_general import (
+    riccati_sweep_general_plain as riccati_sweep_general_ref)
 from ..ops.cuda.riccati_kernel import riccati_sweep
 from ..ops.cuda.riccati_kernel import riccati_sweep_plain as riccati_sweep_ref
 from ..ops.integrators import step_fn
 from ..ops.rollout import shift_states
 
 __all__ = ["riccati_sweep", "riccati_sweep_ref", "riccati_sweep_general",
-           "eligible", "make_riccati_direction"]
+           "riccati_sweep_general_ref", "eligible", "make_riccati_direction"]
 
 # Global regularisation ladder: a member whose sweep fails at δ_i is
 # re-swept at δ_{i+1}, per problem.

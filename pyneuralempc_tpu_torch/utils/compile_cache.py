@@ -16,10 +16,16 @@ from pathlib import Path
 from ..ops.cuda import build
 
 
-def enable_compilation_cache(cache_dir: str | None = None) -> str:
+def enable_compilation_cache(cache_dir: str | None = None,
+                             min_compile_time_secs: float = 1.0) -> str:
     """Keep the kernels' builds in ``cache_dir`` (default
     ``$NEMPC_COMPILE_CACHE``, else the package's ``_build/``) and return
-    the directory.  Libraries loaded already stay loaded."""
+    the directory.  Libraries loaded already stay loaded.
+
+    ``min_compile_time_secs`` is accepted for the JAX package's signature
+    and ignored: XLA persists only the compiles slower than it, while
+    every nvcc build is kept, keyed by the hash of its source, flags and
+    headers, however long it took."""
     cache_dir = (cache_dir or os.environ.get("NEMPC_COMPILE_CACHE")
                  or str(build.BUILD_DIR))
     build.BUILD_DIR = Path(cache_dir)

@@ -9,6 +9,14 @@ Riccati backend, the Hessian and Jacobian of the dense one), the KKT solve
 on those blocks (the sweep kernels on the card), the merit line-search fan,
 and a whole warm re-plan.  It shows where a warm re-plan's milliseconds go
 before one reaches for a kernel.
+
+Run as a script, it profiles the JAX package's manual case, the LV MLP
+fleet (2x32 tanh, random weights from seed 0, RK4, feed cost 1.1·Σu, the
+bench box, DT=0.1) at ``$PROF_BATCH`` members (default 1024) and horizon
+``$PROF_H`` (default 20), on the card (``--cpu``: on the CPU), and prints
+the table to stderr:
+
+    python -m pyneuralempc_tpu_torch.utils.profiling [--cpu]
 """
 
 from __future__ import annotations
@@ -85,3 +93,52 @@ def profile_solver(mpc, x0s, params=None, iters: int = 10) -> Dict:
         lambda: mpc.next_batch(x0s, params=params, carry=carry),
         iters=iters)["p50"]
     return out
+
+
+def main(argv=None) -> Dict:
+    """The manual profiling CLI (the JAX package's ``main``): the medians
+    of :func:`profile_solver` on the LV MLP fleet, printed to stderr and
+    returned.  Without ``--cpu`` it needs a CUDA device and fails where
+    there is none."""
+    import argparse
+    import os
+    import sys
+
+    import numpy as np
+
+    from ..api.controller import NMPC
+    from ..core.problem import Box, StageCost
+    from ..models.mlp import MLPDynamics
+
+    ap = argparse.ArgumentParser(description=main.__doc__)
+    ap.add_argument("--cpu", action="store_true", help="run on the CPU")
+    args = ap.parse_args(argv)
+    device = "cpu" if args.cpu else "cuda"
+    if device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("profiling: no CUDA device (pass --cpu to profile "
+                         "on the CPU)")
+    B = int(os.environ.get("PROF_BATCH", 1024))
+    H = int(os.environ.get("PROF_H", 20))
+    surrogate = MLPDynamics.make(x_dim=2, u_dim=1, hidden=[32, 32])
+    params = surrogate.init_params(torch.Generator().manual_seed(0),
+                                   device=device)
+    cost = StageCost(stage=lambda x, u: 1.1 * torch.sum(u))
+    box = Box.make(states_constraint=[[-1.0, 1.0], [-1.0, 0.35]],
+                   control_constraint=[[0.0, 1.2]])
+    mpc = NMPC(surrogate, cost, [box], H=H, DT=0.1, integrator="rk4",
+               device=device)
+    rng = np.random.default_rng(0)
+    x0s = torch.as_tensor(np.stack([rng.uniform(0.2, 0.8, B),
+                                    rng.uniform(-0.9, -0.3, B)], axis=1),
+                          dtype=torch.float32, device=device)
+    prof = profile_solver(mpc, x0s, params=params)
+    where = (f"{torch.cuda.get_device_name(0)}" if device == "cuda"
+             else "CPU")
+    print(f"profile_solver, B={B}, H={H}, on {where}:", file=sys.stderr)
+    for k, v in prof.items():
+        print(f"{k:28s} {v * 1e3:8.2f} ms", file=sys.stderr)
+    return prof
+
+
+if __name__ == "__main__":
+    main()

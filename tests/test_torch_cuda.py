@@ -12,6 +12,8 @@ without the JAX package's test configuration:
     python -m pytest --noconftest -o addopts="" tests/test_torch_cuda.py -q
 """
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -186,10 +188,22 @@ def test_dispatch_and_checks_on_card():
     assert (rk.LAUNCHES, rk.PLAIN_CALLS) == (launches + 1, plain)
     rk.riccati_sweep(*_sweep_inputs(8, 3, nx=4, nu=2))  # (4, 2): the pair
     assert (rk.BACKWARD_LAUNCHES, rk.FORWARD_LAUNCHES) == (bwd + 1, fwd + 1)
+    # nu=17 is outside every kernel: the dispatch runs the plain sweep on
+    # the card, warns once and counts the fallback; the kernel entry raises
+    wide = _sweep_inputs(8, 3, nx=4, nu=17)
+    rk._WARNED.discard(("plain", 3, 4, 17, 1, 0))
+    fallback = rk.FALLBACK_CALLS
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = rk.riccati_sweep(*wide)
+        rk.riccati_sweep(*wide)
+    ref = rk.riccati_sweep_plain(*wide)
+    assert sum("nx=4, nu=17" in str(w.message) for w in caught) == 1
+    assert rk.FALLBACK_CALLS == fallback + 2
+    assert rk.PLAIN_CALLS == plain + 3     # two fallbacks, one reference
+    assert all(torch.equal(o, r) for o, r in zip(out, ref))
     with pytest.raises(NotImplementedError, match="nx=4, nu=17"):
-        rk.riccati_sweep(*_sweep_inputs(8, 3, nx=4, nu=17))
-    with pytest.raises(NotImplementedError, match="nx=4, nu=17"):
-        rk.riccati_backward_cuda(*_sweep_inputs(8, 3, nx=4, nu=17))
+        rk.riccati_backward_cuda(*wide)
     with pytest.raises(NotImplementedError, match="nx=4, nu=2"):
         rk.riccati_sweep_cuda(*_sweep_inputs(8, 3, nx=4, nu=2))
     with pytest.raises(TypeError, match="float32"):
@@ -203,7 +217,7 @@ def test_dispatch_and_checks_on_card():
     with pytest.raises(ValueError, match="gains"):
         rk.riccati_forward_cuda(args[0], args[1], args[6],
                                 torch.zeros(64, 5, 3, device="cuda"))
-    assert rk.LAUNCHES == launches + 1 and rk.PLAIN_CALLS == plain
+    assert rk.LAUNCHES == launches + 1 and rk.PLAIN_CALLS == plain + 3
     assert (rk.BACKWARD_LAUNCHES, rk.FORWARD_LAUNCHES) == (bwd + 1, fwd + 1)
 
 
@@ -377,10 +391,13 @@ def test_general_pair_at_one_rhs_matches_streamed_pair():
 
 
 def test_general_refusals_on_card():
-    """Shapes outside the kernels' range and malformed tensors raise on CUDA
-    tensors, and a refused call launches nothing."""
+    """Shapes outside the kernels' range: the dispatch runs the plain
+    general sweep on the card (its outputs bit for bit, NaN where the plain
+    version's are, one plain call each), the kernel entry raises; malformed
+    tensors raise on CUDA tensors, and a refused call launches nothing."""
     _card()
-    counts = (rg.BACKWARD_LAUNCHES, rg.FORWARD_LAUNCHES, rk.PLAIN_CALLS)
+    counts = (rg.BACKWARD_LAUNCHES, rg.FORWARD_LAUNCHES)
+    plain = rk.PLAIN_CALLS
     for shape in ((4, 3, 6, 2, 2, 2), (4, 3, 6, 2, 66, 1)):
         B, H, nx, nu, R, r = shape
         rng = np.random.default_rng(0)
@@ -390,8 +407,12 @@ def test_general_refusals_on_card():
             (B, H, nx + nu, nx + nu), (B, H, R, nx), (B, H, R, nu),
             (B, H, R, nx), (B,), (B,), (B, H, r + 1, nu), (B, H, r + 1, nx),
             (B, H, R, r + 1), (B, H, r + 1, nx))]
-        with pytest.raises(NotImplementedError, match="r <= nu"):
-            rg.riccati_sweep_general(*args)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            out = rg.riccati_sweep_general(*args)
+        ref = rg.riccati_sweep_general_plain(*args)
+        assert all(bool(((o == e) | (o.isnan() & e.isnan())).all())
+                   for o, e in zip(out, ref))
         with pytest.raises(NotImplementedError, match="R <= 65"):
             rg.riccati_general_backward_cuda(*args[:12])
     args = _general("delta0", 8, 3, 4, 2, 2, 1)
@@ -404,8 +425,8 @@ def test_general_refusals_on_card():
     with pytest.raises(ValueError, match="gains"):
         rg.riccati_general_forward_cuda(args[0], args[1], args[6], args[12],
                                         torch.zeros(8, 3, 5, device="cuda"))
-    assert (rg.BACKWARD_LAUNCHES, rg.FORWARD_LAUNCHES,
-            rk.PLAIN_CALLS) == counts
+    assert (rg.BACKWARD_LAUNCHES, rg.FORWARD_LAUNCHES) == counts
+    assert rk.PLAIN_CALLS == plain + 4     # two fallbacks, two references
 
 
 def test_fleet_eq_on_card_matches_cpu():

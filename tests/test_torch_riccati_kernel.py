@@ -101,11 +101,17 @@ def test_kernel_plan_is_pinned():
     for shape in ((50, 12, 4), (20, 4, 2), (50, 12, 10), (1, 32, 16),
                   (5, 1, 1)):
         assert rk.kernel_plan(*shape, "cuda")["path"] == "cuda_streamed"
-    for shape in ((50, 12, 17), (50, 33, 4), (0, 12, 4)):
+    # outside every kernel's envelope the card runs the plain version
+    # (the JAX package's scan fallback); H=0 has no plan on the card
+    for shape, path in (((50, 12, 17), "plain_fallback"),
+                        ((50, 33, 4), "plain_fallback"),
+                        ((0, 12, 4), "unsupported")):
         p = rk.kernel_plan(*shape, "cuda")
-        assert p["path"] == "unsupported"
+        assert p["path"] == path
         assert "nu <= 16" in p["reason"] and "nx <= 32" in p["reason"]
     assert "nx=12, nu=17" in rk.kernel_plan(50, 12, 17, "cuda")["reason"]
+    assert "nu=17 > 16" in rk.kernel_plan(50, 12, 17, "cuda")["reason"]
+    assert "nx=33 > 32" in rk.kernel_plan(50, 33, 4, "cuda")["reason"]
 
 
 def test_kernel_plan_names_the_fused_general_kernel():
