@@ -189,7 +189,8 @@ Phases (each raises, and the script exits non-zero, on failure):
    suppression MOVE·Σ(u_{t+1} − u_t)² under kkt="auto" (the objective
    probes stage-coupled, so the dense backend), the same protocol, the
    warm re-plan's split of prepare (the Hessian and Jacobian) against the
-   batched LU and its device busy share, and 16 members against the CPU.
+   batched LU (its busy share is not traced: ~2e5 device events, 35-52 s
+   of the run), and 16 members against the CPU.
    Neither launches a sweep kernel or a plain sweep.  The converged counts
    and the members at the same solution are held to the JAX package's on
    this fleet less 0.5% of B (tests/measure_torch_dense_alm.py).
@@ -223,8 +224,8 @@ Phases (each raises, and the script exits non-zero, on failure):
    sweep kernel and no plain sweep launched; its time a call and its
    device work beside the fused kernel's device time at (256, 512, 2, 1).
 4p. Long-horizon LV fleet (tools/bench_horizon_tpu.py's build_mpc,
-   copied: the LV ODE itself, H=512, DT=2/H, B=256): cold + 2 warm
-   re-plans under kkt="riccati_pscan" (no sweep kernel, no plain sweep)
+   copied: the LV ODE itself, H=512, DT=2/H, B=256): cold + 1 warm
+   re-plan under kkt="riccati_pscan" (no sweep kernel, no plain sweep)
    and kkt="riccati" (the staged fused kernel alone); converged counts at
    least the JAX package's own less 0.5% of B (cold: the lower of its two
    backends' counts, which part 4 members), pscan plans against the
@@ -258,11 +259,16 @@ Phases (each raises, and the script exits non-zero, on failure):
    card vs CPU (held as 4p's); the fallback sweep's time a call and its
    device work at the fleet's shape.
 4t. The LSTM fleet (lstm_fleet_model("lstm"): hidden 8, lifted to
-   (18, 1), H=100, B=4096, cold + 2 warm): the run-time streamed pair
-   (riccati_backward_kernel, riccati_forward_kernel) against its plain
-   halves on the four seeded cases and timed at the fleet's shape (two
-   entries of the kernels line); every sweep of the fleet through the
-   run-time pair, no fallback; counts and card vs CPU as in 4s.
+   (18, 1), H=100, B=4096, cold + 2 warm): the backward instance
+   riccati_general_backward_fixed<18, 1, 1, 0> and the run-time forward
+   kernel riccati_forward_kernel against the plain halves on the four
+   seeded cases, the instance against the run-time backward kernel too;
+   both timed at the fleet's shape (two entries of the kernels line), the
+   instance in turns (a, b, b, a) against the run-time backward kernel,
+   whose times are keys of the instance's entry, with ptxas's report of
+   both; every backward sweep of the fleet through the instance, every
+   forward sweep through the run-time kernel, no fallback; counts and card
+   vs CPU as in 4s.
 4u. bf16: phase 4's fleet and surrogate with MLPDynamics(compute_dtype=
    bfloat16), B=4096, cold + 2 warm, through the staged fused kernel:
    counts at least the JAX package's own on the same fit less 0.5% of B,
@@ -288,7 +294,10 @@ Phases (each raises, and the script exits non-zero, on failure):
    mu_strategy "adaptive" and "mehrotra" and polish_fresh=True, and 16
    under hessian="gauss_newton": equal masks, the converged members'
    plans held as the budgeted ones are (below), the iterates of members
-   that take all 60 iterations unconverged not compared.
+   that take all 60 iterations unconverged not compared.  The CPU halves
+   run in the worker processes (those of the quadrotor, EQ/border, wide
+   and cartpole checks submitted before the phase starts), the card's in
+   this process.
    The budgeted comparisons hold to the 1e-4 gates the members whose CPU
    answer is fixed to them: with the floor binding, feed moved between
    stages at constant Σu is tie-broken only by the 1e-4·Σu² term, and some
@@ -496,7 +505,7 @@ PSCAN_SPREAD = 2.0
 # max_iter near tol, and the JAX package's own two backends (the same
 # arithmetic, rounded apart) part 4 members there.  B=8 takes a cold solve
 # and LH_SMALL_WARM warm re-plans.
-LH_H, LH_B, LH_SMALL_B, LH_WARM, LH_SMALL_WARM = 512, 256, 8, 2, 1
+LH_H, LH_B, LH_SMALL_B, LH_WARM, LH_SMALL_WARM = 512, 256, 8, 1, 1
 LH_REFERENCE = {"riccati": [230, 256, 256, 256],
                 "riccati_pscan": [226, 256, 256, 256]}
 LH_JAX_DU = {"cold": 1.330e-04, "warm": 5.794e-05}
@@ -516,12 +525,13 @@ CPU_WORKERS, CPU_WORKER_THREADS = 3, 2
 # the GRU fleet's MPC, H=LSTM_H): the stacked LSTM lifted to (34, 1), past
 # every kernel's nx <= 32, so every sweep runs the plain version on the
 # card (kernel_plan's "plain_fallback"), B=1024, cold + 1 warm; the single
-# LSTM lifted to (18, 1), the run-time streamed pair, B=4096, cold + 2
-# warm.  Converged counts at least the JAX package's own on the same
-# weights less MU_SLACK of B (tests/measure_torch_parity_gaps.py, on the
-# CPU); the first LSTM_N_CPU members' cold plans card vs CPU (the CPU
-# halves, and their starts moved by ±PERTURB, in the workers from the start
-# of the run: they need nothing the card computes).
+# LSTM lifted to (18, 1), the backward instance and the run-time forward
+# kernel, B=4096, cold + 2 warm.  Converged counts at least the JAX
+# package's own on the same weights less MU_SLACK of B
+# (tests/measure_torch_parity_gaps.py, on the CPU); the first LSTM_N_CPU
+# members' cold plans card vs CPU (the CPU halves, and their starts moved
+# by ±PERTURB, in the workers from the start of the run: they need nothing
+# the card computes).
 LSTM_H, LSTM_N_CPU = 100, 128
 LSTM_B = {"stacked_lstm": 1024, "lstm": 4096}
 LSTM_WARM = {"stacked_lstm": 1, "lstm": 2}
@@ -2840,8 +2850,8 @@ def dense_split(nempc, mpc, carry, xs, res, times, card, params):
     """The dense warm re-plan's time split (``prepare``, the Hessian and
     Jacobian of every member, and one ``solve_blocks``, the batched LU and
     its refinement, each timed alone at the last carry, times one a
-    lockstep iteration) and the device busy share of one more warm re-plan
-    (torch.profiler's device events)."""
+    lockstep iteration); no traced re-plan, to keep the run inside its
+    time (one held ~2e5 device events and took 35-52 s of it)."""
     from pyneuralempc_tpu_torch.solve.interior_point import (
         make_dense_direction)
     Bn = xs.shape[0]
@@ -2866,14 +2876,12 @@ def dense_split(nempc, mpc, carry, xs, res, times, card, params):
         f"batched LU of {Bn} x {mpc.nlp.n + mpc.nlp.m}^2 and its "
         f"refinement), rest {step_ms - n_it * (prep_ms + lu_ms):.1f} ms of "
         f"p50 {step_ms:.1f} ms")
-    busy = busy_share(mpc, xs, carry, step_ms, card, params,
-                      "one more dense")
     p50 = statistics.median(times)
     log(f"[{card}] dense warm re-plan B={Bn}: p50 {p50 * 1e3:.1f} ms, min "
         f"{min(times) * 1e3:.1f} ms -> {Bn / p50:,.0f} solves/s")
     return {"p50_ms": p50 * 1e3, "solves_per_s": Bn / p50,
             "prepare_ms": prep_ms, "lu_ms": lu_ms,
-            "iterations": n_it, "busy": busy}
+            "iterations": n_it, "busy": None}
 
 
 def move_cost(x, u):
@@ -2887,9 +2895,9 @@ def phase_dense(nempc, rk, rg, card, params, x0s, mono):
     """Phase 4k: the dense backend on phase 4's fleet (B=4096): under
     kkt="dense" (one cold solve and one timed warm re-plan), plans against phase 4's Riccati cold plans where the
     objectives agree; then phase 4's cost with move suppression under
-    kkt="auto" (the dense backend), its warm re-plan's time split and
-    device busy share, and 16 members against the CPU port.  The converged
-    counts are held to the JAX package's on the same fleet."""
+    kkt="auto" (the dense backend), its warm re-plan's time split, and 16
+    members against the CPU port.  The converged counts are held to the
+    JAX package's on the same fleet."""
     out = {}
     xs = torch.as_tensor(x0s, device="cuda")
     for kind in ("dense", "moves"):
@@ -2937,8 +2945,7 @@ def phase_dense(nempc, rk, rg, card, params, x0s, mono):
         if kind == "dense":
             out[kind]["same"] = gate
         else:
-            # the time split and the busy share, once (a traced dense
-            # re-plan holds ~2e5 device events and takes ~35 s)
+            # the time split, once
             out[kind].update(dense_split(nempc, mpc, carry,
                                          res.x[:, 0].contiguous(), res,
                                          times, card, params))
@@ -3723,12 +3730,12 @@ def budget_card_vs_cpu(tag, run, diff, compare):
 
 
 def phase_card_vs_cpu_new(gd, rnn_params, z0s, qm_model, qm_params,
-                          qm_x0s):
+                          qm_x0s, examples):
     """The new paths on the card and on the CPU: 16 GRU fleet members,
     cartpole's first re-plan (cut at CP_FIRST_ITERS iterations) and a
     converging re-plan, 16 quadrotor MLP members, and a multi-start's
     winner and its index."""
-    from pyneuralempc_tpu_torch.examples import cartpole, fleet_rnn, quadrotor
+    from pyneuralempc_tpu_torch.examples import fleet_rnn, quadrotor
 
     def on(dev, tree):
         if isinstance(tree, dict):
@@ -3742,30 +3749,21 @@ def phase_card_vs_cpu_new(gd, rnn_params, z0s, qm_model, qm_params,
         lambda dev: fleet_rnn.make_fleet_rnn_mpc(gd, dev, H=RNN_H)
         .next_batch(z0s[:N_CARD_VS_CPU].to(dev),
                     params=on(dev, rnn_params))[1], iterations=True)
-    hanging = torch.tensor(cartpole.X_HANGING)
     card_vs_cpu(
         f"cartpole's first re-plan, H={CP_H}, cut at {CP_FIRST_ITERS} "
-        "iterations",
-        lambda dev: cartpole.make_cartpole_mpc(dev, max_iter=CP_FIRST_ITERS)
-        .next(hanging.to(dev)), iterations=True)
-    near = torch.tensor([0.1, 0.0, 0.3, 0.0])
+        "iterations", examples("cartpole_first"), iterations=True)
     card_vs_cpu(
         f"cartpole, a converging re-plan 0.3 rad off upright, H={CP_H}",
-        lambda dev: cartpole.make_cartpole_mpc(dev).next(
-            near.to(dev), init_x=near.expand(CP_H, 4).to(dev),
-            init_u=torch.zeros(CP_H, 1, device=dev)), iterations=True)
+        examples("cartpole_near"), iterations=True)
     card_vs_cpu(
         f"quadrotor MLP, H={QH}, {N_CARD_VS_CPU} cold solves",
         lambda dev: quadrotor.make_quadrotor_mpc(dev, H=QH, model=qm_model)
         .next_batch(torch.as_tensor(qm_x0s[:N_CARD_VS_CPU], device=dev),
                     params=on(dev, qm_params))[1], iterations=True)
-    picks = {}
+    picks, run = {}, examples("multi_start")
 
     def multi_start(dev):
-        best, picks[dev] = cartpole.make_cartpole_mpc(
-            dev, max_iter=CP_FIRST_ITERS).next_multi_start(
-            hanging.to(dev), n_starts=CP_STARTS,
-            generator=torch.Generator().manual_seed(0), return_index=True)
+        best, picks[dev] = run(dev)
         return best
     card_vs_cpu(f"cartpole next_multi_start, {CP_STARTS} starts, cut at "
                 f"{CP_FIRST_ITERS} iterations, the winner", multi_start,
@@ -3775,27 +3773,23 @@ def phase_card_vs_cpu_new(gd, rnn_params, z0s, qm_model, qm_params,
         raise RuntimeError("the multi-start winners differ")
 
 
-def phase_card_vs_cpu_wide_options(params, x0s, w_x0s):
+def phase_card_vs_cpu_wide_options(params, x0s, examples):
     """The wide fleet's 16 cold solves, and the solver options on 16 LV
     members (adaptive and mehrotra; polish_fresh=True at OPT_SMALL_B;
     hessian="gauss_newton", its converged members' plans held as the
     budgeted fleet's; converged counts logged), on the card and on the
     CPU."""
-    from pyneuralempc_tpu_torch.examples.fleet_wide import make_fleet_wide_mpc
-
     option_sets = ({"mu_strategy": "adaptive"}, {"mu_strategy": "mehrotra"},
                    {"polish_fresh": True})
     sizes = [N_CARD_VS_CPU if "mu_strategy" in o else OPT_SMALL_B
              for o in option_sets]
-    # the CPU halves go to the workers first, the wide fleet's meanwhile
+    # the CPU halves go to the workers, behind the examples'
     runs = [lv_runs("lv", {0.0: x0s[:n]}, params, **o)
             for o, n in zip(option_sets, sizes)]
     gn = lv_runs("lv", moved_starts(x0s[:N_CARD_VS_CPU]), params,
                  hessian="gauss_newton")
-    card_vs_cpu(
-        f"wide fleet, H={W_H}, {N_CARD_VS_CPU} cold solves",
-        lambda dev: make_fleet_wide_mpc(dev, H=W_H).next_batch(
-            torch.as_tensor(w_x0s[:N_CARD_VS_CPU], device=dev))[1])
+    card_vs_cpu(f"wide fleet, H={W_H}, {N_CARD_VS_CPU} cold solves",
+                examples("wide"))
 
     for options, n, run in zip(option_sets, sizes, runs):
         out = card_vs_cpu(f"LV, {options}, {n} cold solves",
@@ -3863,31 +3857,71 @@ def converged_card_vs_cpu(tag, run, loose_masks=False):
         raise RuntimeError(f"{tag}: card and CPU solves differ")
 
 
-def phase_card_vs_cpu(params, x0s, q_x0s, eq_x0s):
-    from pyneuralempc_tpu_torch.examples.fleet_eq import make_fleet_eq_mpc
-    from pyneuralempc_tpu_torch.examples.lotka_volterra import U_FLOOR
-    from pyneuralempc_tpu_torch.examples.quadrotor import make_quadrotor_mpc
+def example_solve(kind, device, starts=None):
+    """One solve of a phase-5 check that needs nothing the card computes,
+    on ``device``: the quadrotor ("quadrotor"), EQ/border quadrotor
+    ("fleet_eq") and wide ("wide") fleets from ``starts`` (numpy), H=QH;
+    cartpole's first re-plan cut at CP_FIRST_ITERS iterations
+    ("cartpole_first"), a converging re-plan 0.3 rad off upright
+    ("cartpole_near"), and next_multi_start's winner with its index
+    ("multi_start")."""
+    from pyneuralempc_tpu_torch.examples import (cartpole, fleet_eq,
+                                                 fleet_wide, quadrotor)
+    if kind in ("quadrotor", "fleet_eq", "wide"):
+        mpc = {"quadrotor": lambda: quadrotor.make_quadrotor_mpc(device,
+                                                                 H=QH),
+               "fleet_eq": lambda: fleet_eq.make_fleet_eq_mpc(
+                   device, border=True, H=QH),
+               "wide": lambda: fleet_wide.make_fleet_wide_mpc(
+                   device, H=W_H)}[kind]()
+        return mpc.next_batch(torch.as_tensor(starts, device=device))[1]
+    hanging = torch.tensor(cartpole.X_HANGING).to(device)
+    if kind == "cartpole_first":
+        return cartpole.make_cartpole_mpc(
+            device, max_iter=CP_FIRST_ITERS).next(hanging)
+    if kind == "cartpole_near":
+        near = torch.tensor([0.1, 0.0, 0.3, 0.0])
+        return cartpole.make_cartpole_mpc(device).next(
+            near.to(device), init_x=near.expand(CP_H, 4).to(device),
+            init_u=torch.zeros(CP_H, 1, device=device))
+    if kind == "multi_start":
+        return cartpole.make_cartpole_mpc(
+            device, max_iter=CP_FIRST_ITERS).next_multi_start(
+            hanging, n_starts=CP_STARTS,
+            generator=torch.Generator().manual_seed(0), return_index=True)
+    raise ValueError(kind)
 
-    # the CPU halves of the LV fleet's checks go to the workers first, the
-    # quadrotor ones meanwhile
+
+def example_runs(starts):
+    """``run(kind)(device)`` for card_vs_cpu: :func:`example_solve` of each
+    kind in ``starts`` (kind -> numpy starts or None), the card's in this
+    process, the CPU's submitted to the workers now."""
+    cpu = {kind: cpu_pool().submit(example_solve, kind, "cpu", xs)
+           for kind, xs in starts.items()}
+
+    def run(kind):
+        def solve(device):
+            if device == "cpu":
+                return cpu[kind].result()
+            return example_solve(kind, device, starts[kind])
+        return solve
+    return run
+
+
+def phase_card_vs_cpu(params, x0s, examples):
+    from pyneuralempc_tpu_torch.examples.lotka_volterra import U_FLOOR
+
+    # the CPU halves of the LV fleet's checks go to the workers too, behind
+    # the examples' (run() submits those before this phase)
     starts = x0s[:N_CARD_VS_CPU]
     lv = lv_runs("lv", {0.0: starts}, params)
     budget = lv_runs("budget", moved_starts(starts), params)
     loop = lv_runs("budget_loop", moved_starts(starts), params)
 
-    def quad(dev):
-        mpc = make_quadrotor_mpc(dev, H=QH)
-        return mpc.next_batch(torch.as_tensor(q_x0s[:N_CARD_VS_CPU],
-                                              device=dev))[1]
-
-    def fleet_eq(dev):
-        mpc = make_fleet_eq_mpc(dev, border=True, H=QH)
-        return mpc.next_batch(torch.as_tensor(eq_x0s[:N_CARD_VS_CPU],
-                                              device=dev))[1]
-
-    card_vs_cpu(f"quadrotor, H={QH}, {N_CARD_VS_CPU} cold solves", quad)
+    card_vs_cpu(f"quadrotor, H={QH}, {N_CARD_VS_CPU} cold solves",
+                examples("quadrotor"))
     card_vs_cpu(f"EQ/border quadrotor, H={QH}, {N_CARD_VS_CPU} cold solves",
-                fleet_eq)
+                examples("fleet_eq"))
     card_vs_cpu(f"LV, {N_CARD_VS_CPU} cold solves", lambda dev: lv(dev, 0.0))
 
     def compare_plans(card, cpu, determined):
@@ -4127,21 +4161,25 @@ def phase_stacked_lstm(nempc, rk, rg, card, cpu_runs):
     return out
 
 
-def phase_lstm(nempc, rk, rg, card, cpu_runs):
-    """4t: the single-LSTM fleet at (18, 1): the run-time streamed pair
-    held against its plain halves on the four seeded cases and timed, then
-    the fleet, every sweep through the run-time pair, its counts against
-    the JAX package's and its first members against the CPU."""
+def phase_lstm(nempc, rk, rg, card, cpu_runs, build_log):
+    """4t: the single-LSTM fleet at (18, 1): the backward instance and the
+    run-time forward kernel held against the plain halves (the instance
+    against the run-time backward kernel too) on the four seeded cases,
+    both timed, the instance in turns against the run-time backward
+    kernel; then the fleet, every backward sweep through the instance and
+    every forward sweep through the run-time kernel, its counts against the
+    JAX package's and its first members against the CPU."""
     from pyneuralempc_tpu_torch.examples import fleet_rnn
     kind = "lstm"
     bundle, params = fleet_rnn.lstm_fleet_model(kind, device="cuda")
     nx, Bn = bundle.model.dims.x, LSTM_B[kind]
     plan = rk.kernel_plan(LSTM_H, nx, 1, "cuda")
+    bname = f"riccati_general_backward_fixed<{nx}, 1, 1, 0>"
     if (plan["path"], plan.get("backward_kernel"),
-            plan.get("forward_kernel")) != ("cuda_streamed",
-                                            "riccati_backward_kernel",
+            plan.get("forward_kernel")) != ("cuda_streamed", bname,
                                             "riccati_forward_kernel"):
-        raise RuntimeError(f"({nx}, 1) plans {plan}, not the run-time pair")
+        raise RuntimeError(f"({nx}, 1) plans {plan}, not the backward "
+                           "instance and the run-time forward kernel")
     worst = None
     label = f"B={Bn}, H={LSTM_H}, nx={nx}, nu=1"
     for case, seed in CASES.items():
@@ -4150,10 +4188,44 @@ def phase_lstm(nempc, rk, rg, card, cpu_runs):
         del args
     args = tiled_sweep_case("delta0", 0, Bn // 4, LSTM_H, nx, 1, 4)
     bwd, fwd = pair_entries(rk, f" [lstm, {label}]", args)
-    for entry, kernel in ((bwd, "riccati_backward_kernel"),
-                          (fwd, "riccati_forward_kernel")):
-        entry.update(design=f"run-time kernel {kernel}", path="lstm",
-                     shape={"B": Bn, "H": LSTM_H, "nx": nx, "nu": 1})
+    bwd_call = lambda: rk.riccati_backward_cuda(*args)  # noqa: E731
+    rt_call = lambda: rk.riccati_backward_runtime_cuda(*args)  # noqa: E731
+    turns = design_turns({"run-time": (rt_call, "riccati_backward_kernel"),
+                          "instance": (bwd_call, bname)},
+                         ("run-time", "instance", "instance", "run-time"),
+                         bound_ms=bwd["bound_ms"])
+    mean = {k: statistics.mean(v) for k, v in turns.items()}
+    rt_call_ms = cuda_median_ms(rt_call)
+    shape = {"B": Bn, "H": LSTM_H, "nx": nx, "nu": 1}
+    bwd.update(design=f"compile-time instance {bname}", path="lstm",
+               shape=shape, runtime_ms=mean["warm", "run-time"],
+               runtime_call_ms=rt_call_ms,
+               flushed_ms=mean["flushed", "instance"],
+               runtime_flushed_ms=mean["flushed", "run-time"],
+               turns_ms={f"{cache}, {who}": v
+                         for (cache, who), v in turns.items()},
+               smem_bytes_a_warp=rk.backward_fixed_smem_bytes(nx, 1, 1, 0),
+               stage_buffers=rk.backward_fixed_buffers(nx, 1, 1, 0),
+               ptxas_instance=ptxas_report(
+                   build_log, "riccati_general_backward_fixed",
+                   (nx, 1, 1, 0)),
+               ptxas_runtime=ptxas_report(build_log,
+                                          "riccati_backward_kernel", ()))
+    fwd.update(design="run-time kernel riccati_forward_kernel", path="lstm",
+               shape=shape)
+    speedup = mean["warm", "run-time"] / mean["warm", "instance"]
+    log(f"riccati_backward at {label}: run-time "
+        f"{mean['warm', 'run-time'] * 1e3:.2f} / "
+        f"{mean['flushed', 'run-time'] * 1e3:.2f} us, instance "
+        f"{mean['warm', 'instance'] * 1e3:.2f} / "
+        f"{mean['flushed', 'instance'] * 1e3:.2f} us (warm / L2 flushed, "
+        f"means of two turns): the instance {speedup:.2f}x faster warm, "
+        f"{bwd['bound_ms'] / mean['warm', 'instance']:.2%} of its bound; "
+        f"wrapper calls {bwd['call_ms'] * 1e3:.1f} us instance, "
+        f"{rt_call_ms * 1e3:.1f} us run-time")
+    log(f"ptxas: backward instance {bname} ({bwd['stage_buffers']} stage "
+        f"buffer(s), {bwd['smem_bytes_a_warp']} B a warp) "
+        f"{bwd['ptxas_instance']}; run-time backward {bwd['ptxas_runtime']}")
     pair_ms = cuda_median_ms(lambda: rk.riccati_sweep_streamed_cuda(*args))
     log(f"streamed sweep [lstm, {label}] (backward + forward, one wrapper "
         f"call): {pair_ms * 1e3:.1f} us")
@@ -4173,12 +4245,13 @@ def phase_lstm(nempc, rk, rg, card, cpu_runs):
     n = counters(rk, rg)
     log(f"LSTM path: streamed backward launches {n['backward']} (the "
         f"instance {n['backward_instance']}), forward {n['forward']} (the "
-        f"instance {n['forward_instance']}): every one the run-time kernel; "
+        f"instance {n['forward_instance']}): every backward launch the "
+        f"instance, every forward launch the run-time kernel; "
         f"FALLBACK_CALLS {n['fallback']}, plain calls {n['plain']}")
-    if not (only_launched(n, "backward", "forward")
-            and n["backward"] == n["forward"]):
-        raise RuntimeError("the LSTM path did not go through the run-time "
-                           "streamed pair alone")
+    if not (only_launched(n, "backward", "backward_instance", "forward")
+            and n["backward_instance"] == n["backward"] == n["forward"]):
+        raise RuntimeError("the LSTM path did not go through the backward "
+                           "instance and the run-time forward kernel alone")
     conv = hold_counts("LSTM", steps, jax_floor(LSTM_JAX_CONVERGED[kind],
                                                  Bn),
                        LSTM_JAX_CONVERGED[kind])
@@ -4462,20 +4535,27 @@ def run():
     scenario = no_fallback(rk, "4r", phase_scenario, nempc, rk, rg, card,
                            params, x0s)
     # phases 4s-4v: the stacked-LSTM fleet through the plain fallback, the
-    # LSTM fleet through the run-time pair, bf16, config 1 and batch_chunk
-    lstm_bwd, lstm_fwd, lstm = phase_lstm(nempc, rk, rg, card, lstm_cpu)
+    # LSTM fleet through the backward instance at (18, 1), bf16, config 1
+    # and batch_chunk
+    lstm_bwd, lstm_fwd, lstm = phase_lstm(nempc, rk, rg, card, lstm_cpu,
+                                          logs[rk.STREAMED_SOURCE])
     stacked = phase_stacked_lstm(nempc, rk, rg, card, lstm_cpu)
     bf16 = no_fallback(rk, "4u", phase_bf16, nempc, rk, rg, card, params,
                        x0s, mono, bf16_cpu)
     config1, prof = no_fallback(rk, "4v", phase_config1_chunk, nempc, rk, rg,
                                 card, params, lv_last)
 
-    # phase 5: card vs CPU (the profiling CLI runs meanwhile)
-    no_fallback(rk, "5", phase_card_vs_cpu, params, x0s, q_x0s, eq_x0s)
+    # phase 5: card vs CPU (the profiling CLI runs meanwhile); the CPU
+    # halves that need nothing the card computes go to the workers first
+    n = N_CARD_VS_CPU
+    examples = example_runs({"quadrotor": q_x0s[:n], "fleet_eq": eq_x0s[:n],
+                             "cartpole_first": None, "cartpole_near": None,
+                             "multi_start": None, "wide": w_x0s[:n]})
+    no_fallback(rk, "5", phase_card_vs_cpu, params, x0s, examples)
     no_fallback(rk, "5 new paths", phase_card_vs_cpu_new, gd, rnn_params,
-                z0s, qm_model, qm_params, qm_x0s)
+                z0s, qm_model, qm_params, qm_x0s, examples)
     no_fallback(rk, "5 wide, options", phase_card_vs_cpu_wide_options,
-                params, x0s, w_x0s)
+                params, x0s, examples)
     finish_profiling(prof, config1)
     log(f"paths: GRU fleet {json.dumps(rnn_split)}; cartpole "
         f"{json.dumps(cp_run)}; quadrotor MLP {json.dumps(qm_split)}; wide "

@@ -13,13 +13,19 @@
 // Mxu]; E, F, h and dc are then not read).  It replaces
 // pyneuralempc_tpu/ops/pallas/riccati_kernel.py's streamed backward calls,
 // :468 (`_backward_kernel` :191-302) at (12, 4, 1, 0), (10, 1, 1, 0),
-// (4, 1, 1, 0) and (12, 10, 1, 0), and :991 (`_bwd_general_body` :610-787)
-// at (12, 4, 2, 1), with the local-delta Cholesky retry of
-// `_chol_solve_retry` :158-188 (`_chol_factor_tiles` :120).
+// (4, 1, 1, 0), (12, 10, 1, 0) and (18, 1, 1, 0), and :991
+// (`_bwd_general_body` :610-787) at (12, 4, 2, 1), with the local-delta
+// Cholesky retry of `_chol_solve_retry` :158-188 (`_chol_factor_tiles`
+// :120).
 //
 // What bounds it on an H100: bytes, ~183 us at (12, 4, 1, 0), ~202 us at
-// (12, 4, 2, 1) and ~296 us at (12, 10, 1, 0) for B=4096, H=50
-// (ops/cuda/riccati_kernel.py's backward_bytes counts them).
+// (12, 4, 2, 1) and ~296 us at (12, 10, 1, 0) for B=4096, H=50, ~557 us
+// at (18, 1, 1, 0) for B=4096, H=100 (ops/cuda/riccati_kernel.py's
+// backward_bytes counts them).  At (18, 1) the stage math weighs the most
+// of any instance (6.4 flops a byte against 3.7 at (10, 1), still under
+// the card's f32 ridge): what holds it back from its bound there is the
+// instructions the two O(nx^3) products issue and how many lanes share
+// them (the tiles below).
 // One warp per problem and the gains layout of riccati_general.cu.  The
 // design against the run-time kernels' ~20 dependent phases a stage:
 //  * every lane's entries of every product are fixed at compile time and
@@ -48,7 +54,21 @@
 //  * the lane maps take any nu <= 32: 32/nu lanes a row of Z, each a
 //    float4 column and every 32/nu-th after it (at (12, 10): 3 lanes, 2
 //    columns each, 30 lanes working);
-//  * past nu = 4 (FixedLayout::kWide) the lane id is read anew each stage,
+//  * past nx = 16 (FixedLayout::kTall, up to nx = 32) two lanes a row of Y
+//    and of [P_new | p^T] would take more than 32 lanes; there lane l
+//    takes the float4 column l % YC of the rows l / YC + j * (32 / YC)
+//    (at (18, 1): 5 columns, 3 rows a lane, 30 lanes working), so each
+//    16-byte load of X or Y feeds 3 rows' 12 sums and the scalar operand
+//    (Pbar's, A's entry) is one broadcast load a row; Pbar = sym(P_new) +
+//    Mxx + delta I is formed in place of P_new first, each entry pair
+//    (i, j), (j, i) by one lane, and written to the gains from there in
+//    row order: one __syncwarp() more.  Against one lane a row (18 lanes,
+//    the row of Pbar or A's column in registers) it measured 1224.42
+//    against 1842.30 us at (18, 1, 1, 0), B=4096, H=100 on an H100, with
+//    no spills where one lane a row spilled 54 bytes a thread
+//    (chip_backward_designs.py 18 1, PERF.md);
+//  * past nu = 4 or nx = 16 (FixedLayout::kLarge) the lane id is read anew
+//    each stage,
 //    so the compiler recomputes each lane's offsets where they are used
 //    instead of keeping them across the stage loop: with the shared memory
 //    carveout at its largest an SM keeps ~28 KB of L1, and the ~330 bytes
@@ -85,11 +105,15 @@
 // (4, 1, 1, 0); at (12, 10, 1, 0) one 816-float stage buffer and 856
 // floats of scratch, 6,688 bytes (two buffers, 9,952 bytes, would fit 5
 // blocks an SM: B=4096 in two waves, slower in turns, as a register cap
-// set for 7 blocks is).  Every way 8 blocks of 4 warps (B=4096 in one wave
-// on 132 SMs) fit in 228 KB with the 64-register cap.  ptxas: 64 registers
-// and 96 bytes of spill stores and loads a thread at (12, 4, 2, 1), 92 at
-// (12, 4, 1, 0), 54 stores and 80 loads at (12, 10, 1, 0) (chip_smoke.py
-// prints every instance's report).
+// set for 7 blocks is); at (18, 1, 1, 0) one 760-float stage buffer (759
+// used) and 764 floats of scratch, 6,096 bytes (two buffers, 9,136 bytes,
+// would fit 6 blocks an SM; a register cap set for 7 blocks, B=4096 in two
+// waves, measured 3.3% slower).  Every way 8 blocks of 4 warps (B=4096 in
+// one wave on 132 SMs) fit in 228 KB with the 64-register cap.  ptxas: 64
+// registers and 96 bytes of spill stores and loads a thread at
+// (12, 4, 2, 1), 92 at (12, 4, 1, 0), 54 stores and 80 loads at
+// (12, 10, 1, 0), 20 at (10, 1, 1, 0), none at (4, 1, 1, 0) and
+// (18, 1, 1, 0) (chip_smoke.py prints every instance's report).
 
 #pragma once
 
@@ -171,24 +195,41 @@ struct FixedLayout {
   static constexpr int gpb = gPb + NX * NX, gMxu = gpb + R * NX;
   static constexpr int gKnu = gMxu + NX * NU, gknu = gKnu + RE * NX;
   static constexpr int NG = gknu + R * RE;
+  // Past nx = 16 two lanes a row of Y and of [P_new | p^T] would take more
+  // than 32 lanes.  There (kTiles) lane l takes float4 column l % YC (of a
+  // [P_new | p^T] row: l % PC) of the rows l / YC, l / YC + YG, ..., each
+  // operand float4 loaded once for its rows, Pbar formed in place of P_new
+  // first; without kTiles one lane takes a row (kRowLanes).
+  static constexpr bool kTall = NX > 16;
+  static constexpr bool kTiles = kTall;
+  static constexpr int kRowLanes = kTall ? 1 : 2;
   // lane maps (fixed at compile time), in float4 columns
   static constexpr int YC = NWP / 4;       // of a Y (and a Z) row
-  static constexpr int Y0 = (YC + 1) / 2;  // of them, a row's first lane's
+  // of them, a row's first lane's
+  static constexpr int Y0 = (YC + kRowLanes - 1) / kRowLanes;
   static constexpr int LZ = 32 / NU;       // lanes per Z row
   static constexpr int ZC = (YC + LZ - 1) / LZ;  // of a Z row, a lane's
   static constexpr int PC = NCP / 4;       // of a [P_new | p^T] row
-  static constexpr int P0 = (PC + 1) / 2;  // of them, a row's first lane's
+  static constexpr int P0 = (PC + kRowLanes - 1) / kRowLanes;
+  // tiles: the lanes a float4 column of Y (of [P_new | p^T]) takes, and the
+  // rows each of them takes
+  static constexpr int YG = 32 / YC, YR = (NX + YG - 1) / YG;
+  static constexpr int PG = 32 / PC, PR = (NX + PG - 1) / PG;
+  static constexpr int NTX = NX * (NX + 1) / 2;  // Pbar's upper triangle
   // Past nu = 4 a copy of Quu, its factor and 1/diag on every lane (2 nu
   // (nu + 1) floats, 40 at nu = 4) would not fit beside the rest in 64
   // registers: Quu is factored one row a lane, the factor in P_new's room.
-  // The same instances read the lane id anew each stage (lane_id), so the
-  // lane's offsets are recomputed where used and not kept, and spilled,
-  // across the stage loop, and fold the triangles' copies (rows p and
-  // ns - 1 - p together, ns + 1 floats) so that no copy slot goes unused;
-  // each measured faster at (12, 10, 1, 0) on an H100 (PERF.md).
+  // Those instances and the tall ones (kLarge) read the lane id anew each
+  // stage (lane_id), so the lane's offsets are recomputed where used and
+  // not kept, and spilled, across the stage loop, and fold the triangles'
+  // copies (rows p and ns - 1 - p together, ns + 1 floats) so that no copy
+  // slot goes unused; each measured faster at (12, 10, 1, 0) on an H100
+  // (PERF.md).
   static constexpr bool kWide = NU > 4;
-  static_assert(2 * NX <= 32 && NQ <= 32 && NU <= 32 && RE <= NU,
-                "lane maps need 2 nx <= 32, nx + R + r <= 32 and nu <= 32");
+  static constexpr bool kLarge = kWide || kTall;
+  static_assert(kRowLanes * NX <= 32 && NQ <= 32 && NU <= 32 && RE <= NU,
+                "lane maps need nx <= 32 (2 nx <= 32 up to nx = 16), "
+                "nx + R + r <= 32 and nu <= 32");
   static_assert(!kWide || NU * NU <= oY - oPn,
                 "the row factor (nu x nu) lives where P_new and p do");
 };
@@ -226,7 +267,7 @@ __device__ __forceinline__ void fixed_load_stage(
       __pipeline_memcpy_async(buf + L::oX + k * NWP + L::NC + al,
                               Bm + st * NX * NU + e, 4);
   }
-  if constexpr (L::kWide) {
+  if constexpr (L::kLarge) {
 #pragma unroll
     for (int q = 0; q < (L::NT + 31) / 32; ++q) {  // upper triangles, folded
       const int e = q * 32 + lane, p = e / (NS + 1), r = e - p * (NS + 1);
@@ -452,7 +493,7 @@ riccati_general_backward_fixed(
   const size_t b0 = static_cast<size_t>(b) * H;
 
   for (int t = H - 1; t >= 0; --t) {
-    const int lane = L::kWide ? lane_id() : lane0;
+    const int lane = L::kLarge ? lane_id() : lane0;
     const size_t st = b0 + t;
     // Two stage buffers in turn: the one written here was last read two
     // stages ago, before the barriers of the stage between, so no barrier
@@ -476,10 +517,76 @@ riccati_general_backward_fixed(
     const float* sh = cur + L::oh;
     float* gn = gains + st * L::NG;
 
-    // ---- Y = Pbar [A | c^T | B] + [0 | pbar^T | Mxu]: two lanes a row,
-    //      each a run of float4 columns, the row of Pbar = sym(P_new) +
-    //      Mxx + delta I in registers ----
-    if (lane < 2 * NX) {
+    // ---- Y = Pbar [A | c^T | B] + [0 | pbar^T | Mxu]: two lanes a row
+    //      (kRowLanes; one past nx = 16), each a run of float4 columns, the
+    //      row of Pbar = sym(P_new) + Mxx + delta I in registers; or tiles
+    //      (kTiles), Pbar formed in place of P_new first ----
+    if constexpr (L::kTiles) {
+      // one entry of Pbar's upper triangle a lane and its mirror (rows p
+      // and nx - 1 - p folded, nx + 1 entries), each pair read and written
+      // by one lane; then the gains' Pbar, row by row
+#pragma unroll
+      for (int q = 0; q < (L::NTX + 31) / 32; ++q) {
+        const int e = q * 32 + lane, p = e / (NX + 1), r = e - p * (NX + 1);
+        const bool top = r < NX - p;
+        const int i = top ? p : NX - 1 - p;
+        const int k = top ? p + r : i + r - (NX - p);
+        if (e < L::NTX) {
+          const float m = sM[tri<NS>(i, k)] + (i == k ? d : 0.0f);
+          const float v = 0.5f * (sPn[i * PS + k] + sPn[k * PS + i]) + m;
+          sPn[i * PS + k] = v;
+          sPn[k * PS + i] = v;
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int q = 0; q < (NX * NX + 31) / 32; ++q) {
+        const int e = q * 32 + lane, i = e / NX;
+        if (e < NX * NX) gn[L::gPb + e] = sPn[i * PS + e - i * NX];
+      }
+      // lane l: float4 column l % YC of the rows l / YC + j YG, j < YR (a
+      // row past nx - 1 reads row nx - 1 and is not stored)
+      const int ch = lane % L::YC, g = lane / L::YC;
+      if (g < L::YG) {
+        int rows[L::YR];
+#pragma unroll
+        for (int j = 0; j < L::YR; ++j) rows[j] = min(g + j * L::YG, NX - 1);
+        float v[L::YR][4] = {};
+#pragma unroll
+        for (int k = 0; k < NX; ++k) {
+          const float4 x = ld4(sX + k * NWP + 4 * ch);
+#pragma unroll
+          for (int j = 0; j < L::YR; ++j) {
+            const float pk = sPn[rows[j] * PS + k];
+            v[j][0] += pk * x.x;
+            v[j][1] += pk * x.y;
+            v[j][2] += pk * x.z;
+            v[j][3] += pk * x.w;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < L::YR; ++j) {
+          const int i = g + j * L::YG;
+          if (i >= NX) continue;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int col = 4 * ch + q;
+            if (col >= NX && col < NC) {       // Pc_p = c Pbar^T + pbar
+              const int ri = col - NX;
+              const float pb = sp[ri * NX + i] + smx[ri * NX + i];
+              gn[L::gpb + ri * NX + i] = pb;
+              v[j][q] += pb;
+            } else if (col >= NC && col < NW) {  // PB + Mxu
+              const int al = col - NC;
+              const float mxu = sM[tri<NS>(i, NX + al)];
+              gn[L::gMxu + i * NU + al] = mxu;
+              v[j][q] += mxu;
+            }
+          }
+          st4(sY + i * NWP + 4 * ch, v[j]);
+        }
+      }
+    } else if (lane < L::kRowLanes * NX) {
       const bool first = lane < NX;
       const int i = first ? lane : lane - NX;
       const int ch0 = first ? 0 : L::Y0;
@@ -488,7 +595,8 @@ riccati_general_backward_fixed(
       for (int k = 0; k < NX; ++k) {
         const float m = sym_at<NS>(sM, i, k) + (i == k ? d : 0.0f);
         row[k] = 0.5f * (sPn[i * PS + k] + sPn[k * PS + i]) + m;
-        if ((k < NX / 2) == first) gn[L::gPb + i * NX + k] = row[k];
+        if (L::kRowLanes == 1 || (k < NX / 2) == first)
+          gn[L::gPb + i * NX + k] = row[k];
       }
 #pragma unroll
       for (int o = 0; o < L::Y0; ++o) {
@@ -691,10 +799,69 @@ riccati_general_backward_fixed(
     }
 
     // ---- [P_new | p^T] = A^T [PA | Pc_p^T] + Qux^T [K | k^T]
-    //      + F^T [Knu | knu^T] + [Gxx | 0]: two lanes a row, each a run of
-    //      float4 columns, A's, Qux's and F's column in registers; P_new is
-    //      symmetrised where the next stage reads it ----
-    if (lane < 2 * NX) {
+    //      + F^T [Knu | knu^T] + [Gxx | 0]: two lanes a row (kRowLanes),
+    //      each a run of float4 columns, A's, Qux's and F's column in
+    //      registers, or tiles (kTiles) as Y's; P_new is symmetrised where
+    //      the next stage reads it ----
+    if constexpr (L::kTiles) {
+      const int ch = lane % L::PC, g = lane / L::PC;
+      if (g < L::PG) {
+        int rows[L::PR];
+#pragma unroll
+        for (int j = 0; j < L::PR; ++j) rows[j] = min(g + j * L::PG, NX - 1);
+        float v[L::PR][4] = {}, w[L::PR][4] = {}, z[L::PR][4] = {};
+#pragma unroll
+        for (int k = 0; k < NX; ++k) {
+          const float4 y = ld4(sY + k * NWP + 4 * ch);
+#pragma unroll
+          for (int j = 0; j < L::PR; ++j) {
+            const float a = sX[k * NWP + rows[j]];
+            v[j][0] += a * y.x;
+            v[j][1] += a * y.y;
+            v[j][2] += a * y.z;
+            v[j][3] += a * y.w;
+          }
+        }
+#pragma unroll
+        for (int al = 0; al < NU; ++al) {
+          const float4 y = ld4(sW + al * NQP + 4 * ch);
+#pragma unroll
+          for (int j = 0; j < L::PR; ++j) {
+            const float zc = sZ[al * NWP + rows[j]];
+            w[j][0] += zc * y.x;
+            w[j][1] += zc * y.y;
+            w[j][2] += zc * y.z;
+            w[j][3] += zc * y.w;
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < RE; ++q) {
+          const float4 y = ld4(sNu + q * NCP + 4 * ch);
+#pragma unroll
+          for (int j = 0; j < L::PR; ++j) {
+            const float f = sF[q * NX + rows[j]];
+            z[j][0] += f * y.x;
+            z[j][1] += f * y.y;
+            z[j][2] += f * y.z;
+            z[j][3] += f * y.w;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < L::PR; ++j) {
+          const int i = g + j * L::PG;
+          if (i >= NX) continue;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 4 * ch + e;
+            if (col < NX)
+              sPn[i * PS + col] =
+                  (v[j][e] + sym_at<NS>(sG, i, col)) + w[j][e] + z[j][e];
+            else if (col < NC)
+              sp[(col - NX) * NX + i] = v[j][e] + w[j][e] + z[j][e];
+          }
+        }
+      }
+    } else if (lane < L::kRowLanes * NX) {
       const bool first = lane < NX;
       const int i = first ? lane : lane - NX;
       const int ch0 = first ? 0 : L::P0;

@@ -23,11 +23,12 @@ the backward kernel (:468) and the forward kernel (:488).
   backward template (``csrc/riccati_backward_fixed.cuh``) at one right-hand
   side and no equality rows for the (nx, nu) in ``_BACKWARD_INSTANCES``
   (the quadrotor's (12, 4), the GRU fleet's lifted (10, 1), cartpole's
-  (4, 1) and the wide fleet's (12, 10)), and the run-time kernel for every
-  other; the forward entry likewise a compile-time instance of the general
-  sweep's forward template (``csrc/riccati_forward_fixed.cuh``, a ring of
-  stage slots a warp) for the (nx, nu) in ``_FORWARD_INSTANCES`` (the same
-  four), and the run-time kernel for every other.
+  (4, 1), the wide fleet's (12, 10) and the LSTM fleet's lifted (18, 1)),
+  and the run-time kernel for every other; the forward entry likewise a
+  compile-time instance of the general sweep's forward template
+  (``csrc/riccati_forward_fixed.cuh``, a ring of stage slots a warp) for
+  the (nx, nu) in ``_FORWARD_INSTANCES`` (the first four), and the
+  run-time kernel for every other.
 
 Beside them:
 
@@ -93,11 +94,14 @@ _INSTANCES = frozenset({(2, 1)})
 # (nx, nu) pairs for which csrc/riccati_streamed.cu's backward entry launches
 # the compile-time instance riccati_general_backward_fixed<nx, nu, 1, 0>
 # (its C entry point's list): the quadrotor fleets' stage, the GRU fleet's
-# lifted stage, cartpole's and the wide fleet's (there, past nu = 4, Quu
-# is factored one row a lane, and one stage buffer a warp lets eight blocks
-# fit an SM: backward_fixed_smem_bytes).  Every other shape takes the
-# run-time backward kernel.
-_BACKWARD_INSTANCES = frozenset({(12, 4), (10, 1), (4, 1), (12, 10)})
+# lifted stage, cartpole's, the wide fleet's (there, past nu = 4, Quu is
+# factored one row a lane, and one stage buffer a warp lets eight blocks
+# fit an SM: backward_fixed_smem_bytes) and the LSTM fleet's lifted stage
+# (there, past nx = 16, the two O(nx^3) products take (row, float4 column)
+# tiles, 3 rows a lane over 30 lanes, in one stage buffer a warp).  Every
+# other shape takes the run-time backward kernel.
+_BACKWARD_INSTANCES = frozenset({(12, 4), (10, 1), (4, 1), (12, 10),
+                                 (18, 1)})
 # (nx, nu) -> ring depth D for which csrc/riccati_streamed.cu's forward
 # entry launches the compile-time instance riccati_general_forward_fixed<nx,
 # nu, 1, 0, D> (its C entry point's list): the four stages above.  Every

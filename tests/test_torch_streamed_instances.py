@@ -28,9 +28,10 @@ STREAMED = (CSRC / rk.STREAMED_SOURCE).read_text()
 GENERAL = (CSRC / rk.GENERAL_SOURCE).read_text()
 HEADER = (CSRC / "riccati_forward_fixed.cuh").read_text()
 PLAIN_INSTANCES = {(12, 4), (10, 1), (4, 1)}
-# the forward instances, and the backward ones: the same stages and the
-# wide fleet's (12, 10)
+# the forward instances: those stages and the wide fleet's (12, 10); the
+# backward ones: the same and the LSTM fleet's lifted (18, 1)
 FORWARD_SHAPES = PLAIN_INSTANCES | {(12, 10)}
+BACKWARD_SHAPES = FORWARD_SHAPES | {(18, 1)}
 SMEM_PER_SM = 228 * 1024     # an H100 SM's shared memory
 SMEM_RESERVED = 1024         # the runtime's reserve a block
 
@@ -45,13 +46,15 @@ def test_forward_instances_match_the_c_entry_point():
     """riccati_forward_f32's list names each instance's ring depth, and is
     exactly _FORWARD_INSTANCES (shape -> depth): the quadrotor's, the GRU
     fleet's, cartpole's and the wide fleet's stages; riccati_backward_f32's
-    list is exactly _BACKWARD_INSTANCES, the same four stages."""
+    list is exactly _BACKWARD_INSTANCES, the same four stages and the LSTM
+    fleet's (18, 1)."""
     cases = _cases("RICCATI_FORWARD_CASE", STREAMED, 3)
     assert {(nx, nu): d for nx, nu, d in cases} == rk._FORWARD_INSTANCES
     assert len(cases) == len(rk._FORWARD_INSTANCES)
     assert set(rk._FORWARD_INSTANCES) == FORWARD_SHAPES
     bwd = _cases("RICCATI_BACKWARD_CASE", STREAMED, 2)
-    assert set(bwd) == FORWARD_SHAPES == set(rk._BACKWARD_INSTANCES)
+    assert set(bwd) == BACKWARD_SHAPES == set(rk._BACKWARD_INSTANCES)
+    assert BACKWARD_SHAPES - FORWARD_SHAPES == {(18, 1)}
     assert len(bwd) == len(rk._BACKWARD_INSTANCES)
     entry = STREAMED[STREAMED.index('int riccati_forward_f32('):]
     assert "int depth" not in entry[:entry.index("{")]
@@ -132,17 +135,20 @@ def test_each_ring_fits_eight_blocks(shape):
 # 2 x 564 + 580; (12, 10, 1, 0) one 816-float buffer (X 12 x 24, G and M
 # 253 each, mx 12, mu 10) and 856 of scratch (156 + 12 + Y 288 + Z 240 + W
 # 160): two buffers would take 9,952 bytes, and 8 blocks of 4 warps would
-# need 8 x (4 x 9,952 + 1,024) = 326,656 > 233,472.
+# need 8 x (4 x 9,952 + 1,024) = 326,656 > 233,472; (18, 1, 1, 0) one
+# 760-float buffer (X 18 x 20, G and M 190 each, mx 18, mu 1: 759) and 764
+# of scratch (P_new 18 x 19 = 342 -> 344, p 20, Y 360, Z 20, W 20): two
+# buffers would take 9,136 bytes, 8 x (4 x 9,136 + 1,024) = 300,544.
 @pytest.mark.parametrize("shape,buffers,nbytes", [
     ((12, 4, 1, 0), 2, 6432), ((10, 1, 1, 0), 2, 3184),
     ((4, 1, 1, 0), 2, 832), ((12, 4, 2, 1), 2, 6832),
-    ((12, 10, 1, 0), 1, 6688)])
+    ((12, 10, 1, 0), 1, 6688), ((18, 1, 1, 0), 1, 6096)])
 def test_backward_fixed_smem_hand_worked(shape, buffers, nbytes):
     """backward_fixed_smem_bytes mirrors FixedLayout::kFloats: the header's
-    own numbers, and at (12, 10) one stage buffer; every backward instance
-    (the plain and the general entries') leaves room for 8 blocks of 4
-    warps an SM, as __launch_bounds__(128, 8) asks (B=4096 in one wave on
-    132 SMs)."""
+    own numbers, and at (12, 10) and (18, 1) one stage buffer; every
+    backward instance (the plain and the general entries') leaves room for
+    8 blocks of 4 warps an SM, as __launch_bounds__(128, 8) asks (B=4096 in
+    one wave on 132 SMs)."""
     assert rk.backward_fixed_buffers(*shape) == buffers
     assert rk.backward_fixed_smem_bytes(*shape) == nbytes
     instances = ({(nx, nu, 1, 0) for nx, nu in rk._BACKWARD_INSTANCES}
@@ -151,8 +157,11 @@ def test_backward_fixed_smem_hand_worked(shape, buffers, nbytes):
     for s in instances:
         block = rk.STREAMED_WARPS * rk.backward_fixed_smem_bytes(*s)
         assert 8 * (block + SMEM_RESERVED) <= SMEM_PER_SM, s
-    if buffers == 1:   # a second 816-float stage buffer would not fit
-        assert 8 * (4 * (nbytes + 4 * 816) + SMEM_RESERVED) > SMEM_PER_SM
+    if buffers == 1:   # a second stage buffer (816 floats at (12, 10),
+        # 760 at (18, 1)) would not fit
+        stage = rk._fixed_stage_floats(*shape)
+        assert stage == {(12, 10, 1, 0): 816, (18, 1, 1, 0): 760}[shape]
+        assert 8 * (4 * (nbytes + 4 * stage) + SMEM_RESERVED) > SMEM_PER_SM
 
 
 def _designs():
@@ -165,19 +174,29 @@ def _designs():
     return path, mod
 
 
-@pytest.mark.parametrize("name", ["two buffers", "7-block cap", "lane kept",
-                                  "triangles unfolded", "Z rolled"])
-def test_backward_designs_edit_the_header_once(name):
-    """chip_backward_designs.py makes each other design of the (12, 10)
-    backward instance by one text edit of the committed header: the text it
-    replaces is there exactly once, and the edit changes it."""
+DESIGNS = {(12, 10): ["two buffers", "7-block cap", "lane kept",
+                      "triangles unfolded", "Z rolled"],
+           (18, 1): ["one lane a row", "7-block cap",
+                     "one lane a row, 7-block cap", "lane kept",
+                     "triangles unfolded"]}
+
+
+@pytest.mark.parametrize("stage,name", [(s, n) for s, names in DESIGNS.items()
+                                        for n in names])
+def test_backward_designs_edit_the_header_once(stage, name):
+    """chip_backward_designs.py makes each other design of the (12, 10) and
+    the (18, 1) backward instances by text edits of the committed header
+    (one each but where the name joins two): the text each replaces is
+    there exactly once, and each edit changes it."""
     _, mod = _designs()
     header = (CSRC / mod.HEADER).read_text()
-    assert set(mod.DESIGNS) == {"instance", "two buffers", "7-block cap",
-                                "lane kept", "triangles unfolded",
-                                "Z rolled"}
-    old, new = mod.DESIGNS[name]
-    assert header.count(old) == 1 and new not in header
+    assert set(mod.DESIGNS) == set(DESIGNS)
+    assert set(mod.DESIGNS[stage]) == {"instance", *DESIGNS[stage]}
+    assert mod.DESIGNS[stage]["instance"] is None
+    edits = mod.DESIGNS[stage][name]
+    assert len(edits) == (2 if "," in name else 1)
+    for old, new in edits:
+        assert header.count(old) == 1 and new not in header
 
 
 def test_backward_designs_refuse_without_a_card():
@@ -215,6 +234,25 @@ def test_forward_kernel_rule(nx, nu):
             assert a == b or a.replace(" ", "") not in b.replace(" ", "")
 
 
+def test_lstm_stage_takes_the_backward_instance():
+    """At the LSTM fleet's lifted (18, 1), H=100, the streamed plan names
+    the backward instance riccati_general_backward_fixed<18, 1, 1, 0> (past
+    nx = 16: one stage buffer, 6,096 B a warp) and the run-time forward
+    kernel, as backward_kernel and forward_kernel do: the backward list has
+    (18, 1), the forward list has not."""
+    plan = rk.kernel_plan(100, 18, 1, "cuda")
+    assert plan["path"] == "cuda_streamed"
+    assert plan["backward_kernel"] == rk.backward_kernel(18, 1) == (
+        "riccati_general_backward_fixed<18, 1, 1, 0>")
+    assert plan["forward_kernel"] == rk.forward_kernel(18, 1) == (
+        "riccati_forward_kernel")
+    assert (18, 1) in rk._BACKWARD_INSTANCES
+    assert (18, 1) not in rk._FORWARD_INSTANCES
+    assert (rk.backward_fixed_buffers(18, 1, 1, 0),
+            rk.backward_fixed_smem_bytes(18, 1, 1, 0)) == (1, 6096)
+    assert rk.kernel_plan(100, 18, 1, "cpu")["path"] == "plain"
+
+
 def test_new_wrappers_refuse_cpu_tensors():
     """The run-time forward wrapper and the forward wrapper at an instance's
     shape launch only on CUDA tensors; a refused call moves no counter."""
@@ -244,12 +282,13 @@ def test_new_wrappers_refuse_cpu_tensors():
 SPLIT_TOL = 2e-4    # tests/test_pallas_kernel.py's quadrotor-dims tolerance
 
 
-@pytest.mark.parametrize("nx,H", [(10, 100), (4, 50)])
+@pytest.mark.parametrize("nx,H", [(10, 100), (4, 50), (18, 100)])
 @pytest.mark.parametrize("kind", ["delta0", "delta_per_problem",
                                   "negative_curvature", "local_bump"])
 def test_plain_halves_match_reference_at_path_horizons(kind, nx, H):
-    """At the GRU fleet's lifted (10, 1), H=100 and cartpole's (4, 1), H=50
-    (the stages and horizons the new instances take on the card),
+    """At the GRU fleet's lifted (10, 1), H=100, cartpole's (4, 1), H=50 and
+    the LSTM fleet's lifted (18, 1), H=100 (the stages and horizons the
+    backward instances take on the card),
     riccati_backward_plain then riccati_forward_plain against the JAX
     package's scan reference (vmapped) on the seeded cases: ok flags
     equal, outputs of the ok problems within SPLIT_TOL·max(1, |ref|)."""
