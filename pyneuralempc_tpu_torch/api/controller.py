@@ -32,6 +32,7 @@ from ..solve.alm import ALMConfig, make_alm_solver
 from ..solve.diff import make_differentiable_solver
 from ..solve.interior_point import IPConfig, IPResult, make_solver
 from ..solve.pscan import riccati_sweep_pscan
+from ..utils import tracing
 
 
 class NMPCResult(NamedTuple):
@@ -364,19 +365,21 @@ class NMPC:
 
     def next(self, x0, p=None, tvp=None, init_x=None, init_u=None,
              params=None) -> NMPCResult:
-        x0 = torch.as_tensor(x0, device=self.device)
-        self._check(x0, p, tvp, init_x, init_u)
-        rt = self._runtime(x0[None], p, tvp, params, batched=False)
-        if self._carry is None or init_x is not None:
-            carry = self.cold_start(x0[None], None if init_x is None
-                                    else torch.as_tensor(init_x)[None],
-                                    None if init_u is None
-                                    else torch.as_tensor(init_u)[None],
-                                    p, tvp, params, per_member=())
-            self._carry, res = self._step(carry, rt, one=True)
-        else:
-            self._carry, res = self._warm_step(self._carry, rt, one=True)
-        return _unlead(res)
+        with tracing.span("nmpc.replan", device=self.device, B=1):
+            x0 = torch.as_tensor(x0, device=self.device)
+            self._check(x0, p, tvp, init_x, init_u)
+            rt = self._runtime(x0[None], p, tvp, params, batched=False)
+            if self._carry is None or init_x is not None:
+                carry = self.cold_start(x0[None], None if init_x is None
+                                        else torch.as_tensor(init_x)[None],
+                                        None if init_u is None
+                                        else torch.as_tensor(init_u)[None],
+                                        p, tvp, params, per_member=())
+                self._carry, res = self._step(carry, rt, one=True)
+            else:
+                self._carry, res = self._warm_step(self._carry, rt,
+                                                   one=True)
+            return _unlead(res)
 
     def reset(self):
         self._carry = None
@@ -405,22 +408,25 @@ class NMPC:
         are sliced; shared ones go to every slice whole.  Unlike the JAX
         package, ``None`` never picks a chunk by itself: its automatic
         choice works round a TPU's per-dispatch limit, which the card does
-        not have.
+        not have.  While a profiler records, the call records the span
+        ``nmpc.replan`` (:mod:`~pyneuralempc_tpu_torch.utils.tracing`), and
+        each slice's span is a child of it.
         """
         B = torch.as_tensor(x0s).shape[0]
-        if batch_chunk and B > batch_chunk:
-            if B % batch_chunk:
-                raise ValueError(f"batch {B} not divisible by batch_chunk "
-                                 f"{batch_chunk}")
-            return self._chunked_batch(x0s, p, tvp, params, carry,
-                                       batch_chunk)
-        rt = self._runtime(x0s, p, tvp, params)
-        if carry is None:
-            carry = self.cold_start(rt["x0"], p=rt["p"], tvp=rt["tvp"],
-                                    params=rt["params"],
-                                    per_member=rt["_per_member"])
-            return self._step(carry, rt)
-        return self._warm_step(carry, rt)
+        with tracing.span("nmpc.replan", device=self.device, B=B):
+            if batch_chunk and B > batch_chunk:
+                if B % batch_chunk:
+                    raise ValueError(f"batch {B} not divisible by "
+                                     f"batch_chunk {batch_chunk}")
+                return self._chunked_batch(x0s, p, tvp, params, carry,
+                                           batch_chunk)
+            rt = self._runtime(x0s, p, tvp, params)
+            if carry is None:
+                carry = self.cold_start(rt["x0"], p=rt["p"], tvp=rt["tvp"],
+                                        params=rt["params"],
+                                        per_member=rt["_per_member"])
+                return self._step(carry, rt)
+            return self._warm_step(carry, rt)
 
     def _chunked_batch(self, x0s, p, tvp, params, carry, chunk):
         """``next_batch`` as B / chunk slices solved one after another, each
@@ -457,22 +463,23 @@ class NMPC:
         from the same numbers.  ``return_index`` also returns the winner's
         index.
         """
-        x0 = torch.as_tensor(x0, device=self.device)
-        dims = self.spec.dims
-        x0s = x0.expand((n_starts,) + tuple(x0.shape)).contiguous()
-        rt = self._runtime(x0s, p, tvp, params)
-        base = self.cold_start(x0s, p=rt["p"], tvp=rt["tvp"],
-                               params=rt["params"],
-                               per_member=rt["_per_member"])
-        X, U, s = self.nlp.unpack(base.w)
-        du = multi_start_perturbations(generator, n_starts, self.H, dims.u,
-                                       noise).to(device=self.device,
-                                                 dtype=U.dtype)
-        carry = base._replace(w=self.nlp.pack(X, U + du, s))
-        _, res = self._step(carry, rt)
-        idx = multi_start_winner(res)
-        best = _pick(res, idx)
-        return (best, int(idx)) if return_index else best
+        with tracing.span("nmpc.replan", device=self.device, B=n_starts):
+            x0 = torch.as_tensor(x0, device=self.device)
+            dims = self.spec.dims
+            x0s = x0.expand((n_starts,) + tuple(x0.shape)).contiguous()
+            rt = self._runtime(x0s, p, tvp, params)
+            base = self.cold_start(x0s, p=rt["p"], tvp=rt["tvp"],
+                                   params=rt["params"],
+                                   per_member=rt["_per_member"])
+            X, U, s = self.nlp.unpack(base.w)
+            du = multi_start_perturbations(generator, n_starts, self.H,
+                                           dims.u, noise).to(
+                device=self.device, dtype=U.dtype)
+            carry = base._replace(w=self.nlp.pack(X, U + du, s))
+            _, res = self._step(carry, rt)
+            idx = multi_start_winner(res)
+            best = _pick(res, idx)
+            return (best, int(idx)) if return_index else best
 
     # ---- validation ----
 

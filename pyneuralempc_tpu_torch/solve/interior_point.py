@@ -44,6 +44,7 @@ import torch
 from torch.func import grad, hessian, jacrev, vjp, vmap
 
 from ..core.transcription import NLP
+from ..utils import tracing
 
 _BIG = 1e20
 
@@ -259,14 +260,17 @@ def kkt_step(W, Sigma, A, r_tilde, r_p, delta_c: float = 1e-8,
               & (curv >= 1e-10 * (dw * dw).sum(-1)))
         return dw, dlam, ok
 
-    dw, dlam, ok = factor(_DELTAS[0], slice(None))
+    with tracing.span("kkt.sweep"):
+        dw, dlam, ok = factor(_DELTAS[0], slice(None))
     if not retry:
         return dw, dlam, ok
     for delta in _DELTAS[1:]:
-        redo = torch.nonzero(~ok).flatten()
+        with tracing.span("sync.ladder"):
+            redo = torch.nonzero(~ok).flatten()
         if redo.numel() == 0:
             break
-        dw[redo], dlam[redo], ok[redo] = factor(delta, redo)
+        with tracing.span("kkt.sweep"):
+            dw[redo], dlam[redo], ok[redo] = factor(delta, redo)
     return dw, dlam, ok
 
 
@@ -568,10 +572,12 @@ def make_solver(nlp: NLP, config: IPConfig = IPConfig(),
         # --- Newton direction on the condensed KKT system ---
         Sigma = (torch.where(has_lb, zl / sl, 0.0)
                  + torch.where(has_ub, zu / su, 0.0))
-        blocks = prep_fn(w, lam, rt)
+        with tracing.span("kkt.prepare"):
+            blocks = prep_fn(w, lam, rt)
 
         def resolve_kkt(r2, c2, retry=True):
-            return solve_blocks_fn(blocks, Sigma, r2, c2, retry=retry)
+            with tracing.span("kkt.solve"):
+                return solve_blocks_fn(blocks, Sigma, r2, c2, retry=retry)
 
         # the barrier terms μ (less Mehrotra's second-order Δs∘Δz
         # corrections) over each bound's slack
@@ -629,74 +635,76 @@ def make_solver(nlp: NLP, config: IPConfig = IPConfig(),
                                  max=1.0)
 
         # --- merit line search on a fixed fan of step lengths ---
-        # penalty with decay toward the live multiplier estimate
-        nu_target = 1.1 * (lam + dlam).abs().amax(-1) + 1.0
-        nu = torch.clamp(torch.maximum(nu_target, 0.7 * nu), cfg.nu_init,
-                         1e5)
-        phi0 = barrier_value(w, rt, mu, strict=False)
-        merit0 = phi0 + nu * th0
-        grad_phi = (g - torch.where(has_lb, _col(mu) / sl, 0.0)
-                    + torch.where(has_ub, _col(mu) / su, 0.0))
-        D_phi = (grad_phi * dw).sum(-1)
-        D = D_phi - nu * th0
-        # f-type acceptance where θ is at its f32 noise floor
-        ftype = (th0 <= slack) & (D_phi < 0)
-        eps_m = 1.2e-6 * (1.0 + merit0.abs())
-        eps_f = 1.2e-6 * (1.0 + phi0.abs())
+        with tracing.span("ip.line_search"):
+            # penalty with decay toward the live multiplier estimate
+            nu_target = 1.1 * (lam + dlam).abs().amax(-1) + 1.0
+            nu = torch.clamp(torch.maximum(nu_target, 0.7 * nu), cfg.nu_init,
+                             1e5)
+            phi0 = barrier_value(w, rt, mu, strict=False)
+            merit0 = phi0 + nu * th0
+            grad_phi = (g - torch.where(has_lb, _col(mu) / sl, 0.0)
+                        + torch.where(has_ub, _col(mu) / su, 0.0))
+            D_phi = (grad_phi * dw).sum(-1)
+            D = D_phi - nu * th0
+            # f-type acceptance where θ is at its f32 noise floor
+            ftype = (th0 <= slack) & (D_phi < 0)
+            eps_m = 1.2e-6 * (1.0 + merit0.abs())
+            eps_f = 1.2e-6 * (1.0 + phi0.abs())
 
-        # Sequential backtracking with an embedded second-order correction
-        # on pass 1.  Every member still searching sits at the same pass j;
-        # a member that has taken its step is frozen.  bt counts a member's
-        # failed plain backtracks; th1/c1 keep the pass-0 trial for the
-        # SOC right-hand side α_max·c + c(w + α_max·dw).
-        n_pass = cfg.ls_backtracks + (1 if cfg.soc else 0)
-        Bn = w.shape[0]
-        acc = torch.zeros((Bn,), dtype=torch.bool, device=w.device)
-        bt = torch.zeros((Bn,), dtype=torch.int32, device=w.device)
-        step_w = torch.zeros_like(w)
-        step_lam = torch.zeros_like(lam)
-        th1 = torch.zeros_like(th0)
-        c1 = torch.zeros_like(c)
-        for j in range(n_pass):
-            if cfg.soc and j == 1:
-                # single δ=0 sweep with the same blocks
-                dw_s, dlam_s, ok_s = resolve_kkt(
-                    r_tilde, _col(alpha_pri_max) * c + c1, retry=False)
-                use_soc = (th1 >= th0) & ok_s & ~restore
-            else:
-                dw_s, dlam_s = dw, dlam
-                use_soc = torch.zeros_like(acc)
-            a_plain = alpha_pri_max * cfg.ls_factor ** bt.to(dtype)
-            a_j = torch.where(use_soc, ftb_tau(sl, su, dw_s, tau), a_plain)
-            d_j = torch.where(_col(use_soc), dw_s, dw)
-            dl_j = torch.where(_col(use_soc), dlam_s, dlam)
-            w_t = w + _col(a_j) * d_j
-            c_j = _vm(lambda ww, rt1: nlp.constraints(ww, rt1), rt, w_t)
-            phi_j = barrier_value(w_t, rt, mu)
-            th_j = theta_sum(c_j)
-            m_j = phi_j + nu * th_j
-            # SOC steps are judged against the α_max Armijo budget
-            a_ref = torch.where(use_soc, alpha_pri_max, a_j)
-            ok_std = (m_j <= merit0 + cfg.armijo_eta * a_ref
-                      * torch.clamp(D, max=0.0) + eps_m)
-            ok_f = (ftype & (th_j <= slack)
-                    & (phi_j <= phi0 + cfg.armijo_eta * a_j * D_phi
-                       + eps_f))
-            ok_rest = th_j <= (1.0 - cfg.armijo_eta * a_ref) * th0
-            ok_j = torch.where(restore, ok_rest, ok_std | ok_f)
-            # last pass: take the smallest step if it is at least finite
-            finite_j = (th_j < _BIG) & (phi_j < _BIG)
-            take = ok_j | ((j == n_pass - 1) & finite_j)
-            live = ~acc
-            if j == 0:
-                th1, c1 = th_j, c_j
-            bt = torch.where(live & ~(use_soc | ok_j), bt + 1, bt)
-            step_w = torch.where(_col(live & take), _col(a_j) * d_j, step_w)
-            step_lam = torch.where(_col(live & take), _col(a_j) * dl_j,
-                                   step_lam)
-            acc = acc | take
-            if bool(acc.all()):
-                break
+            # Sequential backtracking with an embedded second-order correction
+            # on pass 1.  Every member still searching sits at the same pass j;
+            # a member that has taken its step is frozen.  bt counts a member's
+            # failed plain backtracks; th1/c1 keep the pass-0 trial for the
+            # SOC right-hand side α_max·c + c(w + α_max·dw).
+            n_pass = cfg.ls_backtracks + (1 if cfg.soc else 0)
+            Bn = w.shape[0]
+            acc = torch.zeros((Bn,), dtype=torch.bool, device=w.device)
+            bt = torch.zeros((Bn,), dtype=torch.int32, device=w.device)
+            step_w = torch.zeros_like(w)
+            step_lam = torch.zeros_like(lam)
+            th1 = torch.zeros_like(th0)
+            c1 = torch.zeros_like(c)
+            for j in range(n_pass):
+                if cfg.soc and j == 1:
+                    # single δ=0 sweep with the same blocks
+                    dw_s, dlam_s, ok_s = resolve_kkt(
+                        r_tilde, _col(alpha_pri_max) * c + c1, retry=False)
+                    use_soc = (th1 >= th0) & ok_s & ~restore
+                else:
+                    dw_s, dlam_s = dw, dlam
+                    use_soc = torch.zeros_like(acc)
+                a_plain = alpha_pri_max * cfg.ls_factor ** bt.to(dtype)
+                a_j = torch.where(use_soc, ftb_tau(sl, su, dw_s, tau), a_plain)
+                d_j = torch.where(_col(use_soc), dw_s, dw)
+                dl_j = torch.where(_col(use_soc), dlam_s, dlam)
+                w_t = w + _col(a_j) * d_j
+                c_j = _vm(lambda ww, rt1: nlp.constraints(ww, rt1), rt, w_t)
+                phi_j = barrier_value(w_t, rt, mu)
+                th_j = theta_sum(c_j)
+                m_j = phi_j + nu * th_j
+                # SOC steps are judged against the α_max Armijo budget
+                a_ref = torch.where(use_soc, alpha_pri_max, a_j)
+                ok_std = (m_j <= merit0 + cfg.armijo_eta * a_ref
+                          * torch.clamp(D, max=0.0) + eps_m)
+                ok_f = (ftype & (th_j <= slack)
+                        & (phi_j <= phi0 + cfg.armijo_eta * a_j * D_phi
+                           + eps_f))
+                ok_rest = th_j <= (1.0 - cfg.armijo_eta * a_ref) * th0
+                ok_j = torch.where(restore, ok_rest, ok_std | ok_f)
+                # last pass: take the smallest step if it is at least finite
+                finite_j = (th_j < _BIG) & (phi_j < _BIG)
+                take = ok_j | ((j == n_pass - 1) & finite_j)
+                live = ~acc
+                if j == 0:
+                    th1, c1 = th_j, c_j
+                bt = torch.where(live & ~(use_soc | ok_j), bt + 1, bt)
+                step_w = torch.where(_col(live & take), _col(a_j) * d_j,
+                                     step_w)
+                step_lam = torch.where(_col(live & take), _col(a_j) * dl_j,
+                                       step_lam)
+                acc = acc | take
+                if tracing.read_bool("sync.ls", acc.all()):
+                    break
 
         w_new = w + step_w
         lam_new = lam + step_lam
@@ -733,9 +741,10 @@ def make_solver(nlp: NLP, config: IPConfig = IPConfig(),
 
         # end-of-step residuals: the next iteration's carry and the
         # convergence check for the point just produced
-        g_n, c_n, ATlam_n, ATc_n = residuals_at(w_new, lam_new, rt)
-        err_n = kkt_error(w_new, lam_new, zl_new, zu_new, g_n, ATlam_n,
-                          c_n, 0.0)
+        with tracing.span("ip.residuals"):
+            g_n, c_n, ATlam_n, ATc_n = residuals_at(w_new, lam_new, rt)
+            err_n = kkt_error(w_new, lam_new, zl_new, zu_new, g_n, ATlam_n,
+                              c_n, 0.0)
         conv_n = err_n <= cfg.tol
         # acceptable-level exit: no relative err progress for
         # acceptable_iter iterations while at or below acceptable_tol
@@ -771,8 +780,11 @@ def make_solver(nlp: NLP, config: IPConfig = IPConfig(),
         under the fraction-to-boundary cap; a final rollback guard keeps
         the polished point only where the μ=0 KKT error did not degrade."""
         mu_p = cfg.polish_mu
-        blocks = (state.blocks if _carry_blocks
-                  else prep_fn(state.w, state.lam, rt))
+        if _carry_blocks:
+            blocks = state.blocks
+        else:
+            with tracing.span("kkt.prepare"):
+                blocks = prep_fn(state.w, state.lam, rt)
         tau = torch.full_like(state.mu, cfg.tau_min)
         # f32-representable slack floor: lb + 1e-10 rounds to lb in f32
         fl = torch.where(has_lb, lb + 2e-7 * torch.clamp(lb.abs(), min=1.0),
@@ -788,8 +800,9 @@ def make_solver(nlp: NLP, config: IPConfig = IPConfig(),
                      - torch.where(has_ub, mu_p / su, 0.0))
             Sig = (torch.where(has_lb, zl / sl, 0.0)
                    + torch.where(has_ub, zu / su, 0.0))
-            dw, dlam, okp = solve_blocks_fn(blocks, Sig, g + ATl - bterm, c,
-                                            retry=False)
+            with tracing.span("kkt.solve"):
+                dw, dlam, okp = solve_blocks_fn(blocks, Sig, g + ATl - bterm,
+                                                c, retry=False)
             dzl = torch.where(has_lb, mu_p / sl - zl - (zl / sl) * dw, 0.0)
             dzu = torch.where(has_ub, (zu / su) * dw - zu + mu_p / su, 0.0)
             a_p = ftb_tau(sl, su, dw, tau)
@@ -837,7 +850,8 @@ def make_solver(nlp: NLP, config: IPConfig = IPConfig(),
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         try:
-            return _solve(rt, w0, lam0, zl0, zu0, mu0)
+            with tracing.span("ip.solve", device=w0.device):
+                return _solve(rt, w0, lam0, zl0, zu0, mu0)
         finally:
             (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32) = tf32
@@ -845,24 +859,27 @@ def make_solver(nlp: NLP, config: IPConfig = IPConfig(),
     def _solve(rt, w0, lam0, zl0, zu0, mu0):
         w0 = w0.to(dtype)
         rt = dict(rt)
-        if cfg.auto_scale:
-            # Ipopt gradient-based objective scaling: J scaled so its
-            # initial gradient has max magnitude <= scale_gmax
-            g0 = _vm(lambda w, rt1: grad(nlp.objective)(w, rt1), rt, w0)
-            rt["_s_obj"] = cfg.scale_gmax / torch.clamp(
-                g0.abs().amax(-1), min=cfg.scale_gmax)
-        else:
-            rt["_s_obj"] = torch.ones((w0.shape[0],), dtype=dtype,
-                                      device=w0.device)
-        state = init_state(rt, w0, lam0, zl0, zu0, mu0)
+        with tracing.span("ip.init"):
+            if cfg.auto_scale:
+                # Ipopt gradient-based objective scaling: J scaled so its
+                # initial gradient has max magnitude <= scale_gmax
+                g0 = _vm(lambda w, rt1: grad(nlp.objective)(w, rt1), rt, w0)
+                rt["_s_obj"] = cfg.scale_gmax / torch.clamp(
+                    g0.abs().amax(-1), min=cfg.scale_gmax)
+            else:
+                rt["_s_obj"] = torch.ones((w0.shape[0],), dtype=dtype,
+                                          device=w0.device)
+            state = init_state(rt, w0, lam0, zl0, zu0, mu0)
         # record: exactly max_iter iterations, no early exit (the members
         # that are done stay frozen), each iteration's values kept
         rec = []
         for _ in range(cfg.max_iter):
             live = ~state.done & (state.it < cfg.max_iter)
-            if not (cfg.record or bool(live.any())):
+            if not (cfg.record or tracing.read_bool("sync.live",
+                                                    live.any())):
                 break
-            state = iteration(state, rt)
+            with tracing.span("ip.iteration"):
+                state = iteration(state, rt)
             if cfg.record:
                 rec.append({"kkt_error": state.kkt_error, "mu": state.mu,
                             "objective": _vm(nlp.objective, rt, state.w),
@@ -870,7 +887,8 @@ def make_solver(nlp: NLP, config: IPConfig = IPConfig(),
                             "done": state.done})
         zl_warm, zu_warm = state.zl, state.zu       # pre-polish duals
         if cfg.polish_iters > 0:
-            state = polish(state, rt)
+            with tracing.span("ip.polish"):
+                state = polish(state, rt)
         err, c = state.err, state.c_res
         converged = state.converged | (err <= cfg.tol)
         theta_inf = c.abs().amax(-1)

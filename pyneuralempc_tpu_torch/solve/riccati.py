@@ -56,6 +56,7 @@ from ..ops.cuda.riccati_kernel import riccati_sweep
 from ..ops.cuda.riccati_kernel import riccati_sweep_plain as riccati_sweep_ref
 from ..ops.integrators import step_fn
 from ..ops.rollout import shift_states
+from ..utils import tracing
 
 __all__ = ["riccati_sweep", "riccati_sweep_ref", "riccati_sweep_general",
            "riccati_sweep_general_ref", "eligible", "make_riccati_direction"]
@@ -445,13 +446,15 @@ def make_riccati_direction(nlp: NLP, cfg, sweep_impl=None) -> Callable:
         never does) — the batch-first form of the JAX package's vmapped
         ``while_loop``.  ``retry=False`` does a single δ=0 sweep (the SOC
         and polish re-solves)."""
-        dw, dlam, ok = sweep(_DELTAS[0])
+        with tracing.span("kkt.sweep"):
+            dw, dlam, ok = sweep(_DELTAS[0])
         if not retry:
             return dw, dlam, ok
         for delta in _DELTAS[1:]:
-            if bool(ok.all()):
+            if tracing.read_bool("sync.ladder", ok.all()):
                 break
-            dw_i, dlam_i, ok_i = sweep(delta)
+            with tracing.span("kkt.sweep"):
+                dw_i, dlam_i, ok_i = sweep(delta)
             redo = ~ok
             dw = torch.where(redo[:, None], dw_i, dw)
             dlam = torch.where(redo[:, None], dlam_i, dlam)
