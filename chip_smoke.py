@@ -155,8 +155,15 @@ Phases (each raises, and the script exits non-zero, on failure):
 4g. Quadrotor MLP fleet (examples/quadrotor.py --mlp): the normalised
    surrogate fit on the card at the JAX example's settings, then B=1024,
    H=50: a cold solve, one untimed and 1 timed warm re-plan.  Counters as
-   in 4b; at least 994/1024 converged on every solve; the cold plans
-   approach hover.
+   in 4b, and the tanh layers' tangent-kernel launches (csrc/tanh_dense.cu,
+   K1 and K2) logged; at least 994/1024 converged on every solve; the
+   cold plans approach hover.  Then K1 (tanh_tangent_fwd_cuda) and K2
+   (tanh_tangent_vjp_cuda) at the benchmark cell's stage blocks (102,400
+   primal rows of 16 tangents; K1 at (K, N) = (19, 256) and (256, 256),
+   K2 at (256, 256) and (19, 256)): one launch a call, each output within
+   2e-5 of its scale of the plain version in float64 on the same inputs,
+   then timed as in 3 (device time, wrapper call, plain version, bound);
+   both are entries of the kernels line.
 4h. Wide fleet (pyneuralempc_tpu_torch/examples/fleet_wide.py, the JAX
    package's tools/fleet_wide_tpu.py: 12 states, 10 thrusts, H=50, RK4,
    B=4096, not cut): a cold solve, one untimed and 1 timed warm re-plan.
@@ -341,6 +348,16 @@ SWEEP_TOL = 2e-5
 STREAMED_TOL = 2e-4
 CARD_VS_CPU_DU = 1e-4
 N_CARD_VS_CPU = 16
+# the tanh layers' tangent kernels against their plain versions in float64:
+# f32 sums of K or N products in another order, every output within
+# TANH_TOL·max(1, max|plain|) (tests/test_torch_cuda.py's TANH_ATOL)
+TANH_TOL = 2e-5
+# the benchmark cell's stage blocks (quadrotor_mlp.track_b2048, B=2048,
+# H=50): primal rows, tangents a row, and each kernel's (K, N) there, the
+# first the entry's own, the second under its "other_shape"
+TANH_P, TANH_T = 102_400, 16
+TANH_SHAPES = {"tanh_tangent_fwd": ((256, 256), (19, 256)),
+               "tanh_tangent_vjp": ((256, 256), (19, 256))}
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores
 PALLAS = "pyneuralempc_tpu/ops/pallas/riccati_kernel.py"
@@ -2611,11 +2628,76 @@ def phase_cartpole(nempc, rk, rg, card):
         "multi_start_index": idx}
 
 
+def tanh_kernel_entries(td):
+    """K1 and K2 (csrc/tanh_dense.cu) at TANH_SHAPES: one launch a call,
+    each output held against the plain version in float64 on the same
+    inputs, then timed as kernel_entry times; an entry a kernel for the
+    kernels line (launches still 0), its second shape's numbers under
+    ``other_shape``."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(*shape, device="cuda", generator=g)
+    P, T = TANH_P, TANH_T
+    M = P * T
+    entries = []
+    for name, shapes in TANH_SHAPES.items():
+        fwd = name == "tanh_tangent_fwd"
+        cuda_fn = td.tangent_fwd_cuda if fwd else td.tangent_vjp_cuda
+        plain_fn = td.tangent_fwd_plain if fwd else td.tangent_vjp_plain
+        rows = []
+        for K, N in shapes:
+            y, W = torch.tanh(rand(P, N)), rand(K, N) / K ** 0.5
+            if fwd:
+                args = (rand(P, T, K), y, W)
+                nbytes = 4 * (M * K + M * N + P * N + K * N)
+                flops = 2 * M * K * N + 3 * M * N
+            else:
+                args = (rand(P, T, N), rand(P, T, N), rand(P, N), y, W)
+                nbytes = 4 * (2 * M * N + M * K + 2 * P * N + K * N)
+                flops = 2 * M * K * N + 7 * M * N
+            n0 = (td.K1_LAUNCHES, td.K2_LAUNCHES)
+            out = cuda_fn(*args)
+            torch.cuda.synchronize()
+            if (td.K1_LAUNCHES - n0[0], td.K2_LAUNCHES - n0[1]) != (
+                    int(fwd), int(not fwd)):
+                raise RuntimeError(f"{name} did not launch its kernel once")
+            ref = plain_fn(*(a.double() for a in args))
+            scale = max(1.0, float(ref.abs().max()))
+            err = float((out.double() - ref).abs().max())
+            del out, ref
+            shape = f"P={P}, T={T}, K={K}, N={N}"
+            log(f"{name} [{shape}] vs plain in float64: max |diff| "
+                f"{err:.3e}, scaled {err / scale:.3e} (limit {TANH_TOL})")
+            if not err <= TANH_TOL * scale:
+                raise RuntimeError(f"{name} differs from its plain version "
+                                   f"by {err:.3e} > {TANH_TOL} * {scale:.3g}")
+            entry = kernel_entry(
+                name, "tanh_dense.cu",
+                "none: torch.func's tangent pass of tanh(h W + b) as ATen "
+                "ops", lambda: cuda_fn(*args), "tanh_tangent_kernel",
+                lambda: plain_fn(*args), nbytes, flops, shape, plain_runs=5,
+                strict=True)
+            entry.update(shape={"P": P, "T": T, "K": K, "N": N},
+                         max_abs_err=err, max_scaled_err=err / scale)
+            rows.append(entry)
+            del args
+            torch.cuda.empty_cache()
+        entry, other = rows
+        entry["other_shape"] = {k: other[k] for k in (
+            "shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err", "max_scaled_err")}
+        entries.append(entry)
+    return entries
+
+
 def phase_quadrotor_mlp(nempc, rk, rg, card):
     """The quadrotor MLP fleet (examples/quadrotor.py --mlp): the
     normalised surrogate fit at the JAX example's settings, then B=1024,
     H=50: a cold solve, one untimed and QM_WARM_STEPS timed warm
-    re-plans."""
+    re-plans; then the tanh layers' tangent kernels at the benchmark
+    cell's shapes (tanh_kernel_entries), their launches those of the
+    fleet's re-plans."""
     from pyneuralempc_tpu_torch.examples import quadrotor
 
     t0 = time.perf_counter()
@@ -2625,10 +2707,12 @@ def phase_quadrotor_mlp(nempc, rk, rg, card):
         f"{rel_mse:.2e} ({time.perf_counter() - t0:.1f} s, 15000 Adam steps "
         "of 8192 on 262144 transitions, one step a CUDA graph replay; the "
         "JAX package's TPU record, quadrotor_mlp_tpu.log: 3.36e-04)")
+    from pyneuralempc_tpu_torch.ops.cuda import tanh_dense
     mpc = quadrotor.make_quadrotor_mpc("cuda", H=QH, model=model)
     x0s = quadrotor.quad_x0s(np.random.default_rng(0), QM_B, rates=True)
     xs = torch.as_tensor(x0s, device="cuda")
     reset_counters(rk, rg)
+    tanh0 = (tanh_dense.K1_LAUNCHES, tanh_dense.K2_LAUNCHES)
     t0 = time.perf_counter()
     carry, res = mpc.next_batch(xs, params=params)
     torch.cuda.synchronize()
@@ -2648,6 +2732,11 @@ def phase_quadrotor_mlp(nempc, rk, rg, card):
         params)
     conv += warm_conv
     n = only_instance_pair(rk, rg, "quadrotor MLP")
+    tanh = (tanh_dense.K1_LAUNCHES - tanh0[0],
+            tanh_dense.K2_LAUNCHES - tanh0[1])
+    log(f"tanh layers' tangent kernels (csrc/tanh_dense.cu): K1 {tanh[0]}, "
+        f"K2 {tanh[1]} launches over the cold and warm re-plans (none "
+        "below models/mlp.py's FUSED_MIN_ELEMENTS tangent rows x width)")
     if min(conv) < QM_MIN_CONVERGED:
         raise RuntimeError(f"quadrotor MLP convergence {conv} (cold, "
                            f"warm...) below {QM_MIN_CONVERGED}/{QM_B}")
@@ -2660,7 +2749,12 @@ def phase_quadrotor_mlp(nempc, rk, rg, card):
     split = report_split(nempc, mpc, carry, res.x[:, 0].contiguous(), res,
                          times, launches[-1], pair_ms, card, params=params)
     split.update(cold_s=cold_s, converged=conv)
-    return model, params, x0s, n["backward"], split
+    del carry, res, mpc
+    torch.cuda.empty_cache()
+    tanh_entries = tanh_kernel_entries(tanh_dense)
+    for entry, launched in zip(tanh_entries, tanh):
+        entry["launches"] = launched
+    return model, params, x0s, n["backward"], split, tanh_entries
 
 
 # ---- phases 4h, 4i, 4j: the wide fleet, the solver options, an import ----
@@ -4431,7 +4525,7 @@ def main():
 
 def run():
     import pyneuralempc_tpu_torch as nempc
-    from pyneuralempc_tpu_torch.ops.cuda import build
+    from pyneuralempc_tpu_torch.ops.cuda import build, tanh_dense
     rk = nempc.riccati_kernel
     rg = nempc.riccati_general
 
@@ -4448,7 +4542,7 @@ def run():
     # forward instance's other candidate depth, for the turns)
     t0 = time.perf_counter()
     sources = (rk.SOURCE, rk.STREAMED_SOURCE, rk.GENERAL_SOURCE,
-               rk.GENERAL_FUSED_SOURCE)
+               rk.GENERAL_FUSED_SOURCE, tanh_dense.SOURCE)
     alt_source = alt_depth_source(rk, build)
     built = build.build_all([build.CSRC_DIR / s for s in sources]
                             + [alt_source])
@@ -4503,8 +4597,8 @@ def run():
     cp_bwd["launches"], cp_fwd["launches"], cp_run = no_fallback(
         rk, "4f", phase_cartpole, nempc, rk, rg, card)
     (qm_model, qm_params, qm_x0s, bwd["quadrotor_mlp_launches"],
-     qm_split) = no_fallback(rk, "4g", phase_quadrotor_mlp, nempc, rk, rg,
-                             card)
+     qm_split, tanh_entries) = no_fallback(rk, "4g", phase_quadrotor_mlp,
+                                           nempc, rk, rg, card)
     bwd["quadrotor_mlp_instance_launches"] = bwd["quadrotor_mlp_launches"]
     fwd["quadrotor_mlp_launches"] = bwd["quadrotor_mlp_launches"]
     w_x0s, w_bwd["launches"], w_fwd["launches"], w_split = no_fallback(
@@ -4572,7 +4666,8 @@ def run():
         print(json.dumps({"phase": tag, **phase}))
     print(json.dumps({"kernels": [fused, bwd, fwd, gbwd, gfwd, gfused,
                                   rnn_bwd, rnn_fwd, cp_bwd, cp_fwd, w_bwd,
-                                  w_fwd, lstm_bwd, lstm_fwd]}))
+                                  w_fwd, lstm_bwd, lstm_fwd,
+                                  *tanh_entries]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -44,6 +44,7 @@ import torch
 from torch.func import grad, hessian, jacrev, vjp, vmap
 
 from ..core.transcription import NLP
+from ..ops.cuda import tanh_dense
 from ..utils import tracing
 
 _BIG = 1e20
@@ -184,6 +185,17 @@ def _select(keep, old, new):
         return tuple(_select(keep, o, n) for o, n in zip(old, new))
     return torch.where(keep.reshape(keep.shape + (1,) * (old.dim() - 1)),
                        old, new)
+
+
+def _prepare(prep_fn, w, lam, rt):
+    """``prep_fn(w, lam, rt)`` in the ``kkt.prepare`` span, which notes the
+    tanh layers' tangent-kernel launches the blocks made."""
+    with tracing.span("kkt.prepare") as sp:
+        before = tanh_dense.launch_counts()
+        blocks = prep_fn(w, lam, rt)
+        sp.note(**{k: n - before[k]
+                   for k, n in tanh_dense.launch_counts().items()})
+    return blocks
 
 
 def _vm(fn, rt, *args):
@@ -572,8 +584,7 @@ def make_solver(nlp: NLP, config: IPConfig = IPConfig(),
         # --- Newton direction on the condensed KKT system ---
         Sigma = (torch.where(has_lb, zl / sl, 0.0)
                  + torch.where(has_ub, zu / su, 0.0))
-        with tracing.span("kkt.prepare"):
-            blocks = prep_fn(w, lam, rt)
+        blocks = _prepare(prep_fn, w, lam, rt)
 
         def resolve_kkt(r2, c2, retry=True):
             with tracing.span("kkt.solve"):
@@ -783,8 +794,7 @@ def make_solver(nlp: NLP, config: IPConfig = IPConfig(),
         if _carry_blocks:
             blocks = state.blocks
         else:
-            with tracing.span("kkt.prepare"):
-                blocks = prep_fn(state.w, state.lam, rt)
+            blocks = _prepare(prep_fn, state.w, state.lam, rt)
         tau = torch.full_like(state.mu, cfg.tau_min)
         # f32-representable slack floor: lb + 1e-10 rounds to lb in f32
         fl = torch.where(has_lb, lb + 2e-7 * torch.clamp(lb.abs(), min=1.0),

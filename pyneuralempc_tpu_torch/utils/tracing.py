@@ -19,7 +19,9 @@ On, a span records:
   the end of the work queued before the span to the end of the span's last
   work, idle time while the host issued that work included; elsewhere the
   host interval stands in;
-* ``attrs``: the keywords the site passed (a root's batch size ``B``).
+* ``attrs``: the keywords the site passed (a root's batch size ``B``) or
+  noted from inside the span (``kkt.prepare``'s tanh-layer kernel
+  launches, ``k1_launches`` and ``k2_launches``).
 
 It also enters ``torch.profiler.record_function(name)``, which puts the span
 into the profiler's trace on the same clock as the device's operations.
@@ -61,6 +63,9 @@ class _Off:
     def __exit__(self, *exc):
         return False
 
+    def note(self, **attrs):
+        pass
+
 
 _OFF = _Off()
 
@@ -80,6 +85,11 @@ class Span:
     @property
     def host_ms(self) -> float:
         return (self.t1_ns - self.t0_ns) * 1e-6
+
+    def note(self, **attrs):
+        """Add ``attrs`` to the span's, from inside it (counts the site
+        knows only once its work is issued)."""
+        self.attrs.update(attrs)
 
     def __enter__(self):
         stack = _stack()

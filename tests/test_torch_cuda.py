@@ -1048,3 +1048,123 @@ def test_multi_start_draws_equal_on_card_and_cpu():
     assert i_card == i_cpu
     assert bool(card.converged.cpu()) == bool(cpu.converged)
     assert float((card.u.cpu() - cpu.u).abs().max()) <= 1e-4
+
+
+# ---- the tanh layers' tangent kernels (ops/cuda/tanh_dense.py) ----
+
+# Each kernel sums a row's K (K1) or N (K2) products in float32 in another
+# order than any library GEMM: held against its plain version in float64
+# on the same inputs, to 2e-5 of the output's scale (f32's 6e-8 times a
+# few hundred terms, with room).
+TANH_ATOL = 2e-5
+
+
+def _tanh_case(P, T, K, N, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(*shape, device="cuda", generator=g)
+    return {"hd": rand(P, T, K), "gd": rand(P, T, N), "yd": rand(P, T, N),
+            "y": torch.tanh(rand(P, N)), "g": rand(P, N),
+            "W": rand(K, N) / K ** 0.5}
+
+
+def _tanh_close(out, ref):
+    err = float((out.double() - ref).abs().max())
+    assert err <= TANH_ATOL * max(1.0, float(ref.abs().max())), err
+
+
+def _f64(*ts):
+    return [None if t is None else t.double() for t in ts]
+
+
+@pytest.mark.parametrize("kernel,K,N", [("k1", 19, 256), ("k1", 256, 256),
+                                        ("k2", 256, 256), ("k2", 19, 256)])
+def test_tanh_kernels_match_plain_at_the_cells_shapes(kernel, K, N):
+    """The stage blocks' shapes at B=2048, H=50: 102,400 primal rows of 16
+    tangents; K1 into the first layer (19 -> 256) and the second (256 ->
+    256), K2 out of the second (256 -> 256) and into the first (256 ->
+    19).  One launch a call."""
+    _card()
+    from pyneuralempc_tpu_torch.ops.cuda import tanh_dense as td
+    c = _tanh_case(102_400, 16, K, N)
+    launches = (td.K1_LAUNCHES, td.K2_LAUNCHES)
+    if kernel == "k1":
+        out = td.tangent_fwd_cuda(c["hd"], c["y"], c["W"])
+        _tanh_close(out, td.tangent_fwd_plain(*_f64(c["hd"], c["y"],
+                                                     c["W"])))
+        assert (td.K1_LAUNCHES, td.K2_LAUNCHES) == (launches[0] + 1,
+                                                    launches[1])
+    else:
+        out = td.tangent_vjp_cuda(c["gd"], c["yd"], c["g"], c["y"], c["W"])
+        _tanh_close(out, td.tangent_vjp_plain(*_f64(
+            c["gd"], c["yd"], c["g"], c["y"], c["W"])))
+        assert (td.K1_LAUNCHES, td.K2_LAUNCHES) == (launches[0],
+                                                    launches[1] + 1)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("P,T,K,N", [(37, 5, 19, 33), (1, 1, 3, 32),
+                                     (129, 3, 256, 19), (260, 16, 32, 3),
+                                     (41, 7, 17, 130)])
+def test_tanh_kernels_ragged_and_strided(P, T, K, N):
+    """Row counts P·T off every tile, widths off 4 and off the tiles, the
+    tangents at other strides (a transposed view, a tangent broadcast over
+    T at stride 0) and K2 with either tangent missing (a zero tangent)."""
+    _card()
+    from pyneuralempc_tpu_torch.ops.cuda import tanh_dense as td
+    c = _tanh_case(P, T, K, N, seed=P)
+    y, g, W = c["y"], c["g"], c["W"]
+    hd_t = c["hd"].transpose(0, 1).contiguous().transpose(0, 1)
+    hd_b = c["hd"][:, :1].expand(P, T, K)
+    for hd in (c["hd"], hd_t, hd_b):
+        _tanh_close(td.tangent_fwd_cuda(hd, y, W),
+                    td.tangent_fwd_plain(*_f64(hd, y, W)))
+    gd_t = c["gd"].transpose(0, 1).contiguous().transpose(0, 1)
+    for gd, yd in ((c["gd"], c["yd"]), (gd_t, c["yd"]), (None, c["yd"]),
+                   (c["gd"], None), (c["gd"][:, :1].expand(P, T, N), gd_t)):
+        _tanh_close(td.tangent_vjp_cuda(gd, yd, g, y, W),
+                    td.tangent_vjp_plain(*_f64(gd, yd, g, y, W)))
+    torch.cuda.synchronize()
+
+
+def test_quadrotor_mlp_goes_through_the_tanh_kernels(monkeypatch):
+    """A 2x256 tanh MLP over the quadrotor's (sin, cos) features, RK4, H=20,
+    its layers taken as TanhLayers at this size too: on the card every tanh
+    layer's tangent passes in the stage blocks are the kernels (K1 and K2
+    launch, FUSED_LAYERS counts, no plain tangent pass), and the plans
+    agree with the CPU port's to 1e-4 in u."""
+    _card()
+    from pyneuralempc_tpu_torch.examples.quadrotor import (
+        make_quadrotor_mpc, quad_features, quad_x0s)
+    from pyneuralempc_tpu_torch.models import mlp
+    from pyneuralempc_tpu_torch.ops.cuda import tanh_dense as td
+    monkeypatch.setattr(mlp, "FUSED_MIN_ELEMENTS", 0)
+    x0s = quad_x0s(np.random.default_rng(0), 16)
+    prm = nempc.mlp_init(torch.Generator().manual_seed(0), (19, 256, 256, 12),
+                         device="cpu")
+    acts = ("tanh", "tanh", "linear")
+
+    def surrogate(x, u, p, tvp, params):
+        z = torch.cat([quad_features(x), u - 1.2], dim=-1)
+        return 0.1 * nempc.mlp_apply(params, z, acts) + torch.cat(
+            [x[:, 3:6], torch.zeros_like(x[:, 3:])], dim=-1)
+
+    model = nempc.DynamicsModel(fn=surrogate, dims=nempc.Dims(12, 4),
+                                name="quad_rand_mlp")
+    res = {}
+    for dev in ("cuda", "cpu"):
+        mpc = make_quadrotor_mpc(dev, H=20, model=model)
+        before = (td.K1_LAUNCHES, td.K2_LAUNCHES, td.PLAIN_CALLS,
+                  mlp.FUSED_LAYERS)
+        _, res[dev] = mpc.next_batch(
+            torch.tensor(x0s, device=dev),
+            params=[{k: v.to(dev) for k, v in layer.items()}
+                    for layer in prm])
+        if dev == "cuda":
+            assert td.K1_LAUNCHES > before[0] and td.K2_LAUNCHES > before[1]
+            assert td.PLAIN_CALLS == before[2]
+            assert mlp.FUSED_LAYERS > before[3]
+    assert torch.equal(res["cuda"].converged.cpu(), res["cpu"].converged)
+    assert bool(res["cpu"].converged.any())
+    assert float((res["cuda"].u.cpu() - res["cpu"].u).abs().max()) <= 1e-4

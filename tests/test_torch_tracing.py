@@ -6,6 +6,7 @@
   ``nmpc.replan``; ``ip.iteration`` spans equal the lockstep iterations;
   every span lies inside its parent and shares its request; the profiler's
   events carry the names; a ``batch_chunk`` slice is a child, not a root.
+* ``kkt.prepare`` notes the tanh layers' tangent-kernel launches.
 * The profiler on or off gives the same plans bit for bit.
 * Dense backend: ``kkt.sweep`` spans equal the δ levels factored.
 * The buffer keeps the newest spans and counts those it dropped.
@@ -102,6 +103,34 @@ def test_on_one_root_with_nested_spans(fleet):
     assert {"nmpc.replan", "ip.solve", "ip.iteration", "kkt.prepare",
             "kkt.solve", "kkt.sweep", "ip.line_search", "ip.residuals",
             "sync.ls", "sync.live"} <= {e.name for e in prof.events()}
+
+
+def test_prepare_notes_the_tanh_kernel_launches(fleet, monkeypatch):
+    """Each ``kkt.prepare`` notes the tanh layers' tangent-kernel launches
+    its stage blocks made: one K1 and one K2 a tanh layer a model
+    evaluation (RK4's four, two layers; the layers taken as TanhLayers
+    at this small fleet's size too).  On the CPU the plain versions run
+    in the kernels' place; here each counts as its kernel's launch."""
+    from pyneuralempc_tpu_torch.models import mlp
+    from pyneuralempc_tpu_torch.ops.cuda import tanh_dense as td
+    mpc, params, carry = fleet
+    monkeypatch.setattr(mlp, "FUSED_MIN_ELEMENTS", 0)
+
+    def counted(name, counter):
+        real = getattr(td, name)
+
+        def plain(*args):
+            setattr(td, counter, getattr(td, counter) + 1)
+            return real(*args)
+        monkeypatch.setattr(td, name, plain)
+    counted("tangent_fwd_plain", "K1_LAUNCHES")
+    counted("tangent_vjp_plain", "K2_LAUNCHES")
+    with torch.profiler.profile(activities=CPU):
+        _, spans = _new_spans(lambda: mpc.next_batch(
+            X0S, params=params, carry=carry))
+    prep = [s.attrs for s in spans if s.name == "kkt.prepare"]
+    assert prep and all(a == {"k1_launches": 8, "k2_launches": 8}
+                        for a in prep)
 
 
 def test_a_batch_chunk_is_a_child_of_the_call(fleet):
