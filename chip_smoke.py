@@ -88,7 +88,12 @@ Phases (each raises, and the script exits non-zero, on failure):
    B=4096, and each case's first problem alone, the path's B=1), as 3b
    against the plain halves, the run-time kernels and the plain sweep;
    timed as in 3b at the paths' shapes ((4, 1) at B=4096 too, and at the
-   multi-start's B=8 without the turns).  Then the
+   multi-start's B=8 without the turns).  So too the quadrotor GRU's
+   lifted (28, 4) at H=100, B=4096 (the cases drawn at B=1024 and
+   repeated 4 times): the instances riccati_general_backward_fixed<28,
+   4, 1, 0> (the tall tiles at nu = 4) and riccati_general_forward_fixed<
+   28, 4, 1, 0, D>, whose launches the benchmark cell
+   quadrotor_gru.track_b4096 counts (0 here).  Then the
    wide fleet's (12, 10) at H=50, B=4096 (the cases drawn at B=1024 and
    repeated 4 times): the backward entry takes its instance
    riccati_general_backward_fixed<12, 10, 1, 0> there (Quu factored one
@@ -404,14 +409,19 @@ T_START = time.perf_counter()
 
 # the run-time streamed pair at the new paths' stages: (tag, nx, nu, H,
 # problems a seeded case draws, times the card repeats them, the path whose
-# launches count).  The GRU fleet's lifted stage is 2 states + 8 hidden.
+# launches count).  The GRU fleet's lifted stage is 2 states + 8 hidden;
+# the quadrotor GRU's (benchmark configuration quadrotor_gru, whose cell
+# runs the pair; no phase here does) 12 states + 16 hidden, 4 thrusts.
 RNN_B, RNN_H, RNN_NX = 16384, 100, 10
 CP_H, CP_NX, CP_TIME_B = 50, 4, 4096
+QG_B, QG_H, QG_NX, QG_NU, QG_CASE_B = 4096, 100, 28, 4, 1024
 NEW_STREAMED_SHAPES = (
     (f"nx={RNN_NX}, nu=1, H={RNN_H}, B={RNN_B}", RNN_NX, 1, RNN_H, 4096,
      RNN_B // 4096, "fleet_rnn"),
     (f"nx={CP_NX}, nu=1, H={CP_H}", CP_NX, 1, CP_H, CP_TIME_B, 1,
      "cartpole"),
+    ("quadrotor_gru", QG_NX, QG_NU, QG_H, QG_CASE_B, QG_B // QG_CASE_B,
+     "quadrotor_gru"),
 )
 # phase 4e: the GRU fleet (examples/fleet_rnn.py at its full size)
 RNN_WARM_STEPS = 1
@@ -1622,11 +1632,12 @@ def tiled_sweep_case(kind, seed, Bn, Hn, nx, nu, tile):
 
 def phase_streamed_new_shapes(rk, build_log):
     """The streamed instances at the GRU fleet's lifted stage (10, 1),
-    H=100, B=16384, and at cartpole's (4, 1), H=50, against the plain
-    halves, the run-time kernels and the plain sweep on the four seeded
-    cases ((4, 1) at B=4096 and on each case's first problem alone, the
-    path's B=1); then both timed against the run-time kernels at the paths'
-    shapes, (4, 1) at B=4096 too."""
+    H=100, B=16384, at cartpole's (4, 1), H=50, and at the quadrotor GRU's
+    (28, 4), H=100, B=4096, against the plain halves, the run-time kernels
+    and the plain sweep on the four seeded cases ((4, 1) at B=4096 and on
+    each case's first problem alone, the path's B=1); then both timed
+    against the run-time kernels at the paths' shapes, (4, 1) at B=4096
+    too."""
     out = {}
     for tag, nx, nu, Hn, b_case, tile, path in NEW_STREAMED_SHAPES:
         if (nx, nu) not in rk._BACKWARD_INSTANCES or \
@@ -4576,6 +4587,7 @@ def run():
                              logs[rk.STREAMED_SOURCE])
     rnn_bwd, rnn_fwd, rnn_pair_ms = new_shapes["fleet_rnn"]
     cp_bwd, cp_fwd, _ = new_shapes["cartpole"]
+    qg_bwd, qg_fwd, _ = new_shapes["quadrotor_gru"]
     w_bwd, w_fwd, w_pair_ms = no_fallback(
         rk, "3e wide", phase_streamed_wide, rk, logs[rk.STREAMED_SOURCE],
         library_forward(alt_built.path), alt_built.log)
@@ -4666,8 +4678,8 @@ def run():
         print(json.dumps({"phase": tag, **phase}))
     print(json.dumps({"kernels": [fused, bwd, fwd, gbwd, gfwd, gfused,
                                   rnn_bwd, rnn_fwd, cp_bwd, cp_fwd, w_bwd,
-                                  w_fwd, lstm_bwd, lstm_fwd,
-                                  *tanh_entries]}))
+                                  w_fwd, lstm_bwd, lstm_fwd, qg_bwd,
+                                  qg_fwd, *tanh_entries]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -388,8 +388,8 @@ class NMPC:
 
     def next_batch(self, x0s, p=None, tvp=None, params=None,
                    carry: Optional[WarmStart] = None,
-                   batch_chunk: Optional[int] = None
-                   ) -> Tuple[WarmStart, NMPCResult]:
+                   batch_chunk: Optional[int] = None, init_x=None,
+                   init_u=None) -> Tuple[WarmStart, NMPCResult]:
         """Solve a batch of MPC problems as one batch-first solve.
 
         ``x0s``: (B, x_dim).  ``p``/``tvp``/``params`` are shared across the
@@ -398,6 +398,12 @@ class NMPC:
         different model per member).  Returns the batched warm-start carry
         (pass it back in for receding-horizon use) and a batched
         :class:`NMPCResult`.
+
+        ``init_x`` (B, H, x_dim) and ``init_u`` (B, H, u_dim), given
+        together, are the cold start's plan, as ``next`` takes them: they
+        are used where there is no ``carry`` (a warm re-plan resumes from
+        the carry and ignores them); without them the cold start is the
+        model's rollout under zero control.
 
         ``batch_chunk``: solve the batch as B / batch_chunk slices of that
         many members, one after another, and concatenate every field of the
@@ -413,22 +419,33 @@ class NMPC:
         each slice's span is a child of it.
         """
         B = torch.as_tensor(x0s).shape[0]
+        if (init_x is None) != (init_u is None):
+            raise ValueError("init_x and init_u must be given together")
+        if init_x is not None:
+            dims = self.spec.dims
+            for name, v, n in (("init_x", init_x, dims.x),
+                               ("init_u", init_u, dims.u)):
+                if tuple(torch.as_tensor(v).shape) != (B, self.H, n):
+                    raise ValueError(f"{name} must be shape ({B}, {self.H}, "
+                                     f"{n})")
         with tracing.span("nmpc.replan", device=self.device, B=B):
             if batch_chunk and B > batch_chunk:
                 if B % batch_chunk:
                     raise ValueError(f"batch {B} not divisible by "
                                      f"batch_chunk {batch_chunk}")
                 return self._chunked_batch(x0s, p, tvp, params, carry,
-                                           batch_chunk)
+                                           batch_chunk, init_x, init_u)
             rt = self._runtime(x0s, p, tvp, params)
             if carry is None:
-                carry = self.cold_start(rt["x0"], p=rt["p"], tvp=rt["tvp"],
+                carry = self.cold_start(rt["x0"], init_x, init_u,
+                                        p=rt["p"], tvp=rt["tvp"],
                                         params=rt["params"],
                                         per_member=rt["_per_member"])
                 return self._step(carry, rt)
             return self._warm_step(carry, rt)
 
-    def _chunked_batch(self, x0s, p, tvp, params, carry, chunk):
+    def _chunked_batch(self, x0s, p, tvp, params, carry, chunk, init_x,
+                       init_u):
         """``next_batch`` as B / chunk slices solved one after another, each
         field of the carries and results concatenated along the batch."""
         x0s = torch.as_tensor(x0s, device=self.device)
@@ -442,6 +459,8 @@ class NMPC:
             sl = slice(i, i + chunk)
             own = {k: (_index(v, sl) if k in per else v)
                    for k, v in inputs.items()}
+            if init_x is not None:
+                own.update(init_x=init_x[sl], init_u=init_u[sl])
             outs.append(self.next_batch(
                 x0s[sl], carry=None if carry is None else _pick(carry, sl),
                 **own))

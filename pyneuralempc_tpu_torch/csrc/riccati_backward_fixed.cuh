@@ -108,8 +108,12 @@
 // set for 7 blocks is); at (18, 1, 1, 0) one 760-float stage buffer (759
 // used) and 764 floats of scratch, 6,096 bytes (two buffers, 9,136 bytes,
 // would fit 6 blocks an SM; a register cap set for 7 blocks, B=4096 in two
-// waves, measured 3.3% slower).  Every way 8 blocks of 4 warps (B=4096 in
-// one wave on 132 SMs) fit in 228 KB with the 64-register cap.  ptxas: 64
+// waves, measured 3.3% slower); at (28, 4, 1, 0) one 2,096-float stage
+// buffer (X 28 x 36, G and M 528 each, mx 28, mu 4) and 2,120 floats of
+// scratch (P_new 28 x 29 = 812, p 28, Y 1,008, Z 144, W 128), 16,864
+// bytes, so 3 blocks of 4 warps an SM (B=4096 in 2.6 waves on 132 SMs).
+// Every other way 8 blocks of 4 warps (B=4096 in one wave on 132 SMs) fit
+// in 228 KB with the 64-register cap.  ptxas: 64
 // registers and 96 bytes of spill stores and loads a thread at
 // (12, 4, 2, 1), 92 at (12, 4, 1, 0), 54 stores and 80 loads at
 // (12, 10, 1, 0), 20 at (10, 1, 1, 0), none at (4, 1, 1, 0) and

@@ -39,19 +39,23 @@
 //
 // The backward entry launches a compile-time instance of the backward
 // kernel at the quadrotor's (12, 4), the GRU fleet's lifted (10, 1),
-// cartpole's (4, 1), the wide fleet's (12, 10) and the LSTM fleet's lifted
-// (18, 1): riccati_general_backward_fixed<NX, NU, 1, 0>, the general
+// cartpole's (4, 1), the wide fleet's (12, 10), the LSTM fleet's lifted
+// (18, 1) and the quadrotor GRU's lifted (28, 4):
+// riccati_general_backward_fixed<NX, NU, 1, 0>, the general
 // sweep's template (riccati_backward_fixed.cuh, shared with
 // csrc/riccati_general.cu) at one right-hand side and no equality rows,
 // which computes this backward kernel's function with the stage's widths
 // fixed, operands reused from registers, G and M read as packed triangles
 // and four __syncwarp() phases a stage instead of ~20 (six at (12, 10):
 // Quu factored one row a lane, in one stage buffer a warp; six at
-// (18, 1): Pbar formed in place of P_new before tiles of the products, in
-// one stage buffer a warp).  The forward entry likewise launches
-// riccati_general_forward_fixed<NX, NU, 1, 0, D> (riccati_forward_fixed.cuh,
-// shared too) at the first four shapes: each warp's stage inputs requested
-// D stages ahead into a ring of stage slots, dx in registers.  The run-time
+// (18, 1) and (28, 4): Pbar formed in place of P_new before tiles of the
+// products, in one stage buffer a warp; at (28, 4) 16,864 bytes a warp, so
+// three blocks of four warps an SM and not eight).  The forward entry
+// likewise launches riccati_general_forward_fixed<NX, NU, 1, 0, D>
+// (riccati_forward_fixed.cuh, shared too) at the first four shapes and at
+// (28, 4): each warp's stage inputs requested D stages ahead into a ring of
+// stage slots, dx in registers (at (28, 4) 7,920 bytes a slot, so the
+// three slots of a warp leave room for two blocks an SM).  The run-time
 // kernels below take every other (nx, nu).
 //
 // Layouts (all float32, C-contiguous, batch first):
@@ -526,6 +530,7 @@ extern "C" int riccati_backward_f32(const void* A, const void* Bm,
   RICCATI_BACKWARD_CASE(4, 1)
   RICCATI_BACKWARD_CASE(12, 10)
   RICCATI_BACKWARD_CASE(18, 1)
+  RICCATI_BACKWARD_CASE(28, 4)
 #undef RICCATI_BACKWARD_CASE
   return static_cast<int>(backward_runtime(A, Bm, G, M, mx, mu, c, delta,
                                            gains, ok, nbatch, H, nx, nu,
@@ -567,6 +572,7 @@ extern "C" int riccati_forward_f32(const void* A, const void* Bm,
   RICCATI_FORWARD_CASE(10, 1, 4)
   RICCATI_FORWARD_CASE(4, 1, 8)
   RICCATI_FORWARD_CASE(12, 10, 2)
+  RICCATI_FORWARD_CASE(28, 4, 3)
 #undef RICCATI_FORWARD_CASE
   return static_cast<int>(forward_runtime(A, Bm, c, gains, dX, dU, dLam,
                                           nbatch, H, nx, nu, device, s));

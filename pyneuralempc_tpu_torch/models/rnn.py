@@ -12,6 +12,12 @@ the Riccati backend works unchanged, and every derivative (through the gate
 nonlinearities too) comes from ``torch.func``.  Box bounds apply to the
 physical block; the hidden block gets loose bounds.
 
+The GRU may read features of x in place of x (``feature_map``, e.g. an
+angle as its sine and cosine) and work in standardised units: its input
+[features(x) | u] less ``in_mu`` over ``in_sd``, its readout times
+``out_sd`` plus ``out_mu`` the state's change, as a surrogate fitted on
+standardised data is (:func:`gru_dynamics`).
+
 The cells are plain params-dict implementations (``torch.nn`` modules would
 hold their weights as state; here they are runtime data, as the MLP's
 are), in the JAX package's layouts, so :func:`.convert.params_from_numpy`
@@ -108,12 +114,43 @@ def gru_step(params, h, inp):
 @dataclasses.dataclass(frozen=True)
 class GRUDynamics(_Lifted):
     """Lifted GRU dynamics bundle (use ``.model`` with
-    integrator="direct")."""
+    integrator="direct").  ``in_dim``: the width of the GRU's input,
+    [features(x) | u] (x_dim + u_dim without a feature map);
+    ``feature_map`` and the scales are :func:`gru_dynamics`' (None: not
+    applied)."""
 
     model: DynamicsModel
     x_dim: int
     u_dim: int
     hidden: int
+    in_dim: Optional[int] = None
+    feature_map: Optional[Callable] = None
+    in_mu: Optional[torch.Tensor] = None
+    in_sd: Optional[torch.Tensor] = None
+    out_mu: Optional[torch.Tensor] = None
+    out_sd: Optional[torch.Tensor] = None
+
+    def gru_input(self, x, u):
+        """The GRU's input from states (…, x_dim) and controls (…, u_dim):
+        [features(x) | u], standardised where ``in_mu``/``in_sd`` are
+        given."""
+        feats = x if self.feature_map is None else self.feature_map(x)
+        inp = torch.cat([feats, u], dim=-1)
+        if self.in_mu is not None:
+            inp = inp - self.in_mu
+        if self.in_sd is not None:
+            inp = inp / self.in_sd
+        return inp
+
+    def readout(self, params, h):
+        """The state's change from the GRU's hidden state (…, hidden):
+        W_o h + b_o, times ``out_sd`` plus ``out_mu`` where given."""
+        dx = h @ params["wo"] + params["bo"]
+        if self.out_sd is not None:
+            dx = dx * self.out_sd
+        if self.out_mu is not None:
+            dx = dx + self.out_mu
+        return dx
 
     def lift(self, x0, h0=None):
         """z₀ = [x0, h0] (h0 zeros when None); ``x0`` may carry leading
@@ -128,35 +165,57 @@ class GRUDynamics(_Lifted):
                          hidden_bound)
 
     def init_params(self, generator: torch.Generator, device="cuda"):
-        return gru_init(generator, self.x_dim + self.u_dim, self.hidden,
-                        self.x_dim, device=device)
+        in_dim = self.in_dim or self.x_dim + self.u_dim
+        return gru_init(generator, in_dim, self.hidden, self.x_dim,
+                        device=device)
 
 
 def gru_dynamics(x_dim: int, u_dim: int, hidden: int = 16,
                  p_dim: int = 0, tvp_dim: int = 0,
-                 name: str = "gru") -> GRUDynamics:
-    """Build a lifted GRU dynamics model: x_{t+1} = x_t + W_o h_{t+1}."""
+                 name: str = "gru", feature_map: Optional[Callable] = None,
+                 in_mu=None, in_sd=None, out_mu=None,
+                 out_sd=None) -> GRUDynamics:
+    """Build a lifted GRU dynamics model:
+
+        h_{t+1} = GRU(h_t, ([features(x_t) | u_t] − in_mu) / in_sd),
+        x_{t+1} = x_t + (W_o h_{t+1} + b_o) · out_sd + out_mu.
+
+    ``feature_map`` (…, x_dim) -> (…, n_features) defaults to the identity;
+    each of the four scales ((n_features + u_dim,) for the input's,
+    (x_dim,) for the readout's) is left out where None, so the defaults
+    give x_{t+1} = x_t + W_o h_{t+1} + b_o on [x_t | u_t]."""
     nz = x_dim + hidden
+    in_dim = None
+    if feature_map is not None:
+        in_dim = int(feature_map(torch.zeros((1, x_dim))).shape[-1]) + u_dim
+    gd = GRUDynamics(model=None, x_dim=x_dim, u_dim=u_dim, hidden=hidden,
+                     in_dim=in_dim, feature_map=feature_map, in_mu=in_mu,
+                     in_sd=in_sd, out_mu=out_mu, out_sd=out_sd)
 
     def fn(z, u, p, tvp, params):
         x, h = z[:, :x_dim], z[:, x_dim:]
-        h_new = gru_step(params, h, torch.cat([x, u], dim=-1))
-        dx = h_new @ params["wo"] + params["bo"]
-        return torch.cat([x + dx, h_new], dim=-1)
+        h_new = gru_step(params, h, gd.gru_input(x, u))
+        return torch.cat([x + gd.readout(params, h_new), h_new], dim=-1)
 
     lifted = DynamicsModel(fn=fn, dims=Dims(nz, u_dim, p_dim, tvp_dim),
                            name=name)
-    return GRUDynamics(model=lifted, x_dim=x_dim, u_dim=u_dim, hidden=hidden)
+    return dataclasses.replace(gd, model=lifted)
 
 
-def _teacher_forced_loss(params, X, U, hidden):
-    """Mean over sequences and steps of ‖x̂_{t+1} − x_{t+1}‖², the GRU fed
-    the measured x_t and u_t: X (N, T+1, nx), U (N, T, nu).  The input
-    halves of the gate products for every step are one matmul each (the
-    inputs are known up front); only the hidden halves run step by step.
-    The same sums as :func:`gru_step`, grouped otherwise."""
+def _teacher_forced_loss(params, X, U, hidden,
+                         gd: Optional[GRUDynamics] = None):
+    """Mean over sequences and steps of ‖x̂_{t+1} − x_{t+1}‖² (each entry
+    over ``gd.out_sd`` where it is given), the GRU of ``gd`` (None: of
+    :func:`gru_dynamics`' defaults) fed the measured x_t and u_t: X (N,
+    T+1, nx), U (N, T, nu).  The input halves of the gate products for
+    every step are one matmul each (the inputs are known up front); only
+    the hidden halves run step by step.  The same sums as
+    :func:`gru_step`, grouped otherwise."""
+    if gd is None:
+        gd = GRUDynamics(model=None, x_dim=X.shape[-1], u_dim=U.shape[-1],
+                         hidden=hidden)
     N, T = U.shape[0], U.shape[1]
-    inp = torch.cat([X[:, :-1], U], dim=-1)              # (N, T, ni)
+    inp = gd.gru_input(X[:, :-1], U)                     # (N, T, ni)
     ni = inp.shape[-1]
     w_zr = torch.cat([params["wz"], params["wr"]], dim=1)
     gx_zr = inp @ w_zr[:ni] + torch.cat([params["bz"], params["br"]])
@@ -170,16 +229,19 @@ def _teacher_forced_loss(params, X, U, hidden):
         h_tilde = torch.tanh(gx_h[:, t] + (r * h) @ wh_h)
         h = (1.0 - z) * h + z * h_tilde
         hs.append(h)
-    pred = X[:, :-1] + torch.stack(hs, dim=1) @ params["wo"] + params["bo"]
-    return torch.mean(torch.sum((pred - X[:, 1:]) ** 2, dim=-1))
+    err = X[:, :-1] + gd.readout(params, torch.stack(hs, dim=1)) - X[:, 1:]
+    if gd.out_sd is not None:
+        err = err / gd.out_sd
+    return torch.mean(torch.sum(err ** 2, dim=-1))
 
 
 def fit_gru_on_sequences(gd: GRUDynamics, X_seqs, U_seqs, steps: int = 2000,
                          lr: float = 1e-3,
                          generator: Optional[torch.Generator] = None
                          ) -> Tuple[dict, float]:
-    """Teacher-forced sequence fitting by Adam: X_seqs (N, T+1, x_dim),
-    U_seqs (N, T, u_dim), on their device; batched over the N sequences
+    """Teacher-forced sequence fitting by Adam of ``gd``'s function (its
+    feature map and scales too): X_seqs (N, T+1, x_dim), U_seqs (N, T,
+    u_dim), on their device; batched over the N sequences
     with a loop over the T steps (on the card the step is replayed as a
     CUDA graph: :func:`.train.adam_steps`).  The init comes from
     ``generator`` (a CPU generator seeded 0 when None).  Returns (params,
@@ -192,7 +254,7 @@ def fit_gru_on_sequences(gd: GRUDynamics, X_seqs, U_seqs, steps: int = 2000,
     params = gd.init_params(generator, device=X_seqs.device)
     leaves = [t.requires_grad_() for t in params.values()]
     loss = adam_steps(leaves, lr, steps, lambda: _teacher_forced_loss(
-        params, X_seqs, U_seqs, gd.hidden))
+        params, X_seqs, U_seqs, gd.hidden, gd))
     return {k: v.detach() for k, v in params.items()}, loss
 
 

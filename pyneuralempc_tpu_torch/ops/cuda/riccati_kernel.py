@@ -23,12 +23,13 @@ the backward kernel (:468) and the forward kernel (:488).
   backward template (``csrc/riccati_backward_fixed.cuh``) at one right-hand
   side and no equality rows for the (nx, nu) in ``_BACKWARD_INSTANCES``
   (the quadrotor's (12, 4), the GRU fleet's lifted (10, 1), cartpole's
-  (4, 1), the wide fleet's (12, 10) and the LSTM fleet's lifted (18, 1)),
-  and the run-time kernel for every other; the forward entry likewise a
+  (4, 1), the wide fleet's (12, 10), the LSTM fleet's lifted (18, 1) and
+  the quadrotor GRU's lifted (28, 4)), and the run-time kernel for every
+  other; the forward entry likewise a
   compile-time instance of the general sweep's forward template
   (``csrc/riccati_forward_fixed.cuh``, a ring of stage slots a warp) for
-  the (nx, nu) in ``_FORWARD_INSTANCES`` (the first four), and the
-  run-time kernel for every other.
+  the (nx, nu) in ``_FORWARD_INSTANCES`` (the first four and the
+  quadrotor GRU's), and the run-time kernel for every other.
 
 Beside them:
 
@@ -96,19 +97,24 @@ _INSTANCES = frozenset({(2, 1)})
 # (its C entry point's list): the quadrotor fleets' stage, the GRU fleet's
 # lifted stage, cartpole's, the wide fleet's (there, past nu = 4, Quu is
 # factored one row a lane, and one stage buffer a warp lets eight blocks
-# fit an SM: backward_fixed_smem_bytes) and the LSTM fleet's lifted stage
+# fit an SM: backward_fixed_smem_bytes), the LSTM fleet's lifted stage
 # (there, past nx = 16, the two O(nx^3) products take (row, float4 column)
-# tiles, 3 rows a lane over 30 lanes, in one stage buffer a warp).  Every
-# other shape takes the run-time backward kernel.
+# tiles, 3 rows a lane over 30 lanes, in one stage buffer a warp) and the
+# quadrotor GRU's lifted stage (the same tiles, 10 rows a lane over 27
+# lanes; its one stage buffer a warp leaves room for 3 blocks an SM, not
+# 8).  Every other shape takes the run-time backward kernel.
 _BACKWARD_INSTANCES = frozenset({(12, 4), (10, 1), (4, 1), (12, 10),
-                                 (18, 1)})
+                                 (18, 1), (28, 4)})
 # (nx, nu) -> ring depth D for which csrc/riccati_streamed.cu's forward
 # entry launches the compile-time instance riccati_general_forward_fixed<nx,
-# nu, 1, 0, D> (its C entry point's list): the four stages above.  Every
-# other shape takes the run-time forward kernel.  Each depth was chosen by
-# turns on an H100 (PERF.md; eight blocks of four warps an SM cap the
-# depth at 3 at (12, 4) and at 2 at (12, 10)).
-_FORWARD_INSTANCES = {(12, 4): 2, (10, 1): 4, (4, 1): 8, (12, 10): 2}
+# nu, 1, 0, D> (its C entry point's list): the first four stages above and
+# the quadrotor GRU's.  Every other shape takes the run-time forward kernel.
+# Each depth was chosen by turns on an H100 (PERF.md; eight blocks of four
+# warps an SM cap the depth at 3 at (12, 4) and at 2 at (12, 10); at
+# (28, 4) no depth leaves room for eight, and depth 3, two blocks an SM,
+# was the fastest).
+_FORWARD_INSTANCES = {(12, 4): 2, (10, 1): 4, (4, 1): 8, (12, 10): 2,
+                      (28, 4): 3}
 # Stage widths csrc/riccati_streamed.cu takes: one lane per state row in
 # the forward kernel; nu <= 16 is the reference kernel's own cap.
 STREAMED_MAX_NX = 32

@@ -236,52 +236,56 @@ def make_riccati_direction(nlp: NLP, cfg, sweep_impl=None) -> Callable:
             G, J = jacfwd(grad_and_val)(xu)
             return J[:, :nx], J[:, nx:], G
 
-        A, Bm, G = over_stages(per_stage, xprev, U, lam_t)
+        with tracing.span("kkt.dynamics"):
+            A, Bm, G = over_stages(per_stage, xprev, U, lam_t)
         A = A.reshape(Bn, H, nx, nx)
         Bm = Bm.reshape(Bn, H, nx, nu)
         G = G.reshape(Bn, H, ns, ns)
 
-        if isinstance(stage_cost, StageCost):
-            def cost_block(x_n, u_t, tvp_t, p, params):
-                def f(z):
-                    return _call_user_fn(stage_cost.stage, z[:nx], z[nx:],
-                                         p, tvp_t)
-                return torch.func.hessian(f)(torch.cat([x_n, u_t]))
+        # the stage and terminal costs' Hessians, times the objective's
+        # scale
+        with tracing.span("kkt.cost"):
+            if isinstance(stage_cost, StageCost):
+                def cost_block(x_n, u_t, tvp_t, p, params):
+                    def f(z):
+                        return _call_user_fn(stage_cost.stage, z[:nx], z[nx:],
+                                             p, tvp_t)
+                    return torch.func.hessian(f)(torch.cat([x_n, u_t]))
 
-            M = over_stages(cost_block, X, U).reshape(Bn, H, ns, ns)
-            if stage_cost.terminal is not None:
-                def term_hessian(xH, p, tvp, params):
-                    def term(x):
-                        return (stage_cost.terminal(x, p) if p is not None
-                                else stage_cost.terminal(x))
-                    return torch.func.hessian(term)(xH)
-                term_h = over_members(term_hessian, X[:, -1])
-                M = M.clone()
-                M[:, -1, :nx, :nx] += term_h
-        else:
-            # Probe-certified SeparableObjective: the full J's Hessian is
-            # block-diagonal over stages, so each diagonal block is the
-            # Hessian of J restricted to that stage's variables (a terminal
-            # term lands in the last block by itself).
-            steps = torch.arange(H, device=w.device)
+                M = over_stages(cost_block, X, U).reshape(Bn, H, ns, ns)
+                if stage_cost.terminal is not None:
+                    def term_hessian(xH, p, tvp, params):
+                        def term(x):
+                            return (stage_cost.terminal(x, p) if p is not None
+                                    else stage_cost.terminal(x))
+                        return torch.func.hessian(term)(xH)
+                    term_h = over_members(term_hessian, X[:, -1])
+                    M = M.clone()
+                    M[:, -1, :nx, :nx] += term_h
+            else:
+                # Probe-certified SeparableObjective: the full J's Hessian is
+                # block-diagonal over stages, so each diagonal block is the
+                # Hessian of J restricted to that stage's variables (a terminal
+                # term lands in the last block by itself).
+                steps = torch.arange(H, device=w.device)
 
-            def blocks_of(X1, U1, p, tvp, params):
-                def restricted(t, z):
-                    at_t = (steps == t)[:, None]
+                def blocks_of(X1, U1, p, tvp, params):
+                    def restricted(t, z):
+                        at_t = (steps == t)[:, None]
 
-                    def f(zz):
-                        X2 = torch.where(at_t, zz[:nx], X1)
-                        U2 = torch.where(at_t, zz[nx:], U1)
-                        return _call_user_fn(stage_cost, X2, U2, p, tvp)
-                    return torch.func.hessian(f)(z)
-                return vmap(restricted)(steps, torch.cat([X1, U1], -1))
+                        def f(zz):
+                            X2 = torch.where(at_t, zz[:nx], X1)
+                            U2 = torch.where(at_t, zz[nx:], U1)
+                            return _call_user_fn(stage_cost, X2, U2, p, tvp)
+                        return torch.func.hessian(f)(z)
+                    return vmap(restricted)(steps, torch.cat([X1, U1], -1))
 
-            M = over_members(blocks_of, X, U)
-        # objective auto-scaling (interior_point.make_solver): the cost
-        # curvature must match the scaled gradient in r_tilde
-        s_obj = rt.get("_s_obj")
-        if s_obj is not None:
-            M = M * s_obj.reshape(-1, 1, 1, 1)
+                M = over_members(blocks_of, X, U)
+            # objective auto-scaling (interior_point.make_solver): the cost
+            # curvature must match the scaled gradient in r_tilde
+            s_obj = rt.get("_s_obj")
+            if s_obj is not None:
+                M = M * s_obj.reshape(-1, 1, 1, 1)
 
         # Stage-constraint blocks: the Jacobian J_g = ∂g/∂(x_{t+1}, u_t)
         # and (exact mode) the curvature ν_tᵀ∇²g_t by the same

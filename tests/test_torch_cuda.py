@@ -6,7 +6,8 @@ kernels, staged and direct) against their plain versions and each other,
 the wrappers' checks and dispatch, the LV, quadrotor, EQ/border
 quadrotor and budgeted LV paths on the card against the CPU, the streamed
 instances at the GRU fleet's and cartpole's stages, per-member params and
-the multi-start's draws.  They skip without a CUDA device.  This file imports no JAX, so on the card it runs
+the multi-start's draws, and the backward instance at the quadrotor GRU's
+lifted (28, 4).  They skip without a CUDA device.  This file imports no JAX, so on the card it runs
 without the JAX package's test configuration:
 
     python -m pytest --noconftest -o addopts="" tests/test_torch_cuda.py -q
@@ -853,6 +854,53 @@ def test_runtime_pair_at_new_stages(kind, B, H, nx):
     for o, r, q in zip(out, same, rt):
         assert _scaled_err(o, r, ok_ref) <= STREAMED_ATOL
         assert _scaled_err(o, q, ok_ref) <= STREAMED_ATOL
+    pair = rk.riccati_sweep_streamed_cuda(*args)
+    ref = rk.riccati_sweep_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(pair[3], ref[3])
+    for o, r in zip(pair[:3], ref[:3]):
+        assert _scaled_err(o, r, ref[3]) <= STREAMED_ATOL
+
+
+@pytest.mark.parametrize("kind", KINDS4)
+def test_backward_instance_at_the_gru_quadrotor_stage(kind):
+    """The quadrotor GRU's lifted stage (28, 4) at its cell's B=4096,
+    H=100: the backward entry launches riccati_general_backward_fixed<28,
+    4, 1, 0> (the tall tiles at nu = 4), the forward entry
+    riccati_general_forward_fixed<28, 4, 1, 0, 3>.  Gains and ok flags
+    against the plain backward and the run-time backward kernel, the
+    forward instance against the plain forward and, on the problems whose
+    factorisation held, bit for bit against the run-time forward kernel on
+    the same gains, the pair end to end against
+    the plain sweep, all within STREAMED_ATOL scaled; the counters."""
+    _card()
+    assert rk.backward_kernel(28, 4) == (
+        "riccati_general_backward_fixed<28, 4, 1, 0>")
+    assert rk.forward_kernel(28, 4) == (
+        "riccati_general_forward_fixed<28, 4, 1, 0, 3>")
+    args = [torch.as_tensor(a, device="cuda")
+            for a in sweep_case(kind, B=4096, H=100, nx=28, nu=4, seed=28)]
+    n0 = (rk.BACKWARD_LAUNCHES, rk.BACKWARD_INSTANCE_LAUNCHES,
+          rk.FORWARD_LAUNCHES, rk.FORWARD_INSTANCE_LAUNCHES)
+    gains, ok = rk.riccati_backward_cuda(*args)
+    out = rk.riccati_forward_cuda(args[0], args[1], args[6], gains)
+    torch.cuda.synchronize()
+    assert (rk.BACKWARD_LAUNCHES, rk.BACKWARD_INSTANCE_LAUNCHES,
+            rk.FORWARD_LAUNCHES, rk.FORWARD_INSTANCE_LAUNCHES) == (
+        n0[0] + 1, n0[1] + 1, n0[2] + 1, n0[3] + 1)
+    for o, r in zip(out, rk.riccati_forward_runtime_cuda(
+            args[0], args[1], args[6], gains)):
+        _same_bits(o[ok], r[ok])
+    g_rt, ok_rt = rk.riccati_backward_runtime_cuda(*args)
+    g_ref, ok_ref = rk.riccati_backward_plain(*args)
+    assert torch.equal(ok, ok_ref) and torch.equal(ok_rt, ok_ref)
+    assert _scaled_err(gains, g_ref, ok_ref) <= STREAMED_ATOL
+    assert _scaled_err(gains, g_rt, ok_ref) <= STREAMED_ATOL
+    del g_rt, g_ref
+    same = rk.riccati_forward_plain(args[0], args[1], args[6], gains)
+    for o, r in zip(out, same):
+        assert _scaled_err(o, r, ok_ref) <= STREAMED_ATOL
+    del same, out, gains
     pair = rk.riccati_sweep_streamed_cuda(*args)
     ref = rk.riccati_sweep_plain(*args)
     torch.cuda.synchronize()

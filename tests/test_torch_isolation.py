@@ -132,3 +132,20 @@ def test_every_port_test_file_sets_one_torch_thread():
         assert "_torch_threads" in _imports(f), f
     import torch
     assert torch.get_num_threads() == 1
+
+
+def test_gru_reference_imports_neither_the_port_nor_jax():
+    """tests/_torch_gru_reference.py, the plain reference of the lifted
+    GRU, is plain torch: it imports no JAX, nothing of the JAX package and
+    nothing of the port, and run alone it loads none of them."""
+    path = ROOT / "tests" / "_torch_gru_reference.py"
+    names = {n.split(".")[0] for n in _imports(path)}
+    assert names == {"torch"}
+    code = ("import sys; sys.path.insert(0, 'tests'); "
+            "import _torch_gru_reference; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN + ('pyneuralempc_tpu_torch',)!r}]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr

@@ -171,7 +171,8 @@ def test_inside_the_envelope_nothing_falls_back():
     """Every plan a kernel takes keeps its kernel: no fallback at the
     paths' shapes."""
     for H, nx, nu, R, r in ((20, 2, 1, 1, 0), (50, 12, 4, 1, 0),
-                            (100, 18, 1, 1, 0), (100, 32, 16, 1, 0),
+                            (100, 18, 1, 1, 0), (100, 28, 4, 1, 0),
+                            (100, 32, 16, 1, 0),
                             (50, 12, 4, 2, 1), (20, 2, 1, 2, 0),
                             (10, 32, 16, 65, 16)):
         assert rk.kernel_plan(H, nx, nu, "cuda", R=R, r=r)["path"] \

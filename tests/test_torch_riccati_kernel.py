@@ -298,25 +298,26 @@ STREAMED_SOURCE = (Path(__file__).resolve().parents[1]
 def test_plain_backward_instances_match_the_c_entry_point():
     """The streamed backward entry's list of compile-time instances is
     exactly _BACKWARD_INSTANCES: the quadrotor fleets' stage, the GRU
-    fleet's lifted stage, cartpole's, the wide fleet's and the LSTM
-    fleet's lifted stage."""
+    fleet's lifted stage, cartpole's, the wide fleet's, the LSTM fleet's
+    lifted stage and the quadrotor GRU's lifted stage."""
     cases = re.findall(r"^\s*RICCATI_BACKWARD_CASE\((\d+), (\d+)\)\s*$",
                        STREAMED_SOURCE.read_text(), re.M)
     assert {tuple(map(int, t)) for t in cases} == rk._BACKWARD_INSTANCES
     assert len(cases) == len(rk._BACKWARD_INSTANCES)
     assert rk._BACKWARD_INSTANCES == {(12, 4), (10, 1), (4, 1), (12, 10),
-                                      (18, 1)}
+                                      (18, 1), (28, 4)}
 
 
 @pytest.mark.parametrize("nx,nu", [(12, 4), (10, 1), (4, 1), (4, 2),
-                                   (12, 10), (18, 1), (32, 16)])
+                                   (12, 10), (18, 1), (32, 16), (28, 4)])
 def test_backward_kernel_rule(nx, nu):
     """The instance (the general template at one right-hand side and no
-    equality rows) at (12, 4), (10, 1), (4, 1), (12, 10) and (18, 1), the
-    run-time kernel at any other shape; both stay on the streamed path."""
+    equality rows) at (12, 4), (10, 1), (4, 1), (12, 10), (18, 1) and
+    (28, 4), the run-time kernel at any other shape; both stay on the
+    streamed path."""
     assert rk.kernel_plan(50, nx, nu, "cuda")["path"] == "cuda_streamed"
     name = rk.backward_kernel(nx, nu)
-    if (nx, nu) in {(12, 4), (10, 1), (4, 1), (12, 10), (18, 1)}:
+    if (nx, nu) in {(12, 4), (10, 1), (4, 1), (12, 10), (18, 1), (28, 4)}:
         assert name == f"riccati_general_backward_fixed<{nx}, {nu}, 1, 0>"
     else:
         assert name == "riccati_backward_kernel"
@@ -324,7 +325,8 @@ def test_backward_kernel_rule(nx, nu):
     # the instances differ in their template arguments
     names = (rk.backward_kernel(12, 4), rk.backward_kernel(10, 1),
              rk.backward_kernel(4, 1), rk.backward_kernel(12, 10),
-             rk.backward_kernel(18, 1), "riccati_backward_kernel",
+             rk.backward_kernel(18, 1), rk.backward_kernel(28, 4),
+             "riccati_backward_kernel",
              "riccati_general_backward_fixed<12, 4, 2, 1>",
              "riccati_general_backward_kernel")
     for a in names:

@@ -28,9 +28,10 @@ STREAMED = (CSRC / rk.STREAMED_SOURCE).read_text()
 GENERAL = (CSRC / rk.GENERAL_SOURCE).read_text()
 HEADER = (CSRC / "riccati_forward_fixed.cuh").read_text()
 PLAIN_INSTANCES = {(12, 4), (10, 1), (4, 1)}
-# the forward instances: those stages and the wide fleet's (12, 10); the
-# backward ones: the same and the LSTM fleet's lifted (18, 1)
-FORWARD_SHAPES = PLAIN_INSTANCES | {(12, 10)}
+# the forward instances: those stages, the wide fleet's (12, 10) and the
+# quadrotor GRU's lifted (28, 4); the backward ones: the same and the LSTM
+# fleet's lifted (18, 1)
+FORWARD_SHAPES = PLAIN_INSTANCES | {(12, 10), (28, 4)}
 BACKWARD_SHAPES = FORWARD_SHAPES | {(18, 1)}
 SMEM_PER_SM = 228 * 1024     # an H100 SM's shared memory
 SMEM_RESERVED = 1024         # the runtime's reserve a block
@@ -45,9 +46,9 @@ def _cases(macro, text, n):
 def test_forward_instances_match_the_c_entry_point():
     """riccati_forward_f32's list names each instance's ring depth, and is
     exactly _FORWARD_INSTANCES (shape -> depth): the quadrotor's, the GRU
-    fleet's, cartpole's and the wide fleet's stages; riccati_backward_f32's
-    list is exactly _BACKWARD_INSTANCES, the same four stages and the LSTM
-    fleet's (18, 1)."""
+    fleet's, cartpole's, the wide fleet's and the quadrotor GRU's stages;
+    riccati_backward_f32's list is exactly _BACKWARD_INSTANCES, the same
+    five stages and the LSTM fleet's (18, 1)."""
     cases = _cases("RICCATI_FORWARD_CASE", STREAMED, 3)
     assert {(nx, nu): d for nx, nu, d in cases} == rk._FORWARD_INSTANCES
     assert len(cases) == len(rk._FORWARD_INSTANCES)
@@ -104,12 +105,14 @@ def test_forward_template_lives_in_one_header():
 
 
 @pytest.mark.parametrize("nx,nu,floats", [(12, 4, 476), (10, 1, 272),
-                                          (4, 1, 68), (12, 10, 700)])
+                                          (4, 1, 68), (12, 10, 700),
+                                          (28, 4, 1980)])
 def test_forward_slot_floats_hand_worked(nx, nu, floats):
     """One stage slot at one right-hand side and no equality rows: A, B, c
     and the gains, each with 3 floats of room for its source's offset,
     rounded to 16 bytes (at (4, 1): 20 + 8 + 8 + 32; at (12, 10): 148 +
-    124 + 16 + 412)."""
+    124 + 16 + 412; at (28, 4): 788 + 116 + 32 + 1,044, the gains K 112,
+    k 4, Pbar 784, pbar 28 and Mxu 112)."""
     assert rk.forward_slot_floats(nx, nu, 1, 0) == floats
 
 
@@ -117,8 +120,17 @@ def test_forward_slot_floats_hand_worked(nx, nu, floats):
 def test_each_ring_fits_eight_blocks(shape):
     """At its depth (and at the cap) a block of four warps' rings leaves
     room for eight blocks an SM, as __launch_bounds__(128, 8) asks; the
-    next depth past the cap would not."""
+    next depth past the cap would not.  At the quadrotor GRU's (28, 4) no
+    depth leaves room for eight (a 7,920-byte slot a warp): its depth 3
+    leaves room for two blocks an SM."""
     nx, nu = shape
+    if shape == (28, 4):
+        assert 8 * (rk.forward_ring_bytes(28, 4, 1, 0, 1)
+                    + SMEM_RESERVED) > SMEM_PER_SM
+        depth = rk._FORWARD_INSTANCES[shape]
+        assert depth == 3 and SMEM_PER_SM // (
+            rk.forward_ring_bytes(28, 4, 1, 0, depth) + SMEM_RESERVED) == 2
+        return
     cap = {(12, 4): 3, (10, 1): 6, (4, 1): 25, (12, 10): 2}[shape]
     for depth in (rk._FORWARD_INSTANCES[shape], cap):
         assert depth <= cap
@@ -138,17 +150,23 @@ def test_each_ring_fits_eight_blocks(shape):
 # need 8 x (4 x 9,952 + 1,024) = 326,656 > 233,472; (18, 1, 1, 0) one
 # 760-float buffer (X 18 x 20, G and M 190 each, mx 18, mu 1: 759) and 764
 # of scratch (P_new 18 x 19 = 342 -> 344, p 20, Y 360, Z 20, W 20): two
-# buffers would take 9,136 bytes, 8 x (4 x 9,136 + 1,024) = 300,544.
+# buffers would take 9,136 bytes, 8 x (4 x 9,136 + 1,024) = 300,544;
+# (28, 4, 1, 0) one 2,096-float buffer (X 28 x 36, G and M 528 each, mx 28,
+# mu 4) and 2,120 of scratch (P_new 28 x 29 = 812, p 28, Y 1,008, Z 144, W
+# 128): 16,864 bytes, so a block of 4 warps takes 67,456 and 3 blocks fit
+# an SM (3 x 68,480 = 205,440), 4 do not.
 @pytest.mark.parametrize("shape,buffers,nbytes", [
     ((12, 4, 1, 0), 2, 6432), ((10, 1, 1, 0), 2, 3184),
     ((4, 1, 1, 0), 2, 832), ((12, 4, 2, 1), 2, 6832),
-    ((12, 10, 1, 0), 1, 6688), ((18, 1, 1, 0), 1, 6096)])
+    ((12, 10, 1, 0), 1, 6688), ((18, 1, 1, 0), 1, 6096),
+    ((28, 4, 1, 0), 1, 16864)])
 def test_backward_fixed_smem_hand_worked(shape, buffers, nbytes):
     """backward_fixed_smem_bytes mirrors FixedLayout::kFloats: the header's
-    own numbers, and at (12, 10) and (18, 1) one stage buffer; every
-    backward instance (the plain and the general entries') leaves room for
-    8 blocks of 4 warps an SM, as __launch_bounds__(128, 8) asks (B=4096 in
-    one wave on 132 SMs)."""
+    own numbers, and at (12, 10), (18, 1) and (28, 4) one stage buffer;
+    every backward instance (the plain and the general entries') but the
+    quadrotor GRU's leaves room for 8 blocks of 4 warps an SM, as
+    __launch_bounds__(128, 8) asks (B=4096 in one wave on 132 SMs); that
+    one's, past the 8 blocks' 7,040 bytes a warp, for 3."""
     assert rk.backward_fixed_buffers(*shape) == buffers
     assert rk.backward_fixed_smem_bytes(*shape) == nbytes
     instances = ({(nx, nu, 1, 0) for nx, nu in rk._BACKWARD_INSTANCES}
@@ -156,11 +174,13 @@ def test_backward_fixed_smem_hand_worked(shape, buffers, nbytes):
     assert shape in instances
     for s in instances:
         block = rk.STREAMED_WARPS * rk.backward_fixed_smem_bytes(*s)
-        assert 8 * (block + SMEM_RESERVED) <= SMEM_PER_SM, s
+        fits = SMEM_PER_SM // (block + SMEM_RESERVED)
+        assert fits == 3 if s == (28, 4, 1, 0) else fits >= 8, s
     if buffers == 1:   # a second stage buffer (816 floats at (12, 10),
-        # 760 at (18, 1)) would not fit
+        # 760 at (18, 1), 2,096 at (28, 4)) would not fit 8 blocks
         stage = rk._fixed_stage_floats(*shape)
-        assert stage == {(12, 10, 1, 0): 816, (18, 1, 1, 0): 760}[shape]
+        assert stage == {(12, 10, 1, 0): 816, (18, 1, 1, 0): 760,
+                         (28, 4, 1, 0): 2096}[shape]
         assert 8 * (4 * (nbytes + 4 * stage) + SMEM_RESERVED) > SMEM_PER_SM
 
 
@@ -214,7 +234,7 @@ def test_backward_designs_refuse_without_a_card():
 
 
 @pytest.mark.parametrize("nx,nu", [(12, 4), (10, 1), (4, 1), (4, 2),
-                                   (12, 10), (32, 16)])
+                                   (12, 10), (32, 16), (28, 4)])
 def test_forward_kernel_rule(nx, nu):
     """The forward instance, named with its template arguments (its ring
     depth last), at the instances' shapes; the run-time kernel at any
@@ -251,6 +271,24 @@ def test_lstm_stage_takes_the_backward_instance():
     assert (rk.backward_fixed_buffers(18, 1, 1, 0),
             rk.backward_fixed_smem_bytes(18, 1, 1, 0)) == (1, 6096)
     assert rk.kernel_plan(100, 18, 1, "cpu")["path"] == "plain"
+
+
+def test_gru_quadrotor_stage_takes_the_backward_instance():
+    """At the quadrotor GRU's lifted (28, 4), H=100, the streamed plan names
+    the backward instance riccati_general_backward_fixed<28, 4, 1, 0> (the
+    tall tiles at nu = 4: one stage buffer, 16,864 B a warp) and the
+    forward instance riccati_general_forward_fixed<28, 4, 1, 0, 3>: both
+    lists have (28, 4), and nothing falls back."""
+    plan = rk.kernel_plan(100, 28, 4, "cuda")
+    assert plan["path"] == "cuda_streamed"
+    assert plan["backward_kernel"] == rk.backward_kernel(28, 4) == (
+        "riccati_general_backward_fixed<28, 4, 1, 0>")
+    assert plan["forward_kernel"] == rk.forward_kernel(28, 4) == (
+        "riccati_general_forward_fixed<28, 4, 1, 0, 3>")
+    assert (28, 4) in rk._BACKWARD_INSTANCES
+    assert rk._FORWARD_INSTANCES[28, 4] == 3
+    assert (rk.backward_fixed_buffers(28, 4, 1, 0),
+            rk.backward_fixed_smem_bytes(28, 4, 1, 0)) == (1, 16864)
 
 
 def test_new_wrappers_refuse_cpu_tensors():
@@ -293,6 +331,30 @@ def test_plain_halves_match_reference_at_path_horizons(kind, nx, H):
     package's scan reference (vmapped) on the seeded cases: ok flags
     equal, outputs of the ok problems within SPLIT_TOL·max(1, |ref|)."""
     args = sweep_case(kind, B=4, H=H, nx=nx, nu=1, seed=nx)
+    t = [torch.as_tensor(a) for a in args]
+    gains, ok = rk.riccati_backward_plain(*t)
+    out = rk.riccati_forward_plain(t[0], t[1], t[6], gains)
+    ref = jax.vmap(riccati_sweep_ref)(*[jnp.asarray(a) for a in args])
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(ref[3]))
+    want = [True, False, True, False] if kind == "negative_curvature" else [
+        True] * 4
+    assert ok.tolist() == want
+    m = ok.numpy()
+    for o, r in zip(out, ref[:3]):
+        r = np.asarray(r)[m]
+        err = np.abs(o.numpy()[m] - r) / np.maximum(1.0, np.abs(r))
+        assert err.max() <= SPLIT_TOL, err.max()
+
+
+@pytest.mark.parametrize("kind", ["delta0", "delta_per_problem",
+                                  "negative_curvature", "local_bump"])
+def test_plain_halves_match_reference_at_the_gru_quadrotor_stage(kind):
+    """At the quadrotor GRU's lifted (28, 4), H=100 (the stage and horizon
+    its backward instance takes on the card), riccati_backward_plain then
+    riccati_forward_plain against the JAX package's scan reference
+    (vmapped) on the seeded cases: ok flags equal, outputs of the ok
+    problems within SPLIT_TOL·max(1, |ref|)."""
+    args = sweep_case(kind, B=4, H=100, nx=28, nu=4, seed=28)
     t = [torch.as_tensor(a) for a in args]
     gains, ok = rk.riccati_backward_plain(*t)
     out = rk.riccati_forward_plain(t[0], t[1], t[6], gains)

@@ -6,12 +6,15 @@
   ``nmpc.replan``; ``ip.iteration`` spans equal the lockstep iterations;
   every span lies inside its parent and shares its request; the profiler's
   events carry the names; a ``batch_chunk`` slice is a child, not a root.
-* ``kkt.prepare`` notes the tanh layers' tangent-kernel launches.
+* ``kkt.prepare`` notes the tanh layers' tangent-kernel launches, and
+  holds one ``kkt.dynamics`` (the model's blocks) and one ``kkt.cost``
+  (the cost's Hessians) child each time it runs.
 * The profiler on or off gives the same plans bit for bit.
 * Dense backend: ``kkt.sweep`` spans equal the δ levels factored.
 * The buffer keeps the newest spans and counts those it dropped.
-* The benchmark's seven span readers, fed a synthetic span list, give the
-  values their docstrings define.
+* The benchmark's nine span readers, fed a synthetic span list, give the
+  values their docstrings define; the two of the blocks' parts read
+  nothing where the program records no such spans.
 """
 
 import sys
@@ -133,6 +136,29 @@ def test_prepare_notes_the_tanh_kernel_launches(fleet, monkeypatch):
                         for a in prep)
 
 
+def test_prepare_holds_one_dynamics_and_one_cost_span(fleet):
+    """Each ``kkt.prepare`` has exactly one ``kkt.dynamics`` child (the
+    model's A, B and G) and one ``kkt.cost`` child (the cost's Hessians),
+    each inside it and of its request, and no other span holds them."""
+    mpc, params, carry = fleet
+    with torch.profiler.profile(activities=CPU):
+        _, spans = _new_spans(lambda: mpc.next_batch(
+            X0S, params=params, carry=carry))
+    by_id = {s.id: s for s in spans}
+    prep = [s for s in spans if s.name == "kkt.prepare"]
+    assert prep
+    for name in ("kkt.dynamics", "kkt.cost"):
+        parts = [s for s in spans if s.name == name]
+        assert len(parts) == len(prep)
+        assert sorted(by_id[s.parent].id for s in parts) == sorted(
+            p.id for p in prep)
+        for s in parts:
+            up = by_id[s.parent]
+            assert up.name == "kkt.prepare" and s.request == up.request
+            assert up.t0_ns <= s.t0_ns <= s.t1_ns <= up.t1_ns
+    assert tracing.span("kkt.dynamics") is tracing.span("kkt.cost")
+
+
 def test_a_batch_chunk_is_a_child_of_the_call(fleet):
     mpc, params, carry = fleet
     with torch.profiler.profile(activities=CPU):
@@ -221,7 +247,9 @@ def _synthetic():
         add("ip.init", solve, req, 0, 1_000_000, 3.0 * scale)
         for _ in range(2):
             it = add("ip.iteration", solve, req, 0, 4_000_000, 35.0 * scale)
-            add("kkt.prepare", it, req, 0, 1_000_000, 20.0 * scale)
+            prep = add("kkt.prepare", it, req, 0, 1_000_000, 20.0 * scale)
+            add("kkt.dynamics", prep, req, 0, 600_000, 12.0 * scale)
+            add("kkt.cost", prep, req, 0, 300_000, 5.0 * scale)
             ks = add("kkt.solve", it, req, 0, 1_000_000, 4.0 * scale)
             add("kkt.sweep", ks, req, 0, 500_000, 1.5 * scale)
             add("sync.ladder", ks, req, 0, 100_000, 0.1 * scale)
@@ -239,6 +267,8 @@ def _synthetic():
 READ = {
     # request 2 (the device-alone window's re-plan), by hand
     "kkt_blocks_ms": 2 * 20.0,
+    "kkt_dynamics_ms": 2 * 12.0,
+    "kkt_cost_ms": 2 * 5.0,
     "kkt_solve_ms": 2 * (4.0 + 1.0),
     "line_search_ms": 2 * (6.0 - 1.0),
     "residuals_ms": 3.0 + 2 * 2.5,
@@ -261,4 +291,20 @@ def test_span_readers_on_synthetic_spans(metric, monkeypatch):
     # a program that recorded fewer roots than the windows hold: nothing
     assert reader.read(types.SimpleNamespace(traced=2)) is None
     monkeypatch.setattr(tracing, "finished", lambda: [])
+    assert reader.read(types.SimpleNamespace(traced=1)) is None
+
+
+@pytest.mark.parametrize("metric", ["kkt_dynamics_ms", "kkt_cost_ms"])
+def test_block_part_readers_read_nothing_without_their_spans(metric,
+                                                             monkeypatch):
+    """A program without the spans ``kkt.dynamics`` and ``kkt.cost`` (as
+    before they were added): their readers return None and raise
+    nothing."""
+    if str(ROOT) not in sys.path:
+        monkeypatch.syspath_prepend(str(ROOT))
+    from benchmark.harness.layout import Layout
+    reader = Layout(ROOT).reader(metric)
+    monkeypatch.setattr(tracing, "finished", lambda: [
+        s for s in _synthetic() if s.name not in ("kkt.dynamics",
+                                                  "kkt.cost")])
     assert reader.read(types.SimpleNamespace(traced=1)) is None
